@@ -1,0 +1,94 @@
+"""Shared building blocks: conv/BN/ReLU and the residual blocks.
+
+Port of ``udp_pose_tpu/models/layers.py`` in NCHW.  Attribute names are
+the reference torch ones (deep_hrnet/lib/models/pose_hrnet.py:29-101:
+``conv1``/``bn1``/.../``downsample.0``/``downsample.1``), so a published
+``.pth`` and the JAX package's bridged variables load with
+``strict=True``.
+
+BatchNorm: eps 1e-5, torch momentum 0.1 (flax's 0.9 in the other
+convention); the serving path runs it in eval mode only.
+"""
+
+from __future__ import annotations
+
+import torch.nn.functional as F
+from torch import nn
+
+BN_MOMENTUM = 0.1  # torch convention: ema = (1-m)*ema + m*batch  (flax 0.9)
+
+
+class ConvBN(nn.Sequential):
+    """Conv → BatchNorm (+ optional ReLU) as ``Sequential(conv, bn[, relu])``,
+    i.e. the reference's ``.0``/``.1`` keys (transitions, fuse chains,
+    downsample branches)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
+                 stride: int = 1, relu: bool = True):
+        pad = (kernel - 1) // 2
+        layers = [nn.Conv2d(in_ch, out_ch, kernel, stride, pad, bias=False),
+                  nn.BatchNorm2d(out_ch, eps=1e-5, momentum=BN_MOMENTUM)]
+        if relu:
+            layers.append(nn.ReLU(inplace=True))
+        super().__init__(*layers)
+
+
+def _conv_bn(in_ch, out_ch, kernel, stride):
+    pad = (kernel - 1) // 2
+    return (nn.Conv2d(in_ch, out_ch, kernel, stride, pad, bias=False),
+            nn.BatchNorm2d(out_ch, eps=1e-5, momentum=BN_MOMENTUM))
+
+
+class BasicBlock(nn.Module):
+    """3x3-3x3 residual block (pose_hrnet.py:29-59)."""
+    expansion = 1
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        self.conv1, self.bn1 = _conv_bn(inplanes, planes, 3, stride)
+        self.conv2, self.bn2 = _conv_bn(planes, planes, 3, 1)
+        self.downsample = (ConvBN(inplanes, planes, 1, stride, relu=False)
+                           if downsample else None)
+
+    def forward(self, x):
+        residual = x if self.downsample is None else self.downsample(x)
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        return F.relu(out + residual)
+
+
+class Bottleneck(nn.Module):
+    """1x1-3x3-1x1 residual block, expansion 4 (pose_hrnet.py:62-101)."""
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        self.conv1, self.bn1 = _conv_bn(inplanes, planes, 1, 1)
+        self.conv2, self.bn2 = _conv_bn(planes, planes, 3, stride)
+        self.conv3, self.bn3 = _conv_bn(planes, planes * 4, 1, 1)
+        self.downsample = (ConvBN(inplanes, planes * 4, 1, stride, relu=False)
+                           if downsample else None)
+
+    def forward(self, x):
+        residual = x if self.downsample is None else self.downsample(x)
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        return F.relu(out + residual)
+
+
+def upsample_nearest(x, factor: int):
+    """Exact nearest ×factor upsample of NCHW maps (torch nn.Upsample
+    mode='nearest')."""
+    return F.interpolate(x, scale_factor=factor, mode="nearest")
+
+
+def add_upsampled(acc, y, factor: int):
+    """``acc + upsample_nearest(y, factor)``: the HRNet fuse-add.  The JAX
+    package's concat/blocked-view formulation is a TPU layout device; the
+    math, and the order of the add, are the same."""
+    if factor == 1:
+        return acc + y
+    return acc + upsample_nearest(y, factor)

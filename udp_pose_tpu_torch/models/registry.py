@@ -1,0 +1,69 @@
+"""Model registry (port of ``udp_pose_tpu/models/registry.py``).
+
+Only ``pose_hrnet`` is ported so far; any other name raises ``KeyError``
+naming what is registered.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict
+
+import torch
+from torch import nn
+
+from ..utils.platform import resolve_device
+from .hrnet import pose_hrnet_from_cfg
+
+MODELS: Dict[str, Callable] = {}
+
+
+def register_model(name: str):
+    def deco(fn):
+        MODELS[name] = fn
+        return fn
+    return deco
+
+
+def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Seeded random init in the manner of flax's defaults, which the JAX
+    package's smoke mode uses: conv kernels normal with variance 1/fan_in
+    (flax truncates its lecun_normal; this does not), conv biases 0,
+    BatchNorm scale 1 / bias 0 / running mean 0 / running var 1.  Drawn on
+    the CPU from one ``torch.Generator``, so a seed gives the same weights
+    on every device."""
+    gen = torch.Generator().manual_seed(int(seed))
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            fan_in = m.weight[0].numel()
+            with torch.no_grad():
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
+                               / math.sqrt(fan_in))
+                if m.bias is not None:
+                    m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+    return model
+
+
+def build_model(cfg, device="cuda", seed: int = 0) -> nn.Module:
+    """Instantiate the configured architecture in eval mode on ``device``,
+    with seeded random weights (load real ones with ``load_state_dict``),
+    cast to the config's compute dtype (``TPU.DTYPE``)."""
+    dev = resolve_device(device)
+    name = cfg.MODEL.NAME
+    if name not in MODELS:
+        raise KeyError(
+            f"unknown model {name!r}; available: {sorted(MODELS)}")
+    model = init_weights(MODELS[name](cfg), seed)
+    model = model.to(device=dev, dtype=model.dtype).eval()
+    if dev.type == "cuda":
+        # the crops arrive NHWC, so the NCHW view of them is already
+        # channels-last: keep the convs in that layout (cuDNN's fast path)
+        model = model.to(memory_format=torch.channels_last)
+    return model
+
+
+@register_model("pose_hrnet")
+def _pose_hrnet(cfg):
+    return pose_hrnet_from_cfg(cfg, psa=False)

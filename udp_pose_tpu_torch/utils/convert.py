@@ -1,0 +1,176 @@
+"""Weights into the port: JAX-package variables and reference ``.pth``.
+
+The port's own copy of the reverse half of
+``udp_pose_tpu/utils/torch_convert.py`` (``Converter(reverse=True)`` and
+the HRNet mapping ``_map_pose_hrnet``): it walks the JAX package's flax
+variables — nested dicts of numpy arrays under ``params`` and
+``batch_stats`` — and emits the reference torch state_dict, whose keys
+are the port's module names.  Layout rules: flax conv kernel
+(kh, kw, I, O) → torch (O, I, kh, kw); BatchNorm scale/bias → weight/bias,
+batch_stats mean/var → running_mean/running_var.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def load_torch_state_dict(path) -> Dict[str, np.ndarray]:
+    """A reference ``.pth`` (bare weights or a checkpoint dict) →
+    {name: numpy array}, DataParallel ``module.`` prefixes stripped."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(blob, dict) and "state_dict" in blob:
+        blob = blob["state_dict"]
+    if isinstance(blob, dict) and "best_state_dict" in blob:
+        blob = blob["best_state_dict"]
+    out = {}
+    for k, v in blob.items():
+        if k.startswith("module."):
+            k = k[len("module."):]
+        out[k] = v.detach().cpu().numpy()
+    return out
+
+
+def conv_kernel_inv(k):
+    """flax (kh, kw, I, O) → torch Conv2d (O, I, kh, kw)."""
+    return np.ascontiguousarray(np.transpose(k, (3, 2, 0, 1)))
+
+
+def _get(tree, path):
+    node = tree
+    for p in path:
+        node = node[p]
+    return np.asarray(node)
+
+
+def _has(tree, path):
+    node = tree
+    for p in path:
+        if not hasattr(node, "keys") or p not in node:
+            return False
+        node = node[p]
+    return True
+
+
+class Converter:
+    """flax path → torch key emitter: walks a family mapping, reading the
+    flax variables and writing a reference-format torch state_dict."""
+
+    def __init__(self, variables):
+        self.params = variables["params"]
+        self.stats = variables.get("batch_stats", {})
+        self.sd: Dict[str, np.ndarray] = {}
+
+    def probe(self, tkey: str, *fpath) -> bool:
+        """Does the flax tree hold the module at ``fpath``?"""
+        return _has(self.params, fpath)
+
+    def conv(self, tkey: str, *path):
+        self.sd[tkey + ".weight"] = conv_kernel_inv(
+            _get(self.params, (*path, "kernel")))
+        if _has(self.params, (*path, "bias")):
+            self.sd[tkey + ".bias"] = _get(self.params, (*path, "bias"))
+
+    def bn(self, tkey: str, *path):
+        self.sd[f"{tkey}.weight"] = _get(self.params, (*path, "scale"))
+        self.sd[f"{tkey}.bias"] = _get(self.params, (*path, "bias"))
+        self.sd[f"{tkey}.running_mean"] = _get(self.stats, (*path, "mean"))
+        self.sd[f"{tkey}.running_var"] = _get(self.stats, (*path, "var"))
+        self.sd[f"{tkey}.num_batches_tracked"] = np.array(0, np.int64)
+
+
+def _convert_basic_block(cv, tprefix, fpath):
+    cv.conv(f"{tprefix}.conv1", *fpath, "cb1", "conv")
+    cv.bn(f"{tprefix}.bn1", *fpath, "cb1", "bn")
+    cv.conv(f"{tprefix}.conv2", *fpath, "cb2", "conv")
+    cv.bn(f"{tprefix}.bn2", *fpath, "cb2", "bn")
+    if cv.probe(f"{tprefix}.downsample.0.weight", *fpath, "down"):
+        cv.conv(f"{tprefix}.downsample.0", *fpath, "down", "conv")
+        cv.bn(f"{tprefix}.downsample.1", *fpath, "down", "bn")
+
+
+def _convert_bottleneck(cv, tprefix, fpath):
+    for i in (1, 2, 3):
+        cv.conv(f"{tprefix}.conv{i}", *fpath, f"cb{i}", "conv")
+        cv.bn(f"{tprefix}.bn{i}", *fpath, f"cb{i}", "bn")
+    if cv.probe(f"{tprefix}.downsample.0.weight", *fpath, "down"):
+        cv.conv(f"{tprefix}.downsample.0", *fpath, "down", "conv")
+        cv.bn(f"{tprefix}.downsample.1", *fpath, "down", "bn")
+
+
+def _map_pose_hrnet(cv: Converter, stages_cfg):
+    """The reference pose_hrnet key layout (deep_hrnet/lib/models/
+    pose_hrnet.py) against the JAX package's module names."""
+    cv.conv("conv1", "stem1", "conv")
+    cv.bn("bn1", "stem1", "bn")
+    cv.conv("conv2", "stem2", "conv")
+    cv.bn("bn2", "stem2", "bn")
+    for bi in range(4):
+        _convert_bottleneck(cv, f"layer1.{bi}", (f"layer1_{bi}",))
+
+    for si, (num_modules, nb, block, num_blocks, _) in enumerate(stages_cfg):
+        t = si + 1  # transition index
+        for i in range(nb):
+            if cv.probe(f"transition{t}.{i}.0.weight", f"transition{t}_{i}"):
+                # single Sequential(Conv, BN, ReLU): channel-change branch
+                cv.conv(f"transition{t}.{i}.0", f"transition{t}_{i}", "conv")
+                cv.bn(f"transition{t}.{i}.1", f"transition{t}_{i}", "bn")
+            else:
+                j = 0
+                while cv.probe(f"transition{t}.{i}.{j}.0.weight",
+                               f"transition{t}_{i}_{j}"):
+                    cv.conv(f"transition{t}.{i}.{j}.0",
+                            f"transition{t}_{i}_{j}", "conv")
+                    cv.bn(f"transition{t}.{i}.{j}.1",
+                          f"transition{t}_{i}_{j}", "bn")
+                    j += 1
+        convert_block = (_convert_basic_block if block == "BASIC"
+                         else _convert_bottleneck)
+        for mi in range(num_modules):
+            tmod = f"stage{si + 2}.{mi}"
+            fmod = f"stage{si + 2}_{mi}"
+            for br in range(nb):
+                for bi in range(num_blocks[br]):
+                    convert_block(cv, f"{tmod}.branches.{br}.{bi}",
+                                  (fmod, f"branch{br}_{bi}"))
+            for i in range(nb):
+                for j in range(nb):
+                    base = f"{tmod}.fuse_layers.{i}.{j}"
+                    if j > i and cv.probe(f"{base}.0.weight",
+                                          fmod, f"fuse{i}_{j}"):
+                        cv.conv(f"{base}.0", fmod, f"fuse{i}_{j}")
+                        cv.bn(f"{base}.1", fmod, f"fuse{i}_{j}_bn")
+                    elif j == i and cv.probe(f"{base}.0.weight",
+                                             fmod, f"fuse{i}_{j}"):
+                        # last-module widening 1x1 (no BN)
+                        cv.conv(f"{base}.0", fmod, f"fuse{i}_{j}")
+                    elif j < i:
+                        k = 0
+                        while cv.probe(f"{base}.{k}.0.weight",
+                                       fmod, f"fuse{i}_{j}_{k}"):
+                            cv.conv(f"{base}.{k}.0", fmod, f"fuse{i}_{j}_{k}")
+                            cv.bn(f"{base}.{k}.1", fmod,
+                                  f"fuse{i}_{j}_{k}_bn")
+                            k += 1
+    cv.conv("final_layer", "final_layer")
+
+
+def variables_to_state_dict(variables, cfg) -> Dict[str, np.ndarray]:
+    """JAX-package variables of ``cfg``'s model → the port's state_dict
+    (numpy values; ``model.load_state_dict(strict=True)`` accepts it)."""
+    from ..models.hrnet import stages_from_cfg
+    if cfg.MODEL.NAME != "pose_hrnet":
+        raise KeyError(f"no weight mapping for model {cfg.MODEL.NAME!r}; "
+                       "ported: ['pose_hrnet']")
+    cv = Converter(variables)
+    _map_pose_hrnet(cv, stages_from_cfg(cfg))
+    return cv.sd
+
+
+def state_dict_to_torch(sd) -> Dict[str, torch.Tensor]:
+    """{name: numpy array | tensor} → {name: tensor} for load_state_dict."""
+    return {k: v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
+            for k, v in sd.items()}
