@@ -1,20 +1,31 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``udp_pose_tpu_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--peak-before OLD/peak_offset.cu]
 
-Builds the port's CUDA kernel from ``udp_pose_tpu_torch/csrc`` and holds
-it against its plain PyTorch version on the card; checks the fp32 blur;
-runs full-width HRNet-w32 256×192 UDP-offset (seeded random weights)
-against the port on the CPU and times the flip-test serving graph; then
-serves ``/v1/pose`` requests over HTTP through the kernel.  Any failed
-check exits nonzero before the last line, which is
+Builds the port's CUDA source ``udp_pose_tpu_torch/csrc/peak_offset.cu``
+and holds both of its kernels bit for bit against their plain PyTorch
+versions on the card: the peak-only mode on six map families (phase 3;
+with ``--peak-before``, also an earlier revision of the source, timed in
+turns with this one).  Runs full-width HRNet-w32 256×192 UDP-offset
+(seeded random weights) against the port on the CPU, holds the fused
+decode of its card heatmaps against the plain version and the old
+matrix-product route, and times the flip-test serving graph and its
+decode before and after (phase 5, before any profiler session: see
+:func:`phase_model`).  Holds the fused UDP offset decode on the map
+families, as the heatmap channels of B=128 net outputs in NCHW and
+channels-last layouts, against its plain version (phase 3b), profiles
+the bf16 batches (phase 5d), checks the fp32 blurs (phase 4), then
+serves ``/v1/pose`` requests over HTTP through the fused kernel (phase
+6).  Any failed check exits nonzero before the last line, which is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits 1.
 Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import http.client
 import io
 import json
@@ -72,10 +83,13 @@ W32_UDP_OFFSET = {
 SERVE_BATCH = 128                # crops per flip-test batch (bench.py:104)
 N_MAPS = SERVE_BATCH * 17        # peak-kernel rows at that batch
 MAP_HW = (64, 48)
-# H100 SXM data sheet: device memory rate (bytes/s), fp32 rate outside the
-# tensor cores (operations/s)
+# H100 SXM data sheet: device memory rate (bytes/s); its 67 TFLOP/s fp32
+# rate outside the tensor cores counts an FMA as two operations, so the
+# kernels' separate multiplies, adds and compares run at half of it
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+FP32_OPS_PER_S = 67e12 / 2
+KPD = 4.0                        # LOSS.KPD of the config
+LAYOUTS = ("nchw", "channels_last")
 HEATMAP_REL_TOL = 1e-4           # fp32 card vs CPU, TF32 off (phase 5a)
 BLUR_ATOL = 1e-5                 # fp32 blur vs float64 (phase 4)
 
@@ -120,6 +134,39 @@ def cuda_ms(fn, arg_sets, iters=50, repeats=5, warm_s=0.3):
         start.record()
         for i in range(iters):
             fn(*arg_sets[i % len(arg_sets)])
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    return float(np.median(runs))
+
+
+def graph_ms(fn, arg_sets, iters=30, repeats=5, warm_s=0.3):
+    """ms per call of device time: ``iters`` calls (cycling over
+    ``arg_sets``) captured in one CUDA graph, whose replays are timed
+    with CUDA events after ``warm_s`` seconds of replays; the median of
+    ``repeats``.  Unlike :func:`cuda_ms` it leaves out the host's cost of
+    each launch, which sets the pace of back-to-back eager calls whenever
+    it exceeds the kernel's own time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):      # caches and libraries, uncaptured
+        for args in arg_sets:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+    t_end = time.perf_counter() + warm_s
+    while time.perf_counter() < t_end:
+        graph.replay()
+        torch.cuda.synchronize()
+    runs = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
         end.record()
         torch.cuda.synchronize()
         runs.append(start.elapsed_time(end) / iters)
@@ -213,7 +260,57 @@ def same_bits(a, b):
     return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
 
 
-def phase_kernel(device="cuda"):
+def raw_peak_launcher(lib):
+    """A thin wrapper of a built library's ``peak_offset_launch``, with no
+    checks and no launch count, so that every build it times pays the
+    same Python cost a call."""
+    fn = lib.peak_offset_launch
+    fn.argtypes = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3 \
+        + (ctypes.c_void_p,)
+    fn.restype = ctypes.c_int
+
+    def launch(hm, ox, oy):
+        N, H, W = hm.shape
+        out = torch.empty((N, 5), device=hm.device)
+        status = fn(hm.data_ptr(), ox.data_ptr(), oy.data_ptr(),
+                    out.data_ptr(), N, H * W, W,
+                    torch.cuda.current_stream().cuda_stream)
+        check(status == 0, f"peak_offset_launch: cudaError_t {status}")
+        return out
+
+    return launch
+
+
+def compare_peak_builds(before_src, sets):
+    """This source's peak-only kernel against that of an earlier revision
+    (``before_src``) on the same maps: each bit-equal to the plain
+    version, then both timed through :func:`raw_peak_launcher` by graph
+    replay and by back-to-back eager calls, in turns (this, before,
+    before, this)."""
+    from udp_pose_tpu_torch.ops import _build
+    from udp_pose_tpu_torch.ops.peak_offset import fused_peak_offset_reference
+    builds = {"this": raw_peak_launcher(_build.load("peak_offset")),
+              "before": raw_peak_launcher(ctypes.CDLL(str(_build.build(
+                  "peak_offset_before", before_src))))}
+    for name, fn in builds.items():
+        for hm, ox, oy in sets:
+            check(same_bits(fn(hm, ox, oy),
+                            fused_peak_offset_reference(hm, ox, oy)),
+                  f"peak-only kernel, {name} build, != plain version")
+    times = {name: {"graph": [], "eager": []} for name in builds}
+    for name in ("this", "before", "before", "this"):
+        times[name]["graph"].append(graph_ms(builds[name], sets) * 1e3)
+        times[name]["eager"].append(cuda_ms(builds[name], sets) * 1e3)
+    for name, t in times.items():
+        log(f"[kernel] peak-only, {name} build"
+            f"{'' if name == 'this' else f' ({before_src})'}: bit-equal to "
+            f"the plain version; graph replay "
+            f"{', '.join(f'{v:.2f}' for v in t['graph'])} us, back to back "
+            f"from Python {', '.join(f'{v:.2f}' for v in t['eager'])} us "
+            f"(turns this, before, before, this)")
+
+
+def phase_kernel(device="cuda", peak_before=None):
     from udp_pose_tpu_torch.ops.peak_offset import (
         fused_peak_offset, fused_peak_offset_reference)
     sets = [map_families(N_MAPS, MAP_HW, device, seed) for seed in (0, 1, 2)]
@@ -225,40 +322,187 @@ def phase_kernel(device="cuda"):
         check(same_bits(got, want),
               "peak_offset kernel != plain version on the map families")
         worst = max(worst, float((got - want).nan_to_num(0.0).abs().max()))
-    ms = cuda_ms(fused_peak_offset, sets)
+    ms = graph_ms(fused_peak_offset, sets)
+    eager_ms = cuda_ms(fused_peak_offset, sets)
     plain_ms = cuda_ms(fused_peak_offset_reference, sets, iters=20)
     H, W = MAP_HW
     # bytes the function must move: each heatmap read once, the two
     # offsets read at the peak, the (N, 5) result written once
     bytes_moved = N_MAPS * (H * W + 2 + 5) * 4
     ops = N_MAPS * H * W            # one compare per heatmap element
-    bound_ms = max(bytes_moved / HBM_BYTES_PER_S,
-                   ops / FP32_OPS_PER_S) * 1e3
-    bound_by = ("bytes" if bytes_moved / HBM_BYTES_PER_S
-                >= ops / FP32_OPS_PER_S else "operations")
+    bound_ms, bound_by = bound_of(bytes_moved, ops)
     log(f"[kernel] fused_peak_offset N={N_MAPS} {H}x{W}: bit-equal to the "
         f"plain version on peaky/noise/negative/constant/tie/NaN maps; "
-        f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
+        f"kernel {ms * 1e3:.2f} us (graph replay; {eager_ms * 1e3:.2f} us "
+        f"a call back to back from Python), plain {plain_ms * 1e3:.2f} us, "
         f"bound {bound_ms * 1e3:.2f} us ({bound_by})")
+    if peak_before:
+        compare_peak_builds(peak_before, sets)
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+# --------------------------------------------------------------- phase 3b
+def decode_inputs(seed, device="cuda", batch=SERVE_BATCH, hw=MAP_HW):
+    """(batch, 51, H, W) net outputs whose heatmap channels are the six
+    map families and whose offset channels are noise, per layout."""
+    J = 17
+    hm, ox, oy = map_families(batch * J, hw, device, seed)
+    net = torch.empty(batch, 3 * J, *hw, device=device)
+    for c, maps in enumerate((hm, ox, oy)):
+        net[:, c::3] = maps.view(batch, J, *hw)
+    return {"nchw": net,
+            "channels_last": net.contiguous(
+                memory_format=torch.channels_last)}
+
+
+def fused_bound(layout, batch=SERVE_BATCH, J=17, hw=MAP_HW):
+    """(bytes, operations) the fused decode must move and do.  With
+    channels-last input a pixel's 3J interleaved floats span all of their
+    32-byte sectors, so the whole tensor is read; NCHW input reads the
+    heatmap channels and 2 × 49 offsets a map.  Operations: two folded
+    15-tap passes (1 + 7 × 3 each) and a compare per pixel; per map the
+    two 7×7 point blurs, 7 rows of (7 kpd products + 1 + 3 × 3) and a
+    column of 1 + 3 × 3."""
+    H, W = hw
+    maps = batch * J
+    if layout == "channels_last":
+        read = maps * 3 * H * W * 4
+    else:
+        read = maps * (H * W + 2 * 49) * 4
+    ops = maps * (H * W * (2 * 22 + 1) + 2 * (7 * 17 + 10))
+    return read + maps * 5 * 4, ops
+
+
+def bound_of(bytes_moved, ops):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def device_kernels(fn):
+    """Names of the device kernels one call of ``fn`` ran (profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def matmul_route(net, kpd=KPD):
+    """The decode route before the fused kernel: matrix-product blurs,
+    then the peak-only kernel; (B, J, 5)."""
+    from udp_pose_tpu_torch.ops.peak_offset import (blurred_offset_maps,
+                                                    fused_peak_offset)
+    return fused_peak_offset(*blurred_offset_maps(net, kpd)).reshape(
+        net.shape[0], -1, 5)
+
+
+def phase_fused(device="cuda"):
+    """The fused decode kernel against its plain version, per layout."""
+    from udp_pose_tpu_torch.ops import peak_offset as po
+    from udp_pose_tpu_torch.ops.decode import udp_offset_decode
+    sets = [decode_inputs(seed, device) for seed in (0, 1, 2)]
+    worst = {layout: 0.0 for layout in LAYOUTS}
+    for s in sets:
+        per_layout = []
+        for layout in LAYOUTS:
+            got = po.udp_offset_decode_fused(s[layout], KPD)
+            want = po.udp_offset_decode_reference(s[layout], KPD)
+            torch.cuda.synchronize()
+            check(same_bits(got, want), f"fused decode != plain version "
+                  f"on the map families, {layout}")
+            worst[layout] = max(worst[layout], float(
+                (got - want).nan_to_num(0.0).abs().max()))
+            per_layout.append(got)
+        check(same_bits(*per_layout), "fused decode: NCHW != channels-last")
+    # the run-time-shape copy of the kernel: 96x72 (384x288 crops, more
+    # than 48 KB of shared memory a block) and an odd size
+    for batch, hw in ((8, (96, 72)), (6, (20, 13))):
+        s = decode_inputs(7, device, batch=batch, hw=hw)
+        for layout in LAYOUTS:
+            check(same_bits(po.udp_offset_decode_fused(s[layout], KPD),
+                            po.udp_offset_decode_reference(s[layout], KPD)),
+                  f"fused decode != plain version at {hw}, {layout}")
+    log("[fused] bit-equal to the plain version also at 96x72 (B=8) and "
+        "20x13 (B=6), both layouts")
+
+    # one decode is one launch of the fused kernel, and no other kernel
+    # of the port and no matrix product
+    net = sets[0]["channels_last"]
+    fused0, peak0 = po.udp_offset_decode_fused.launches, \
+        po.fused_peak_offset.launches
+    names = device_kernels(lambda: udp_offset_decode(net, KPD))
+    check(po.udp_offset_decode_fused.launches == fused0 + 1
+          and po.fused_peak_offset.launches == peak0,
+          "udp_offset_decode did not make exactly one fused launch")
+    if names:
+        ours = [n for n in names if "udp_decode_kernel" in n]
+        check(len(ours) == 1, f"udp_decode_kernel ran {len(ours)} times "
+              f"in one decode: {names}")
+        check(not any("gemm" in n.lower() or "peak_offset_kernel" in n
+                      for n in names), f"matmul or peak-only kernel in "
+              f"the fused decode: {names}")
+        log(f"[fused] one udp_offset_decode call ran {len(names)} device "
+            f"kernel(s): {'; '.join(n[:50] for n in names)}")
+    else:
+        log("[fused] the profiler saw no device kernels: the one-launch "
+            "check rests on the launch counters alone")
+
+    B, C, H, W = net.shape
+    results = {}
+    for layout in LAYOUTS:
+        args = [(s[layout], KPD) for s in sets]
+        ms = graph_ms(po.udp_offset_decode_fused, args)
+        eager_ms = cuda_ms(po.udp_offset_decode_fused, args)
+        plain_ms = cuda_ms(po.udp_offset_decode_reference, args, iters=5,
+                           repeats=3)
+        matmul_ms = graph_ms(matmul_route, args, iters=10)
+        bytes_moved, ops = fused_bound(layout)
+        bound_ms, bound_by = bound_of(bytes_moved, ops)
+        # the values the function needs, whatever the layout makes it read
+        hm_bound_ms = bound_of(*fused_bound("nchw"))[0]
+        log(f"[fused] udp_offset_decode_fused B={B} C={C} {H}x{W} {layout}: "
+            f"bit-equal to the plain version on peaky/noise/negative/"
+            f"constant/tie/NaN heatmaps; kernel {ms * 1e3:.2f} us (graph "
+            f"replay; {eager_ms * 1e3:.2f} us a call back to back from "
+            f"Python), plain "
+            f"{plain_ms * 1e3:.2f} us, matmul route (blurs + peak-only "
+            f"kernel) {matmul_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} "
+            f"us ({bound_by}: {bytes_moved / 1e6:.1f} MB, "
+            f"{ops / 1e6:.1f} M fp32 operations); on the heatmap and "
+            f"offset values alone {hm_bound_ms * 1e3:.2f} us, "
+            f"{hm_bound_ms / ms:.0%} of it")
+        results[layout] = {"max_abs_err": worst[layout], "ms": ms,
+                           "plain_ms": plain_ms, "bound_ms": bound_ms,
+                           "bound_by": bound_by, "matmul_route_ms": matmul_ms}
+    return results
+
+
 # ---------------------------------------------------------------- phase 4
 def phase_blur(device="cuda", shape=(SERVE_BATCH, 51) + MAP_HW):
-    from udp_pose_tpu_torch.ops.blur import blur_matrix_f64, gaussian_blur
+    """Both fp32 blurs, the matrix product and the ordered tap sum of the
+    fused kernel's plain version, against float64."""
+    from udp_pose_tpu_torch.ops.blur import (blur_matrix_f64, gaussian_blur,
+                                             separable_blur_reference)
     x = torch.randn(*shape, generator=torch.Generator().manual_seed(4))
     xd = x.to(device)
     x64 = x.numpy().astype(np.float64)
     H, W = shape[-2:]
     for ksize in (15, 7):
-        got = gaussian_blur(xd, ksize).cpu().numpy()
         want = blur_matrix_f64(H, ksize, 0.0) @ x64 @ \
             blur_matrix_f64(W, ksize, 0.0).T
-        err = float(np.abs(got - want).max())
-        log(f"[blur] {ksize}x{ksize} at {tuple(shape)}: max abs err vs "
-            f"float64 {err:.3g} (limit {BLUR_ATOL:g})")
-        check(err <= BLUR_ATOL, f"blur {ksize}: {err} > {BLUR_ATOL}")
+        for blur in (gaussian_blur, separable_blur_reference):
+            got = blur(xd, ksize).cpu().numpy()
+            err = float(np.abs(got - want).max())
+            log(f"[blur] {blur.__name__} {ksize}x{ksize} at {tuple(shape)}: "
+                f"max abs err vs float64 {err:.3g} (limit {BLUR_ATOL:g})")
+            check(err <= BLUR_ATOL, f"{blur.__name__} {ksize}: {err} > "
+                  f"{BLUR_ATOL}")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -289,12 +533,25 @@ def infer_for(cfg, device, flip_mode="fold", seed=0):
                          kpd=cfg.LOSS.KPD, flip_mode=flip_mode)
 
 
+def layout_of(t):
+    return ("channels_last" if t.is_contiguous(
+        memory_format=torch.channels_last) and not t.is_contiguous()
+        else "nchw")
+
+
+def peak_index(packed, W):
+    return (packed[..., 1] * W + packed[..., 0]).long()
+
+
 def phase_model(cfg_fn=w32_cfg, batch=SERVE_BATCH, iters=10,
                 device="cuda"):
+    """Returns (crops/s per dtype and flip mode, the layout of the
+    heatmaps the serving graph hands its decode, a function that profiles
+    the bf16 batches)."""
     from udp_pose_tpu_torch.ops import peak_offset as po
     from udp_pose_tpu_torch.ops.decode import get_final_preds, transform_preds
 
-    launches0 = po.fused_peak_offset.launches
+    launches0 = po.udp_offset_decode_fused.launches
     # (a) fp32, TF32 off: card heatmaps vs the port on the CPU
     set_tf32(False)
     cfg32 = cfg_fn("float32")
@@ -309,73 +566,118 @@ def phase_model(cfg_fn=w32_cfg, batch=SERVE_BATCH, iters=10,
         f"(limit {HEATMAP_REL_TOL:g} x max |hm|)")
     check(err <= HEATMAP_REL_TOL * ref_max, "card heatmaps != CPU heatmaps")
 
-    # (b) decode of the same card heatmaps: kernel vs plain version
+    # (b) decode of the card heatmaps: fused kernel vs plain version, the
+    # serving graph's preds vs the fused decode, and vs the matmul route
     crops, center, scale = random_crops(batch, cfg32, seed=6)
     preds, maxvals, hm = gpu(crops, center, scale)
-    maps = po.blurred_offset_maps(hm, cfg32.LOSS.KPD)
-    decoded = []
-    for peak in (po.fused_peak_offset, po.fused_peak_offset_reference):
-        coords, mv = po.packed_to_coords(
-            peak(*maps).reshape(batch, -1, 5))
-        decoded.append((transform_preds(
-            coords, torch.from_numpy(center).to(device),
-            torch.from_numpy(scale).to(device), hm.shape[:1:-1]), mv))
-    check(same_bits(decoded[0][0], decoded[1][0])
-          and same_bits(decoded[0][1], decoded[1][1]),
-          "decode with the kernel != decode with the plain version")
-    check(same_bits(decoded[0][0], preds) and same_bits(decoded[0][1],
-                                                         maxvals),
-          "make_infer_fn preds != kernel decode of its own heatmaps")
+    layout = layout_of(hm)
+    fused = po.udp_offset_decode_fused(hm, KPD)
+    check(same_bits(fused, po.udp_offset_decode_reference(hm, KPD)),
+          "fused decode of the w32 heatmaps != its plain version")
+    coords, mv = po.packed_to_coords(fused)
+    c = torch.from_numpy(center).to(device)
+    s = torch.from_numpy(scale).to(device)
+    check(same_bits(transform_preds(coords, c, s, hm.shape[:1:-1]), preds)
+          and same_bits(mv, maxvals),
+          "make_infer_fn preds != fused decode of its own heatmaps")
     check(bool(torch.isfinite(preds).all()), "non-finite preds")
-    log(f"[model] w32 fp32 B={batch} decode: kernel == plain version "
-        f"(preds {tuple(preds.shape)}, maxvals {tuple(maxvals.shape)}; "
-        f"{int((maxvals <= 0).sum())} of {maxvals.numel()} peaks <= 0)")
+    W = hm.shape[-1]
+    blurred = po.blurred_offset_maps(hm, KPD)[0].flatten(1)
+    top2 = blurred.topk(2, dim=1).values
+    margin = 1e-5 * float(hm[:, 0::3].abs().max())
+    clear = ((top2[:, 0] - top2[:, 1] > margin)
+             & (top2[:, 0].abs() > margin)).view(batch, -1)
+    agree = peak_index(fused, W) == peak_index(matmul_route(hm), W)
+    check(bool(agree[clear].all()), f"{int((~agree & clear).sum())} maps "
+          f"whose top two blurred values differ by more than {margin:.3g} "
+          f"peak elsewhere than on the matmul route")
+    log(f"[model] w32 fp32 B={batch} heatmaps ({layout}, strides "
+        f"{tuple(hm.stride())}): fused decode == plain version, "
+        f"make_infer_fn preds == fused decode ({int((maxvals <= 0).sum())} "
+        f"of {maxvals.numel()} peaks <= 0); peak index equal to the matmul "
+        f"route on all {int(clear.sum())} maps with a top-2 margin > "
+        f"{margin:.3g}, {int((~clear).sum())} maps under it "
+        f"({int((~agree).sum())} of all maps differ)")
 
-    # (c) crops/s of the flip-test serving graph from host u8 crops
+    # (c) crops/s of the flip-test serving graph from host u8 crops, timed
+    # before the process's first torch.profiler session.  bf16 two_pass
+    # (2 B-sized forwards, twice the launches of fold) is paced by the
+    # host and spreads from run to run; 5d times it again after profiling
     set_tf32(True)             # PyTorch's default for cuDNN convs
     torch.backends.cuda.matmul.allow_tf32 = False
-    rates = {}
+    rates, bf16 = {}, {}
     card = card_line()
+
+    def rate_of(infer, dtype, mode, when=""):
+        ms = [host_ms(lambda: infer(crops, center, scale), iters)
+              for _ in range(3)]
+        log(f"[model] w32 256x192 flip B={batch} {dtype} {mode}{when}: "
+            f"{batch / np.median(ms) * 1e3:.1f} crops/s (median of 3 runs "
+            f"of {iters} batches: {', '.join(f'{m:.2f}' for m in ms)} "
+            f"ms/batch; host u8 crops in, decoded preds out; cuDNN TF32 "
+            f"convs on for float32) | {card}")
+        return batch / np.median(ms) * 1e3, float(np.median(ms))
+
     for dtype in ("bfloat16", "float32"):
         for mode in ("two_pass", "fold"):
             infer = infer_for(cfg_fn(dtype), device, flip_mode=mode)
-            ms = [host_ms(lambda: infer(crops, center, scale), iters)
-                  for _ in range(3)]
-            rate = batch / np.median(ms) * 1e3
-            rates[f"{dtype}/{mode}"] = rate
-            log(f"[model] w32 256x192 flip B={batch} {dtype} {mode}: "
-                f"{rate:.1f} crops/s (median of 3 runs of {iters} batches: "
-                f"{', '.join(f'{m:.2f}' for m in ms)} ms/batch; host u8 "
-                f"crops in, decoded preds out; cuDNN TF32 convs on for "
-                f"float32) | {card}")
-            if dtype == "bfloat16":
-                # where a batch's time goes, outside the forwards
-                c = torch.from_numpy(center).to(device)
-                s = torch.from_numpy(scale).to(device)
-                _, _, hm = infer(crops, center, scale)
-                h2d = host_ms(lambda: torch.as_tensor(crops, device=device))
-                dec = cuda_ms(lambda h: get_final_preds(
-                    h, c, s, target_type="offset", kpd=4.0), [(hm,)],
-                    iters=20)
-                log(f"[model]   {mode} B={batch}: u8 crops host->card "
-                    f"{h2d:.3f} ms, decode (blurs + peak kernel + "
-                    f"transform) {dec:.3f} ms, of {np.median(ms):.2f} "
-                    f"ms/batch")
-                wall, busy, top = profile_device(
-                    lambda: infer(crops, center, scale))
-                if busy > 0:
-                    log(f"[model]   {mode} profile: 3 batches {wall:.2f} ms "
-                        f"wall, card busy {busy:.2f} ms (idle share "
-                        f"{1 - busy / wall:.3f}); top kernels (ms): "
-                        + "; ".join(f"{k[:60]} {t:.2f}" for k, t in top))
-                else:
-                    log(f"[model]   {mode} profile: the profiler saw no "
-                        "device time; idle share not measured")
-            del infer
-            torch.cuda.empty_cache()
-    check(po.fused_peak_offset.launches > launches0,
-          "the model phase never launched the peak kernel")
-    return rates
+            rates[f"{dtype}/{mode}"], batch_ms = rate_of(infer, dtype, mode)
+            if dtype == "float32":
+                del infer
+                torch.cuda.empty_cache()
+                continue
+            bf16[mode] = infer
+            # where a batch's time goes, outside the forwards; the decode
+            # before (matmul route) and after (fused kernel), in turns
+            _, _, hm = infer(crops, center, scale)
+            h2d = host_ms(lambda: torch.as_tensor(crops, device=device))
+
+            def fused_decode(h):
+                return get_final_preds(h, c, s, target_type="offset",
+                                       kpd=KPD)
+
+            def matmul_decode(h):
+                coords, mv = po.packed_to_coords(matmul_route(h))
+                return transform_preds(coords, c, s, h.shape[:1:-1]), mv
+
+            # device time (graph replay) and eager back-to-back calls
+            dec = {"matmul": [], "fused": []}
+            for name in ("matmul", "fused", "fused", "matmul"):
+                fn = fused_decode if name == "fused" else matmul_decode
+                dec[name] += [graph_ms(fn, [(hm,)], iters=10),
+                              cuda_ms(fn, [(hm,)], iters=20)]
+            log(f"[model]   {mode} B={batch}: u8 crops host->card "
+                f"{h2d:.3f} ms; decode before (matmul blurs + peak-only "
+                f"kernel + transform) {dec['matmul'][0]:.4f}, "
+                f"{dec['matmul'][2]:.4f} ms device, {dec['matmul'][1]:.4f}"
+                f", {dec['matmul'][3]:.4f} ms eager; after (fused kernel "
+                f"+ transform) {dec['fused'][0]:.4f}, "
+                f"{dec['fused'][2]:.4f} ms device, {dec['fused'][1]:.4f}, "
+                f"{dec['fused'][3]:.4f} ms eager; of {batch_ms:.2f} "
+                f"ms/batch; heatmaps {layout_of(hm)}")
+    check(po.udp_offset_decode_fused.launches > launches0,
+          "the model phase never launched the fused decode kernel")
+
+    def profile():
+        """(d) the bf16 batches under torch.profiler, then two_pass timed
+        again; run after the other phases' first profiler session."""
+        for mode, infer in bf16.items():
+            wall, busy, top = profile_device(
+                lambda: infer(crops, center, scale))
+            if busy > 0:
+                log(f"[model]   bfloat16 {mode} profile: 3 batches "
+                    f"{wall:.2f} ms wall, card busy {busy:.2f} ms (idle "
+                    f"share {1 - busy / wall:.3f}); top kernels (ms): "
+                    + "; ".join(f"{k[:60]} {t:.2f}" for k, t in top))
+            else:
+                log(f"[model]   bfloat16 {mode} profile: the profiler saw "
+                    "no device time; idle share not measured")
+        rate_of(bf16["two_pass"], "bfloat16", "two_pass",
+                " after profiler sessions")
+        bf16.clear()
+        torch.cuda.empty_cache()
+
+    return rates, layout, profile
 
 
 # ---------------------------------------------------------------- phase 6
@@ -422,9 +724,10 @@ def requests_for(n_requests, frame_hw, seed=7):
 
 
 def phase_server(cfg, device="cuda", n_requests=4, frame_hw=(720, 1280)):
-    """Returns the peak kernel's launches while serving the requests."""
+    """Returns each kernel's launches while serving the requests."""
     from udp_pose_tpu_torch.engine.server import PoseServer, PoseService
-    from udp_pose_tpu_torch.ops.peak_offset import fused_peak_offset
+    from udp_pose_tpu_torch.ops.peak_offset import (fused_peak_offset,
+                                                    udp_offset_decode_fused)
 
     service = PoseService(cfg, device=device, seed=0, window_ms=50.0)
     server = PoseServer(service, host="127.0.0.1", port=0)
@@ -438,14 +741,16 @@ def phase_server(cfg, device="cuda", n_requests=4, frame_hw=(720, 1280)):
             gate.wait()
             results[i] = post_pose(server.port, *reqs[i])
 
-        fused_peak_offset.launches = 0
+        fused_peak_offset.launches = udp_offset_decode_fused.launches = 0
         clients = [threading.Thread(target=client, args=(i,))
                    for i in range(n_requests)]
         for c in clients:
             c.start()
         for c in clients:
             c.join(timeout=600)
-        launches = fused_peak_offset.launches
+        launches = {"udp_offset_decode_fused":
+                    udp_offset_decode_fused.launches,
+                    "fused_peak_offset": fused_peak_offset.launches}
         check(not any(c.is_alive() for c in clients), "a client hung")
         batches = service.batcher.log_snapshot()
         J = cfg.MODEL.NUM_JOINTS
@@ -461,11 +766,12 @@ def phase_server(cfg, device="cuda", n_requests=4, frame_hw=(720, 1280)):
         log(f"[serve] {n_requests} concurrent /v1/pose requests "
             f"({[len(b) for _, b in reqs]} boxes): all 200; latencies "
             f"{[round(r[2] * 1e3, 1) for r in results]} ms; batches "
-            f"{list(batches)}; peak kernel launches {launches}")
+            f"{list(batches)}; kernel launches {launches}")
         check(len(batches) < n_requests,
               f"no coalescing: {len(batches)} batches for "
               f"{n_requests} requests")
-        check(launches > 0, "serving never launched the peak kernel")
+        check(launches["udp_offset_decode_fused"] > 0,
+              "serving never launched the fused decode kernel")
 
         # each request alone, through the server and straight through the
         # pipeline: the same bucket shapes, so the same numbers
@@ -492,7 +798,13 @@ def phase_server(cfg, device="cuda", n_requests=4, frame_hw=(720, 1280)):
 
 
 # ------------------------------------------------------------------ main
-def main():
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--peak-before", metavar="CU",
+        help="an earlier revision of udp_pose_tpu_torch/csrc/peak_offset.cu "
+             "whose peak-only kernel phase 3 times in turns with this one")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this "
               "script needs an NVIDIA card", file=sys.stderr)
@@ -502,25 +814,32 @@ def main():
     t0 = time.perf_counter()
     try:
         phase_build()
-        kernel = phase_kernel()
+        peak = phase_kernel(peak_before=args.peak_before)
+        _, layout, profile_model = phase_model()
+        # 3b's one-launch check reads the profiler's kernel list, which
+        # has missed the ctypes-launched kernel in a process's later
+        # profiler sessions: 3b holds the first one
+        fused = phase_fused()
+        profile_model()
         phase_blur()
-        phase_model()
         launches = phase_server(w32_cfg("bfloat16"))
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
+    common = {"route": "cuda",
+              "source": "udp_pose_tpu_torch/csrc/peak_offset.cu",
+              "replaces": "udp_pose_tpu/ops/pallas/decode_kernels.py:83",
+              "matched": True, "library_ms": None}
     print(card_line())
-    print(json.dumps({"kernels": [{
-        "name": "fused_peak_offset",
-        "route": "cuda",
-        "source": "udp_pose_tpu_torch/csrc/peak_offset.cu",
-        "replaces": "udp_pose_tpu/ops/pallas/decode_kernels.py:83",
-        "launches": launches,
-        "matched": True,
-        "library_ms": None,
-        **kernel,
-    }]}))
+    print(json.dumps({"kernels": [
+        {"name": "udp_offset_decode_fused", **common,
+         "launches": launches["udp_offset_decode_fused"],
+         "layout": layout, **fused[layout]},
+        {"name": "fused_peak_offset", **common,
+         "launches": launches["fused_peak_offset"], "on_main_path": False,
+         **peak},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

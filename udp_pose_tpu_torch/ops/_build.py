@@ -43,28 +43,31 @@ def _nvcc():
                        "kernels of udp_pose_tpu_torch cannot be built")
 
 
-def library_path(name: str) -> Path:
-    """Where ``csrc/{name}.cu`` is built, keyed by its content."""
-    src = CSRC_DIR / f"{name}.cu"
+def library_path(name: str, src: Path | None = None) -> Path:
+    """Where ``src`` (default ``csrc/{name}.cu``) is built, keyed by its
+    content."""
+    src = CSRC_DIR / f"{name}.cu" if src is None else Path(src)
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/{name}.cu`` unless this source's library exists.
-    The compiler writes to a temporary name that is renamed into place,
-    so a process that finds the library never finds half of it."""
-    out = library_path(name)
+def build(name: str, src: Path | None = None) -> Path:
+    """Compile ``src`` (default ``csrc/{name}.cu``) unless this source's
+    library exists.  The compiler writes to a temporary name that is
+    renamed into place, so a process that finds the library never finds
+    half of it."""
+    src = CSRC_DIR / f"{name}.cu" if src is None else Path(src)
+    out = library_path(name, src)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu "
+        raise RuntimeError(f"nvcc failed for {src.name} "
                            f"(exit {proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
     build_logs[name] = (time.perf_counter() - t0, proc.stdout + proc.stderr)

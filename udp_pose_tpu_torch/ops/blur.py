@@ -6,6 +6,10 @@ Port of ``udp_pose_tpu/ops/blur.py``: ``cv2.GaussianBlur`` semantics
 matrices, so the separable blur of (..., H, W) maps is
 ``B_h @ x @ B_w^T``.  The products run in full float32: TF32 keeps about
 three decimal digits, which breaks sub-pixel decode parity with cv2.
+
+:func:`separable_blur_reference` is the same blur summed tap by tap in a
+fixed order: the plain version of the fused decode kernel, which sums
+in that order too, so that the two agree bit for bit.
 """
 
 from __future__ import annotations
@@ -88,3 +92,38 @@ def gaussian_blur(maps, ksize: int, sigma: float = 0.0):
     Bw = _blur_matrix(W, ksize, float(sigma), maps.device)
     with _ieee_fp32_matmul():
         return Bh @ maps.float() @ Bw.T
+
+
+def folded_taps(ksize: int) -> np.ndarray:
+    """The float32 cv2 kernel (sigma from ``ksize``) folded about its
+    centre: element t is the tap t away from the centre on either side."""
+    k = opencv_gaussian_kernel1d(ksize).astype(np.float32)
+    return np.ascontiguousarray(k[ksize // 2::-1])
+
+
+@lru_cache(maxsize=None)
+def _reflect_pairs(n: int, r: int, device: torch.device):
+    """For t = 1..r: the REFLECT_101 sources of ``i - t`` and ``i + t``
+    for every i in [0, n), as index tensors on ``device``."""
+    return tuple(
+        tuple(torch.tensor([_reflect101_index(i + s, n) for i in range(n)],
+                           device=device) for s in (-t, t))
+        for t in range(1, r + 1))
+
+
+def _blur_axis(x, taps, dim):
+    acc = x * taps[0]
+    pairs = _reflect_pairs(x.shape[dim], len(taps) - 1, x.device)
+    for k, (lo, hi) in zip(taps[1:], pairs):
+        acc = acc + (x.index_select(dim, lo) + x.index_select(dim, hi)) * k
+    return acc
+
+
+def separable_blur_reference(maps, ksize: int):
+    """cv2.GaussianBlur-parity blur of (..., H, W) maps in float32, for
+    any H, W >= 1: the W pass, then the H pass, each output
+    ``k[0]·x[c] + Σ_{t=1..r} k[t]·(x[c−t] + x[c+t])`` (``k`` from
+    :func:`folded_taps`, t upward, REFLECT_101 borders), every product
+    and sum rounded to float32 on its own."""
+    taps = [float(k) for k in folded_taps(ksize)]
+    return _blur_axis(_blur_axis(maps.float(), taps, -1), taps, -2)

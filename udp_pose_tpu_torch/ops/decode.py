@@ -5,9 +5,9 @@ inference.py): argmax peaks (:30-58), DARK Taylor refinement (:60-145),
 the UDP offset decode (:156-174) and the UDP transform back to source
 space (:20-27).  Heatmap layout (B, J, H, W) float32.
 
-The offset decode runs the peak-find + offset gather as the CUDA kernel
-of :mod:`.peak_offset` on a CUDA tensor, and as its plain version on a
-CPU tensor.
+The offset decode (blurs, peak, offsets at the peak) is one launch of
+the fused CUDA decode kernel of :mod:`.peak_offset` on a CUDA tensor,
+and its plain version on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from .blur import gaussian_blur
-from .peak_offset import udp_offset_decode_fused
+from .peak_offset import packed_to_coords, udp_offset_decode_fused
 
 PIXEL_STD = 200.0
 
@@ -84,9 +84,11 @@ def dark_refine(coords, heatmaps):
     return coords.float() - torch.stack([shift_x, shift_y], dim=-1)
 
 
-# UDP combined heatmap+offset decode (reference inference.py:156-174),
-# under the JAX package's name: blurs, then the peak + offset kernel
-udp_offset_decode = udp_offset_decode_fused
+def udp_offset_decode(net_output, kpd):
+    """UDP combined heatmap+offset decode (reference inference.py:156-174)
+    of (B, 3J, H, W) interleaved [hm, off_x, off_y]: coords (B, J, 2) in
+    heatmap space and maxvals (B, J, 1)."""
+    return packed_to_coords(udp_offset_decode_fused(net_output, kpd))
 
 
 def transform_preds(coords, center, scale, output_size_wh):
