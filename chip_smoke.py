@@ -17,7 +17,11 @@ families, as the heatmap channels of B=128 net outputs in NCHW and
 channels-last layouts, against its plain version (phase 3b), profiles
 the bf16 batches (phase 5d), checks the fp32 blurs (phase 4), then
 serves ``/v1/pose`` requests over HTTP through the fused kernel (phase
-6).  Any failed check exits nonzero before the last line, which is
+6), and trains w32 (bf16, B=32) on a seeded synthetic mini-COCO for two
+epochs through ``train.run``, validating through the fused kernel, then
+evaluates and serves the weights it wrote (phase 7).  The kernels'
+launches count phases 6 and 7.  Any failed check exits nonzero before
+the last line, which is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits 1.
 Imports nothing of JAX or of the JAX package.
 """
@@ -29,8 +33,10 @@ import ctypes
 import http.client
 import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -797,6 +803,388 @@ def phase_server(cfg, device="cuda", n_requests=4, frame_hw=(720, 1280)):
     return launches
 
 
+# ---------------------------------------------------------------- phase 7
+TRAIN_IMAGES, VAL_IMAGES, PEOPLE = 64, 32, 2
+FRAME_WH = (640, 480)
+STEP_LOSS_RTOL = 1e-4            # one step, card vs CPU, TF32 off
+STEP_GRAD_TOL = 1e-3             # x each gradient tensor's max |g| (fp64)
+STEP_BN_TOL = 1e-4               # x each running-stat tensor's max
+WARM_STEPS = 3
+
+
+def synthetic_coco(root, image_set, n_images, rng):
+    """A COCO keypoints json of ``n_images`` 640x480 frames with two
+    people each, as ``tools/profile_input.make_synthetic_coco`` writes
+    (boxes 60-120 x 120-200 px, 17 visible joints inside each), and the
+    seeded frames themselves, in memory: {image id: (H, W, 3) u8}."""
+    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+    W, H = FRAME_WH
+    images, annotations, frames = [], [], {}
+    for img_id in range(1, n_images + 1):
+        frames[img_id] = rng.integers(0, 255, (H, W, 3), np.uint8)
+        images.append({"id": img_id, "width": W, "height": H,
+                       "file_name": "%012d.jpg" % img_id})
+        for _ in range(PEOPLE):
+            cx, cy = rng.uniform(150, W - 150), rng.uniform(150, H - 150)
+            w, h = rng.uniform(60, 120), rng.uniform(120, 200)
+            kps = []
+            for _j in range(17):
+                kps += [float(cx + rng.uniform(-w / 3, w / 3)),
+                        float(cy + rng.uniform(-h / 3, h / 3)), 2]
+            annotations.append({
+                "id": len(annotations) + 1, "image_id": img_id,
+                "category_id": 1, "keypoints": kps, "num_keypoints": 17,
+                "bbox": [cx - w / 2, cy - h / 2, w, h],
+                "area": float(w * h), "iscrowd": 0})
+    with open(os.path.join(root, "annotations",
+                           f"person_keypoints_{image_set}.json"), "w") as f:
+        json.dump({"images": images, "annotations": annotations,
+                   "categories": [{"id": 1, "name": "person"}]}, f)
+    return frames
+
+
+def in_memory_coco(cfg, frames, is_train):
+    """The package's ``COCODataset`` with two seams replaced: images come
+    from ``frames`` instead of files, and crops from the port's native
+    float warp rounded to u8 instead of OpenCV.  Everything else (json,
+    db, augmentation, targets) is the package's."""
+    from udp_pose_tpu_torch.data.coco import COCODataset
+    from udp_pose_tpu_torch.native import warp_affine_batch
+
+    class InMemoryCOCO(COCODataset):
+        def _read_image(self, path):
+            return frames[int(os.path.basename(path)[-16:-4])]
+
+        def _warp(self, img, trans):
+            w, h = (int(v) for v in self.image_size)
+            crop = warp_affine_batch(img, trans[None], (h, w))[0]
+            return np.clip(np.rint(crop), 0, 255).astype(np.uint8)
+
+    image_set = cfg.DATASET.TRAIN_SET if is_train else cfg.DATASET.TEST_SET
+    return InMemoryCOCO(cfg, cfg.DATASET.ROOT, image_set, is_train)
+
+
+def train_cfg(root, out_dir, dtype, cfg_fn=w32_cfg):
+    cfg = cfg_fn(dtype)
+    cfg.DATASET.ROOT = root
+    cfg.OUTPUT_DIR = out_dir
+    cfg.TRAIN.END_EPOCH = 2
+    return cfg
+
+
+def step_on(cfg, device, batch, dtype, perturb=0.0):
+    """One train step of a fresh seeded w32 on ``device`` with weights and
+    inputs in ``dtype``: (loss, {name: gradient}, {name: running stat}),
+    on the CPU in float64.  The images are normalised on the CPU, so
+    every run starts from the same bits; ``perturb`` scales each by
+    (1 + perturb x seeded normal noise)."""
+    from udp_pose_tpu_torch.core.infer import normalize_images
+    from udp_pose_tpu_torch.core.loss import make_loss_fn
+    from udp_pose_tpu_torch.core.train import (create_train_state,
+                                               make_train_step)
+    from udp_pose_tpu_torch.models import build_model
+    model = build_model(cfg, device=device, train=True).to(dtype)
+    state = create_train_state(cfg, model, steps_per_epoch=1)
+    images = normalize_images(torch.as_tensor(batch["image"])).to(dtype)
+    if perturb:
+        images = images * (1 + perturb * torch.randn(
+            images.shape, dtype=dtype,
+            generator=torch.Generator().manual_seed(1)))
+    metrics = make_train_step(make_loss_fn(cfg))(state, {
+        "image": images.to(device),
+        "target": torch.as_tensor(batch["target"]).to(device, dtype),
+        "target_weight": torch.as_tensor(batch["target_weight"]).to(
+            device, dtype)})
+    grads = {k: p.grad.double().cpu() for k, p in model.named_parameters()}
+    stats = {k: v.double().cpu() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    return float(metrics["loss"]), grads, stats
+
+
+def rel_errors(got, want):
+    """Per tensor: max |got - want| / max |want|."""
+    return {k: float((got[k] - want[k]).abs().max() / want[k].abs().max())
+            for k in want}
+
+
+def check_step(cfg, train_ds, card, device="cuda"):
+    """(a) One step at B=2, TF32 off, on the card and on the CPU from the
+    same seeded weights and batch, in float64 and in float32.
+
+    The gradient of the seeded w32 is ill-conditioned in its input: a
+    1e-7 relative input perturbation moves the CPU's float64 gradients
+    by about as much as float32 rounding moves them (printed).  So each
+    gradient tensor is held to 1e-3 x its max |g| card vs CPU in
+    float64; in float32 the card's gradients must be no further from the
+    float64 ones than the CPU's float32 gradients are (x2, median and
+    worst tensor).  Loss and BN running stats are held card vs CPU in
+    both."""
+    from udp_pose_tpu_torch.data.base import collate
+    set_tf32(False)
+    train_ds.seed(0)
+    batch = collate([train_ds[0], train_ds[1]])
+    t0 = time.perf_counter()
+    runs = {(dev, dt): step_on(cfg, dev, batch, dt)
+            for dev in (device, "cpu") for dt in (torch.float64,
+                                                  torch.float32)}
+    for dt in (torch.float64, torch.float32):
+        (loss_d, g_d, bn_d), (loss_c, g_c, bn_c) = runs[device, dt], \
+            runs["cpu", dt]
+        name = str(dt).split(".")[1]
+        rel = abs(loss_d - loss_c) / abs(loss_c)
+        check(rel <= STEP_LOSS_RTOL, f"{name} step loss: card {loss_d} vs "
+              f"CPU {loss_c}")
+        worst_bn = max(rel_errors(bn_d, bn_c).values())
+        check(worst_bn <= STEP_BN_TOL, f"{name} step BN running stats: card "
+              f"vs CPU {worst_bn:.3g} x max")
+        if dt == torch.float64:
+            errs = rel_errors(g_d, g_c)
+            bad = {k: e for k, e in errs.items() if e > STEP_GRAD_TOL}
+            check(not bad, f"float64 step gradients card vs CPU: {bad}")
+            grad_msg = (f"worst gradient card vs CPU {max(errs.values()):.3g}"
+                        f" x its tensor's max |g| (limit {STEP_GRAD_TOL:g})")
+        else:
+            ref = runs["cpu", torch.float64][1]
+            card_e = list(rel_errors(g_d, ref).values())
+            cpu_e = list(rel_errors(g_c, ref).values())
+            med = (float(np.median(card_e)), float(np.median(cpu_e)))
+            top = (max(card_e), max(cpu_e))
+            check(med[0] <= 2 * med[1] and top[0] <= 2 * top[1],
+                  f"float32 step gradients further from float64 on the card "
+                  f"(median {med[0]:.3g}, worst {top[0]:.3g}) than on the "
+                  f"CPU (median {med[1]:.3g}, worst {top[1]:.3g}) x2")
+            grad_msg = (f"gradients vs the CPU's float64 ones, median / worst "
+                        f"tensor: card {med[0]:.3g} / {top[0]:.3g}, CPU "
+                        f"{med[1]:.3g} / {top[1]:.3g} x max |g| (limit: card "
+                        f"within 2x the CPU's)")
+        log(f"[train] (a) w32 {name} step B=2, TF32 off, card vs CPU: loss "
+            f"{loss_d:.8g} vs {loss_c:.8g} (rel {rel:.3g}, limit "
+            f"{STEP_LOSS_RTOL:g}); worst BN running stat {worst_bn:.3g} x "
+            f"its max (limit {STEP_BN_TOL:g}); {grad_msg} | {card}")
+    ref = runs["cpu", torch.float64][1]
+    moved = list(rel_errors(
+        step_on(cfg, "cpu", batch, torch.float64, perturb=1e-7)[1],
+        ref).values())
+    log(f"[train] (a) the same float64 step on the CPU with the input "
+        f"x (1 + 1e-7 noise): gradients move by {np.median(moved):.3g} "
+        f"(median) / {max(moved):.3g} (worst tensor) x max |g|; 5 steps in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    set_tf32(True)
+
+
+def repeated_batch_steps(cfg, batch, card, n_steps=8, device="cuda"):
+    """(b) bf16: ``n_steps`` steps of a fresh w32 on one pre-built batch,
+    each ended by a synchronize; returns the step times (s)."""
+    from udp_pose_tpu_torch.core.loss import make_loss_fn
+    from udp_pose_tpu_torch.core.train import (create_train_state,
+                                               make_train_step, upload_batch)
+    from udp_pose_tpu_torch.models import build_model
+    state = create_train_state(
+        cfg, build_model(cfg, device=device, train=True), steps_per_epoch=1)
+    step_fn = make_train_step(make_loss_fn(cfg))
+    losses, secs = [], []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        metrics = step_fn(state, upload_batch(batch, device))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    check(all(np.isfinite(losses)), f"non-finite bf16 loss: {losses}")
+    check(losses[-1] < losses[0], f"bf16 loss on one repeated batch did "
+          f"not fall in {n_steps} steps: {losses}")
+    B = len(batch["image"])
+    ms = np.median(secs[WARM_STEPS:]) * 1e3
+    log(f"[train] (b) w32 bf16 B={B}, one pre-built batch repeated: losses "
+        f"{', '.join(f'{v:.5g}' for v in losses)}; step "
+        f"{', '.join(f'{s * 1e3:.1f}' for s in secs)} ms (first "
+        f"{WARM_STEPS} warm-up); median {ms:.2f} ms/step = "
+        f"{B / ms * 1e3:.1f} samples/s (upload + normalise + forward + "
+        f"backward + Adam) | {card}")
+    del state
+    torch.cuda.empty_cache()
+    return secs
+
+
+def profile_train(cfg, model, batch, card, n=3, device="cuda"):
+    """Where a bf16 step's time goes: ``n`` steps of ``model`` (fresh Adam
+    state) on one pre-built batch under torch.profiler, after two
+    unprofiled ones; host and device ms a step of the ``train/*`` ranges
+    of :mod:`udp_pose_tpu_torch.core.train`, device-busy share, kernels
+    a step and the top kernels.  Run last: a profiler session slows the
+    process's later launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from udp_pose_tpu_torch.core.loss import make_loss_fn
+    from udp_pose_tpu_torch.core.train import (create_train_state,
+                                               make_train_step, upload_batch)
+    state = create_train_state(cfg, model, steps_per_epoch=1)
+    step_fn = make_train_step(make_loss_fn(cfg))
+
+    def one():
+        step_fn(state, upload_batch(batch, device))
+
+    one()
+    one()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            one()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    events = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    # device events, less the ranges' own spans on the device timeline
+    kernels = [e for e in events if e.device_type == cuda
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith(("train/", "Optimizer."))]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    if busy == 0:
+        log("[train] profile: the profiler saw no device time; the "
+            "breakdown is not measured")
+        return
+    ranges = "; ".join(
+        f"{e.key} {e.cpu_time_total / 1e3 / n:.2f}"
+        for e in sorted(events, key=lambda e: e.key)
+        if e.key.startswith("train/") and e.device_type != cuda)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    log(f"[train] profile, bf16 B={len(batch['image'])} step from one "
+        f"pre-built batch: {wall:.2f} ms wall a step, card busy "
+        f"{busy:.2f} ms (idle share {1 - busy / wall:.3f}), "
+        f"{sum(e.count for e in kernels) / n:.0f} device kernels a step; "
+        f"host ms a step in {ranges}; top kernels (ms a step): "
+        + "; ".join(f"{e.key[:50]} {e.self_device_time_total / 1e3 / n:.2f}"
+                    for e in top) + f" | {card}")
+
+
+def phase_train(tmp, cfg_fn=w32_cfg, device="cuda"):
+    """Phase 7: trains full-width w32 (bf16, Adam at 1e-3, B=32, the
+    yaml's augmentation) on a seeded synthetic mini-COCO through
+    ``train.run`` for 2 epochs, evaluates ``final_state.pth`` through
+    ``test.run``, and serves a request from it.  Returns each kernel's
+    launches in that run."""
+    import logging
+
+    from udp_pose_tpu_torch import test as test_cli
+    from udp_pose_tpu_torch import train as train_cli
+    from udp_pose_tpu_torch.core.infer import make_infer_fn_from_cfg
+    from udp_pose_tpu_torch.core.validate import serving_copy
+    from udp_pose_tpu_torch.data.base import epoch_loader
+    from udp_pose_tpu_torch.engine.pose_engine import UdpPosePipeline
+    from udp_pose_tpu_torch.models import build_model
+    from udp_pose_tpu_torch.ops import peak_offset as po
+
+    logging.basicConfig(level=logging.INFO, format="[train.run] %(message)s")
+    card = card_line()
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(7)
+    root = os.path.join(tmp, "coco")
+    frames = {"train2017": synthetic_coco(root, "train2017", TRAIN_IMAGES,
+                                          rng),
+              "val2017": synthetic_coco(root, "val2017", VAL_IMAGES, rng)}
+    out_dir = os.path.join(tmp, "run")
+    os.makedirs(out_dir)
+    cfg = train_cfg(root, out_dir, "bfloat16", cfg_fn)
+    train_ds = in_memory_coco(cfg, frames["train2017"], True)
+    val_ds = in_memory_coco(cfg, frames["val2017"], False)
+    B = cfg.TRAIN.BATCH_SIZE_PER_GPU
+    check(len(train_ds) == TRAIN_IMAGES * PEOPLE
+          and len(val_ds) == VAL_IMAGES * PEOPLE,
+          f"db sizes {len(train_ds)}, {len(val_ds)}")
+
+    check_step(train_cfg(root, out_dir, "float32", cfg_fn), train_ds, card,
+               device)
+    train_cli.set_cudnn(cfg)
+    train_ds.seed(0)
+    t0 = time.perf_counter()
+    batch = next(epoch_loader(train_ds, B, seed=0))
+    host_ms = (time.perf_counter() - t0) * 1e3 / B
+    repeated = repeated_batch_steps(cfg, batch, card, device=device)
+
+    # the run, with the kernels' counts read just after it
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=device, train=True)
+    po.udp_offset_decode_fused.launches = po.fused_peak_offset.launches = 0
+    t0 = time.perf_counter()
+    record = train_cli.run(cfg, model, train_ds, val_ds, out_dir, device)
+    run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    weights = os.path.join(out_dir, "final_state.pth")
+    t0 = time.perf_counter()
+    _, perf = test_cli.run(cfg, weights, val_ds, out_dir, device)
+    test_s = time.perf_counter() - t0
+    launches = {"udp_offset_decode_fused": po.udp_offset_decode_fused.launches,
+                "fused_peak_offset": po.fused_peak_offset.launches}
+    eval_batches = -(-len(val_ds) // cfg.TEST.BATCH_SIZE_PER_GPU)
+    n_val = len(record["validations"]) + 1
+    check(launches["udp_offset_decode_fused"] == n_val * eval_batches,
+          f"fused decode launched {launches['udp_offset_decode_fused']} "
+          f"times for {n_val} validations of {eval_batches} batches")
+    check(launches["fused_peak_offset"] == 0, "peak-only kernel launched")
+
+    steps = record["steps"]
+    losses = [s["loss"] for s in steps]
+    check(len(steps) == cfg.TRAIN.END_EPOCH * (len(train_ds) // B),
+          f"{len(steps)} steps")
+    check(all(np.isfinite(losses)), f"non-finite bf16 loss: {losses}")
+    iter_ms = np.median([s["iter_s"] for s in steps[WARM_STEPS:]]) * 1e3
+    load_ms = np.median([s["load_s"] for s in steps[WARM_STEPS:]]) * 1e3
+    rep_ms = np.median(repeated[WARM_STEPS:]) * 1e3
+    iters = ", ".join(f"{s['iter_s'] * 1e3:.1f}" for s in steps)
+    loads = ", ".join(f"{s['load_s'] * 1e3:.1f}" for s in steps)
+    log(f"[train] train.run w32 bf16 B={B}, {len(steps)} steps over "
+        f"{cfg.TRAIN.END_EPOCH} epochs of {len(train_ds)} samples: losses "
+        f"{', '.join(f'{v:.5g}' for v in losses)}; iteration {iters} ms "
+        f"(batch building {loads} ms) | {card}")
+    log(f"[train] samples/s after {WARM_STEPS} warm-up steps: with the "
+        f"loader {B / iter_ms * 1e3:.1f} (median iteration {iter_ms:.2f} "
+        f"ms, of which batch building {load_ms:.2f} ms); one pre-built "
+        f"batch repeated {B / rep_ms * 1e3:.1f} (median step {rep_ms:.2f} "
+        f"ms); host sample building {load_ms / B:.3f} ms/sample in the run, "
+        f"{host_ms:.3f} ms/sample for the first batch; peak "
+        f"max_memory_allocated {peak_gb:.2f} GB; train.run {run_s:.1f} s "
+        f"| {card}")
+    for v in record["validations"]:
+        log(f"[train] validate after epoch {v['epoch']}: {v['crops']} crops "
+            f"in {v['seconds'] * 1e3:.1f} ms = "
+            f"{v['crops'] / v['seconds']:.1f} crops/s (flip test, fold, "
+            f"{eval_batches} batches of {cfg.TEST.BATCH_SIZE_PER_GPU}; AP "
+            f"{v['perf']:.4f}) | {card}")
+    log(f"[train] test.run on final_state.pth: {len(val_ds)} crops in "
+        f"{test_s * 1e3:.1f} ms (model build and load included), AP "
+        f"{perf:.4f}; fused decode launches {launches} = "
+        f"{n_val} validations x {eval_batches} batches | {card}")
+
+    # (c) one eval batch: the kernel's packed output is its plain version's
+    pipe = UdpPosePipeline(cfg, weights=weights, device=device)
+    infer = make_infer_fn_from_cfg(
+        serving_copy(model, build_model(cfg, device=device)), cfg,
+        flip_pairs=val_ds.flip_pairs)
+    vb = next(epoch_loader(val_ds, cfg.TEST.BATCH_SIZE_PER_GPU,
+                           shuffle=False, drop_last=False))
+    _, _, hm = infer(vb["image"], vb["center"], vb["scale"])
+    fused = po.udp_offset_decode_fused(hm, KPD)
+    check(same_bits(fused, po.udp_offset_decode_reference(hm, KPD)),
+          "fused decode of a validation batch != its plain version")
+    # (d) final_state.pth loaded strict=True serves a request
+    frame = frames["val2017"][1]
+    boxes = np.array([[200, 100, 320, 300], [330, 120, 440, 330]],
+                     np.float32)
+    kp, sc = pipe.infer_pose(frame, boxes)
+    check(kp.shape == (2, 17, 2) and np.isfinite(kp).all()
+          and np.isfinite(sc).all(), "non-finite keypoints from the "
+          "trained weights")
+    log(f"[train] (c) validation batch {tuple(hm.shape)} ({layout_of(hm)}): "
+        f"fused decode bit-equal to the plain version; (d) final_state.pth "
+        f"loaded strict=True into UdpPosePipeline, one request -> finite "
+        f"keypoints")
+    profile_train(cfg, model, batch, card, device=device)
+    log(f"[train] phase 7 {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 # ------------------------------------------------------------------ main
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -823,6 +1211,9 @@ def main(argv=None):
         profile_model()
         phase_blur()
         launches = phase_server(w32_cfg("bfloat16"))
+        with tempfile.TemporaryDirectory() as tmp:
+            trained = phase_train(tmp)
+        launches = {k: v + trained[k] for k, v in launches.items()}
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

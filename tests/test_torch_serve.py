@@ -172,8 +172,14 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PoseService(cfg)
     from udp_pose_tpu_torch import serve
+    from udp_pose_tpu_torch import test as test_cli
+    from udp_pose_tpu_torch import train as train_cli
+    for main in (serve.main, train_cli.main, test_cli.main):
+        args = ["--cfg", str(W32_YAML)]
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(args + (["--port", "0"] if main is serve.main else []))
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        serve.main(["--cfg", str(W32_YAML), "--port", "0"])
+        train_cli.run(cfg, None, None, None, "", device="cuda")
 
 
 def _imports(path):
@@ -191,7 +197,8 @@ def test_port_imports_nothing_of_jax():
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "udp_pose_tpu"), \
+            assert top not in ("jax", "jaxlib", "flax", "optax",
+                               "udp_pose_tpu"), \
                 f"{path.relative_to(REPO)} imports {mod}"
 
 

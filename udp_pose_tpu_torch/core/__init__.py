@@ -1,1 +1,2 @@
-"""Inference core (port of ``udp_pose_tpu/core``): the serving graph."""
+"""Core (port of ``udp_pose_tpu/core``): the serving graph, and the
+losses, train step and validation of training."""

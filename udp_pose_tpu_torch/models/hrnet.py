@@ -22,7 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BasicBlock, Bottleneck, ConvBN, add_upsampled
+from .layers import (BasicBlock, BatchNorm2d, Bottleneck, ConvBN,
+                     add_upsampled)
 
 BLOCKS = {"BASIC": BasicBlock, "BOTTLENECK": Bottleneck}
 
@@ -115,12 +116,13 @@ class PoseHRNet(nn.Module):
         if psa:
             raise NotImplementedError(
                 "pose_hrnet_psa is not ported yet; only plain pose_hrnet")
-        #: compute dtype the module is cast to by models.build_model
+        #: compute dtype: models.build_model casts a serving model to it,
+        #: the trainer autocasts to it over float32 weights
         self.dtype = dtype
         self.conv1 = nn.Conv2d(3, 64, 3, 2, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=1e-5, momentum=0.1)
+        self.bn1 = BatchNorm2d(64)
         self.conv2 = nn.Conv2d(64, 64, 3, 2, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(64, eps=1e-5, momentum=0.1)
+        self.bn2 = BatchNorm2d(64)
         self.layer1 = nn.Sequential(*[
             Bottleneck(64 if bi == 0 else 256, 64, 1, downsample=bi == 0)
             for bi in range(4)])

@@ -6,16 +6,47 @@ the reference torch ones (deep_hrnet/lib/models/pose_hrnet.py:29-101:
 ``.pth`` and the JAX package's bridged variables load with
 ``strict=True``.
 
-BatchNorm: eps 1e-5, torch momentum 0.1 (flax's 0.9 in the other
-convention); the serving path runs it in eval mode only.
+BatchNorm (:class:`BatchNorm2d`): eps 1e-5, torch momentum 0.1 (flax's
+0.9 in the other convention); in train mode it updates the running
+variance with the biased batch variance, as flax does.
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
 BN_MOMENTUM = 0.1  # torch convention: ema = (1-m)*ema + m*batch  (flax 0.9)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's running-stat update in train mode.
+
+    flax ``nn.BatchNorm`` (``udp_pose_tpu/models/layers.py:38``) folds
+    the *biased* batch variance into ``running_var``; torch folds the
+    unbiased one, n/(n-1) larger (8/7 on a 2×2 map at B=2).  Train mode
+    normalises with ``torch.native_batch_norm`` on the batch statistics
+    and takes the variance from the inverse std that it returns,
+    ``1/invstd² - eps``: no second pass over the activation.  Eval mode
+    and the state-dict keys are those of ``nn.BatchNorm2d``.
+    """
+
+    def __init__(self, num_features, eps=1e-5, momentum=BN_MOMENTUM):
+        super().__init__(num_features, eps=eps, momentum=momentum)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        out, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        with torch.no_grad():
+            dt = self.running_mean.dtype
+            self.running_mean.lerp_(mean.to(dt), self.momentum)
+            self.running_var.lerp_(invstd.to(dt).pow(-2).sub_(self.eps),
+                                   self.momentum)
+            self.num_batches_tracked.add_(1)
+        return out
 
 
 class ConvBN(nn.Sequential):
@@ -27,7 +58,7 @@ class ConvBN(nn.Sequential):
                  stride: int = 1, relu: bool = True):
         pad = (kernel - 1) // 2
         layers = [nn.Conv2d(in_ch, out_ch, kernel, stride, pad, bias=False),
-                  nn.BatchNorm2d(out_ch, eps=1e-5, momentum=BN_MOMENTUM)]
+                  BatchNorm2d(out_ch)]
         if relu:
             layers.append(nn.ReLU(inplace=True))
         super().__init__(*layers)
@@ -36,7 +67,7 @@ class ConvBN(nn.Sequential):
 def _conv_bn(in_ch, out_ch, kernel, stride):
     pad = (kernel - 1) // 2
     return (nn.Conv2d(in_ch, out_ch, kernel, stride, pad, bias=False),
-            nn.BatchNorm2d(out_ch, eps=1e-5, momentum=BN_MOMENTUM))
+            BatchNorm2d(out_ch))
 
 
 class BasicBlock(nn.Module):

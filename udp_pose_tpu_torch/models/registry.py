@@ -46,17 +46,24 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     return model
 
 
-def build_model(cfg, device="cuda", seed: int = 0) -> nn.Module:
-    """Instantiate the configured architecture in eval mode on ``device``,
-    with seeded random weights (load real ones with ``load_state_dict``),
-    cast to the config's compute dtype (``TPU.DTYPE``)."""
+def build_model(cfg, device="cuda", seed: int = 0,
+                train: bool = False) -> nn.Module:
+    """Instantiate the configured architecture on ``device`` with seeded
+    random weights (load real ones with ``load_state_dict``).  For
+    serving (the default): in eval mode, cast to the config's compute
+    dtype (``TPU.DTYPE``).  With ``train=True``: in train mode with fp32
+    master weights; the trainer runs the compute dtype under autocast
+    (:mod:`..core.train`)."""
     dev = resolve_device(device)
     name = cfg.MODEL.NAME
     if name not in MODELS:
         raise KeyError(
             f"unknown model {name!r}; available: {sorted(MODELS)}")
     model = init_weights(MODELS[name](cfg), seed)
-    model = model.to(device=dev, dtype=model.dtype).eval()
+    if train:
+        model = model.to(device=dev).train()
+    else:
+        model = model.to(device=dev, dtype=model.dtype).eval()
     if dev.type == "cuda":
         # the crops arrive NHWC, so the NCHW view of them is already
         # channels-last: keep the convs in that layout (cuDNN's fast path)

@@ -1,2 +1,3 @@
-"""Decode-side ops (port of ``udp_pose_tpu/ops``): flip, blur, the peak +
-offset kernel, decode, and the host box/affine geometry."""
+"""Ops (port of ``udp_pose_tpu/ops``): flip, blur, the peak + offset
+kernel, decode, the host box/affine geometry, training targets and the
+host NMS."""

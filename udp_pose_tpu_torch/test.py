@@ -1,0 +1,64 @@
+"""Evaluation entry point of the PyTorch port (port of ``tools/test.py``):
+
+    python -m udp_pose_tpu_torch.test --cfg <experiment.yaml> \
+        [--device cpu] TEST.MODEL_FILE x.pth [KEY VALUE ...]
+
+Loads ``TEST.MODEL_FILE`` (a ``.pth``; without one, ``final_state.pth``
+of the run directory, or else the seeded random init), runs the
+flip-test validation of :mod:`.core.validate` and prints the AP table.
+Runs on the card unless given ``--device cpu``.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+
+logger = logging.getLogger(__name__)
+
+
+def run(cfg, weight_file, val_ds, out_dir="", device="cuda"):
+    """Validate ``cfg``'s serving model with the weights of ``weight_file``
+    (None or a missing file: the seeded random init) on ``val_ds``;
+    returns (name_values, perf)."""
+    from .core.validate import validate
+    from .models import build_model
+    from .utils.convert import load_torch_state_dict, state_dict_to_torch
+    from .utils.logging import print_name_value
+
+    model = build_model(cfg, device=device)
+    if weight_file and os.path.exists(weight_file):
+        logger.info(f"=> loading model from {weight_file}")
+        model.load_state_dict(
+            state_dict_to_torch(load_torch_state_dict(weight_file)),
+            strict=True)
+    else:
+        logger.warning(f"=> no weights at {weight_file!r}; evaluating the "
+                       "seeded random init (smoke mode)")
+    name_values, perf = validate(cfg, val_ds, model, out_dir)
+    print_name_value(logger, name_values, cfg.MODEL.NAME)
+    logger.info(f"=> perf: {perf:.4f}")
+    return name_values, perf
+
+
+def main(argv=None):
+    from .config import default_config, update_config
+    from .data import build_dataset
+    from .train import parse_args, refuse_unported
+    from .utils.logging import create_logger
+    from .utils.platform import resolve_device
+
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = default_config()
+    update_config(cfg, args)
+    refuse_unported(cfg)
+    _, final_output_dir, _ = create_logger(cfg, args.cfg, "valid")
+    weight_file = (cfg.TEST.MODEL_FILE
+                   or os.path.join(final_output_dir, "final_state.pth"))
+    return run(cfg, weight_file, build_dataset(cfg, is_train=False),
+               final_output_dir, device)
+
+
+if __name__ == "__main__":
+    main()
