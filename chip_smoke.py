@@ -19,9 +19,14 @@ the bf16 batches (phase 5d), checks the fp32 blurs (phase 4), then
 serves ``/v1/pose`` requests over HTTP through the fused kernel (phase
 6), and trains w32 (bf16, B=32) on a seeded synthetic mini-COCO for two
 epochs through ``train.run``, validating through the fused kernel, then
-evaluates and serves the weights it wrote (phase 7).  The kernels'
-launches count phases 6 and 7.  Any failed check exits nonzero before
-the last line, which is
+evaluates and serves the weights it wrote (phase 7).  Phase 8 runs
+detect-then-pose at full width (YOLOv5n at 640, w32 bf16 with the flip
+test, 16 persons, 720p frames): the detector card vs CPU, the device NMS
+against the host NMS, the fused engine's boxes against the host path on
+a stubbed head, one decode launch a frame or a chunk, frames/s and a
+stage breakdown, ``/v1/detect_pose`` over HTTP and the infer CLI.  The
+kernels' launches count phases 6, 7 and 8, each path on its own.  Any
+failed check exits nonzero before the last line, which is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits 1.
 Imports nothing of JAX or of the JAX package.
 """
@@ -192,8 +197,9 @@ def host_ms(fn, iters=10):
 
 def profile_device(fn, n=3):
     """torch.profiler over ``n`` calls: (wall ms, device-busy ms, the
-    top device kernels by time).  Busy time is the sum of the kernels'
-    and copies' durations on the card (one stream here)."""
+    top device kernels by time, device kernels and copies a call).  Busy
+    time is the sum of the kernels' and copies' durations on the card
+    (one stream here)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -204,11 +210,12 @@ def profile_device(fn, n=3):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    dev = [(e.key, e.self_device_time_total / 1e3)
-           for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = [(e.key, e.self_device_time_total / 1e3) for e in events]
     busy = sum(t for _, t in dev)
-    return wall, busy, sorted(dev, key=lambda kv: -kv[1])[:8]
+    return (wall, busy, sorted(dev, key=lambda kv: -kv[1])[:8],
+            sum(e.count for e in events) / n)
 
 
 def set_tf32(enabled):
@@ -668,7 +675,7 @@ def phase_model(cfg_fn=w32_cfg, batch=SERVE_BATCH, iters=10,
         """(d) the bf16 batches under torch.profiler, then two_pass timed
         again; run after the other phases' first profiler session."""
         for mode, infer in bf16.items():
-            wall, busy, top = profile_device(
+            wall, busy, top, _ = profile_device(
                 lambda: infer(crops, center, scale))
             if busy > 0:
                 log(f"[model]   bfloat16 {mode} profile: 3 batches "
@@ -1185,6 +1192,686 @@ def phase_train(tmp, cfg_fn=w32_cfg, device="cuda"):
     return launches
 
 
+# ---------------------------------------------------------------- phase 8
+DETECT_HW = (720, 1280)          # phase 8's frames
+MAX_PERSONS = 16
+DET_SIZE = 640
+DET_REL_TOL = 1e-4               # YOLOv5n fp32 card vs CPU, TF32 off (8a)
+LOW_CONF = 0.001                 # random weights: enough persons for 16
+# 8c, fp32 with TF32 off, the card against the CPU: the crop matrices
+# (relative to the largest entry), the crops from the same matrices (in
+# [0, 255] units), and the keypoints of the pose stage on the same crops:
+# px beyond what the difference of their offset maps carries (the float
+# rounding of the transform to frame pixels)
+MAT_REL_TOL = 1e-6
+CROP_ATOL = 1e-4 * 255
+KP_ATOL = 1e-3
+REPO = os.path.dirname(os.path.abspath(__file__))
+W32_YAML = os.path.join(REPO, "configs/coco/hrnet_w32_256x192_udp_offset.yaml")
+STAGES = ("upload", "letterbox", "detector", "nms", "crop", "pose")
+
+
+def detect_frames(n, seed=8, hw=DETECT_HW):
+    return np.random.default_rng(seed).integers(0, 256, (n, *hw, 3),
+                                                dtype=np.uint8)
+
+
+def check_yolo(card, device="cuda"):
+    """8a: YOLOv5n at 640 on a letterboxed 720p frame, float32, card vs
+    CPU with TF32 off; then how far cuDNN's TF32 (the serving default)
+    moves the card's output, and the forward's time both ways."""
+    from udp_pose_tpu_torch.models import build_detector
+    from udp_pose_tpu_torch.ops.yolo import letterbox
+    canvas = letterbox(detect_frames(1)[0], DET_SIZE)
+    x = torch.from_numpy(canvas).permute(2, 0, 1)[None].float() / 255.0
+    xd = x.to(device)
+    model = build_detector("yolov5n", device=device)
+    set_tf32(False)
+    with torch.inference_mode():
+        want = build_detector("yolov5n", device="cpu")(x)
+        got = model(xd).cpu()
+        off_ms = host_ms(lambda: model(xd), 20)
+        torch.backends.cudnn.allow_tf32 = True
+        got_tf32 = model(xd).cpu()
+        on_ms = host_ms(lambda: model(xd), 20)
+    msg = []
+    for name, sl in (("xywh", slice(0, 4)), ("scores", slice(4, None))):
+        ref = float(want[..., sl].abs().max())
+        err = float((got[..., sl] - want[..., sl]).abs().max())
+        err32 = float((got_tf32[..., sl] - want[..., sl]).abs().max())
+        check(err <= DET_REL_TOL * ref, f"YOLOv5n {name}: card vs CPU "
+              f"{err:.3g} > {DET_REL_TOL:g} x {ref:.3g}")
+        msg.append(f"{name} max abs err {err:.3g} of max {ref:.3g} (TF32 "
+                   f"on: {err32:.3g})")
+    log(f"[detect] 8a YOLOv5n fp32 {tuple(x.shape)} -> {tuple(got.shape)}, "
+        f"card vs CPU, TF32 off: {'; '.join(msg)} (limit {DET_REL_TOL:g} x "
+        f"max); forward {off_ms:.2f} ms TF32 off, {on_ms:.2f} ms on (host "
+        f"clock, synchronised) | {card}")
+
+
+def nms_candidates(rng, ties, n_side=(8, 4), per=16):
+    """(n, 5) float32 boxes: clusters of ``per`` overlapping boxes on an
+    8 x 4 grid 160 px apart (no overlap across clusters).  With ``ties``
+    the clusters share one list of scores, so every score is held by 32
+    boxes that do not overlap; else the scores are distinct."""
+    nx, ny = n_side
+    n = nx * ny * per
+    cx = np.repeat((np.arange(nx * ny) % nx) * 160 + 80, per)
+    cy = np.repeat((np.arange(nx * ny) // nx) * 160 + 80, per)
+    xy = np.stack([cx, cy], 1) + rng.uniform(-25, 25, (n, 2)) - 30
+    wh = rng.uniform(40, 60, (n, 2))
+    scores = (np.tile(rng.permutation(per) / per + 0.01, nx * ny) if ties
+              else rng.permutation(n) / n + 0.01)
+    return np.concatenate([xy, xy + wh, scores[:, None]], 1).astype(
+        np.float32)
+
+
+def check_nms(device="cuda"):
+    """8b: ``nms_torch`` on the card against the native ``greedy_nms``
+    (the same list, ties in index order) and ``nms_np`` (the same list
+    without ties; with ties the same set, as it visits a tie from the
+    higher index), and the batched form against the CPU's."""
+    from udp_pose_tpu_torch.native import greedy_nms
+    from udp_pose_tpu_torch.ops.nms import (nms_np, nms_torch,
+                                            nms_torch_batched)
+    rng = np.random.default_rng(81)
+    sets = [nms_candidates(rng, ties) for ties in (True, False)]
+    for ties, dets in zip((True, False), sets):
+        n = len(dets)
+        t = torch.from_numpy(dets).to(device)
+        ki, _ = nms_torch(t[:, :4], t[:, 4], 0.45, n, plus_one=False)
+        kept = ki.cpu().numpy()
+        kept = kept[kept >= 0].tolist()
+        host = nms_np(dets.astype(np.float64), 0.45, plus_one=False)
+        check(kept == greedy_nms(dets, 0.45, plus_one=False),
+              f"nms_torch != native greedy_nms (ties {ties})")
+        check(sorted(kept) == sorted(host) and (ties or kept == host),
+              f"nms_torch != nms_np (ties {ties})")
+    batch = torch.from_numpy(np.stack(sets))
+    want = nms_torch_batched(batch[..., :4], batch[..., 4], 0.45,
+                             MAX_PERSONS, plus_one=False)
+    got = nms_torch_batched(batch[..., :4].to(device),
+                            batch[..., 4].to(device), 0.45, MAX_PERSONS,
+                            plus_one=False)
+    check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+          "batched nms_torch: card != CPU")
+    log(f"[detect] 8b nms_torch on the card, {len(sets[0])} candidates "
+        f"in 32 clusters: with ties == native greedy_nms (list) and nms_np "
+        f"(set), {len(kept)} kept; without ties == both (list); batched "
+        f"(2 frames, {MAX_PERSONS} rounds) == the CPU")
+
+
+def stub_head(rows, n_rows=15120, nc=80, device="cuda"):
+    """A detector whose raw output is ``rows`` (cx, cy, w, h, obj,
+    person score, class) in letterbox pixels whatever the frame."""
+    pred = np.zeros((n_rows, 5 + nc), np.float32)
+    pred[:, 4] = pred[:, 5] = 1e-4
+    for i, (cx, cy, w, h, obj, score, cls) in enumerate(rows):
+        pred[i, :5] = (cx, cy, w, h, obj)
+        pred[i, 5 + cls] = score
+    t = torch.from_numpy(pred).to(device)
+    return pred, (lambda x: t[None].expand(x.shape[0], -1, -1))
+
+
+def stub_rows():
+    """24 person candidates on a 6 x 4 grid of the 384 x 640 canvas (no
+    overlap between them; two pairs tied), 3 lower-scored duplicates
+    that NMS removes, and a box of another class."""
+    rows = []
+    for i in range(24):
+        cx, cy = 60 + (i % 6) * 104, 50 + (i // 6) * 90
+        rows.append((cx, cy, 40 + 2 * (i % 5), 70, 0.9, 0.95 - 0.01 * i, 0))
+    rows[7] = rows[7][:5] + (rows[3][5], 0)        # ties: 3 and 7 ...
+    rows[20] = rows[20][:5] + (rows[10][5], 0)     # ... 10 and 20
+    rows += [(62, 52, 40, 70, 0.9, 0.5, 0), (166, 48, 42, 70, 0.9, 0.4, 0),
+             (270, 140, 44, 70, 0.9, 0.3, 0), (300, 300, 50, 50, 0.9, 0.9, 5)]
+    return rows
+
+
+def host_path_boxes(pred, conf_thres, hw, canvas_hw):
+    """The host reference: non_max_suppression → scale_boxes →
+    padding_bbox, person rows only."""
+    from udp_pose_tpu_torch.ops.yolo import (non_max_suppression,
+                                             padding_bbox, scale_boxes)
+    det = non_max_suppression(pred[None], conf_thres, 0.45)[0]
+    det = det[det[:, 5] == 0]
+    boxes = scale_boxes(det[:, :4], hw, canvas_hw)
+    return (np.array([padding_bbox(*(int(v) for v in b), hw)
+                      for b in boxes], np.float32),
+            det[:, 4].astype(np.float32))
+
+
+class CallRecorder:
+    """Keeps the positional arguments and the result of every call of
+    ``owner.name`` while it is active, as ``args + (result,)``; the calls
+    go to the function as before (a wrapper's launch count included)."""
+
+    def __init__(self, owner, name):
+        self._owner, self._name, self.calls = owner, name, []
+
+    def __enter__(self):
+        real = self._real = getattr(self._owner, self._name)
+
+        def record(*args):
+            out = real(*args)
+            self.calls.append(args + (out,))
+            return out
+        setattr(self._owner, self._name, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self._owner, self._name, self._real)
+
+
+def DecodeRecorder():
+    """Every ``udp_offset_decode_fused`` call the decode makes, as
+    (net, kpd, out)."""
+    from udp_pose_tpu_torch.ops import decode
+    return CallRecorder(decode, "udp_offset_decode_fused")
+
+
+def check_decode_calls(calls, rows, what):
+    """8d: each recorded decode bit-equal to the plain version."""
+    from udp_pose_tpu_torch.ops.peak_offset import udp_offset_decode_reference
+    check(len(calls) == 1, f"{what}: {len(calls)} decode calls, not 1")
+    net, kpd, out = calls[0]
+    check(net.shape[0] == rows, f"{what}: decode of {net.shape[0]} crops, "
+          f"not {rows}")
+    check(same_bits(out, udp_offset_decode_reference(net, kpd)),
+          f"{what}: fused decode != its plain version")
+    return f"{tuple(net.shape)} {layout_of(net)}"
+
+
+def check_card_vs_cpu(card, cfg_fn=w32_cfg, device="cuda"):
+    """8c, the card against the CPU: ``infer_frame`` of one 720p frame
+    with the stubbed head, the pose model in fp32 with TF32 off, on an
+    engine on each.  The boxes equal; the crop matrices agree to
+    MAT_REL_TOL; the crops the card gathered equal the CPU's
+    ``crop_boxes`` from the card's matrices to CROP_ATOL; the CPU's pose
+    stage (normalise, forward with the flip, decode) on the card's crops
+    gives the card's heatmaps to HEATMAP_REL_TOL of their largest value,
+    the same peak on every map whose top two blurred values are apart
+    (as in phase 5), and, wherever the peaks agree, the card's keypoints
+    to within the move that the offset maps' difference allows (times
+    kpd, in the frame pixels a heatmap pixel spans) plus KP_ATOL px.  It
+    logs every measure before it checks them.  Launches here are not the
+    path's."""
+    from udp_pose_tpu_torch.engine.fused import FusedDetectPose
+    from udp_pose_tpu_torch.ops import affine
+    from udp_pose_tpu_torch.ops import peak_offset as po
+    set_tf32(False)
+    frame = detect_frames(1, seed=88)[0]
+    engines, runs = {}, {}
+    for dev in (device, "cpu"):
+        weights = None if dev == device else {
+            k: v.cpu() for k, v in
+            engines[device]._pose.model.state_dict().items()}
+        eng = FusedDetectPose(cfg_fn("float32"), weights, yolo_variant="n",
+                              max_persons=MAX_PERSONS, det_size=DET_SIZE,
+                              conf_thres=LOW_CONF, device=dev, seed=0)
+        eng.yolo = stub_head(stub_rows(), device=dev)[1]
+        with CallRecorder(affine, "crop_boxes") as crops, \
+                CallRecorder(eng._pose, "infer_fn") as pose, \
+                DecodeRecorder() as dec:
+            out = eng.infer_frame(frame)
+        check(len(crops.calls) == len(pose.calls) == len(dec.calls) == 1,
+              f"{dev}: {len(crops.calls)} crop, {len(pose.calls)} pose and "
+              f"{len(dec.calls)} decode calls for one frame")
+        engines[dev] = eng
+        runs[dev] = (out, crops.calls[0], pose.calls[0], dec.calls[0])
+    (out, crop_call, pose_call, dec_call), (out_cpu, crop_cpu, _, _) = (
+        runs[device], runs["cpu"])
+    boxes_equal = (np.array_equal(out["boxes"], out_cpu["boxes"])
+                   and len(out["boxes"]) == MAX_PERSONS)
+    mats, mats_cpu = crop_call[1].cpu(), crop_cpu[1]
+    mat_err = float((mats - mats_cpu).abs().max())
+    mat_max = float(mats_cpu.abs().max())
+    crops_card = crop_call[3].cpu()
+    want = affine.crop_boxes(torch.from_numpy(frame)[None], mats,
+                             crop_call[2])
+    crop_err = float((crops_card - want).abs().max())
+    crop_e2e = float((crops_card - crop_cpu[3]).abs().max())
+    # the pose stage on the card's crops, on the CPU; the heatmaps are the
+    # decode's input
+    crops_in, center, scale, (preds, _, _) = pose_call
+    with DecodeRecorder() as dec:
+        p_cpu = engines["cpu"]._pose.infer_fn(
+            crops_in.cpu(), center.cpu(), scale.cpu())[0]
+    hm_cpu, _, packed_cpu = dec.calls[0]
+    hm, packed, preds = dec_call[0].cpu(), dec_call[2].cpu(), preds.cpu()
+    hm_max = float(hm_cpu.abs().max())
+    diff = (hm - hm_cpu).abs()
+    hm_err = float(diff.max())
+    B, H, W = hm.shape[0], hm.shape[-2], hm.shape[-1]
+    blurred = po.blurred_offset_maps(hm_cpu, KPD)[0].flatten(1)
+    top2 = blurred.topk(2, dim=1).values
+    margin = 1e-5 * float(hm_cpu[:, 0::3].abs().max())
+    clear = ((top2[:, 0] - top2[:, 1] > margin)
+             & (top2[:, 0].abs() > margin)).view(B, -1)
+    agree = peak_index(packed, W) == peak_index(packed_cpu, W)
+    # where the peaks agree, a keypoint moves by at most its offset maps'
+    # difference x kpd (the blur's weights sum to 1) in heatmap pixels,
+    # times the frame pixels a heatmap pixel spans (transform_preds)
+    off_err = torch.stack([diff[:, 1::3].amax((-2, -1)),
+                           diff[:, 2::3].amax((-2, -1))], -1)   # (B, J, 2)
+    span = (scale.cpu().float() * 200.0
+            / torch.tensor([W - 1.0, H - 1.0]))[:, None, :]     # (B, 1, 2)
+    kp_limit = off_err * KPD * span + KP_ATOL
+    kp_err = (preds - p_cpu).abs()
+    over = (kp_err > kp_limit).any(-1) & agree
+    kp_max = float(kp_err.amax(-1)[agree].max())
+    kp_e2e = float(np.abs(out["keypoints"] - out_cpu["keypoints"]).max())
+    log(f"[detect] 8c card vs CPU, w32 fp32 TF32 off, stubbed head, one 720p "
+        f"frame: boxes equal {boxes_equal}; crop matrices {mat_err:.3g} "
+        f"apart (limit {MAT_REL_TOL:g} x {mat_max:.3g}); card crops vs the "
+        f"CPU's crop_boxes from the same matrices {crop_err:.3g} (limit "
+        f"{CROP_ATOL:.3g} of 255), vs the CPU engine's own crops "
+        f"{crop_e2e:.3g}; pose stage on the card's crops: heatmaps "
+        f"{hm_err:.3g} (limit {HEATMAP_REL_TOL:g} x {hm_max:.3g}), peaks "
+        f"equal on {int((agree & clear).sum())} of the {int(clear.sum())} "
+        f"maps with a top-2 margin > {margin:.3g} ({int((~agree).sum())} "
+        f"of {agree.numel()} maps differ), keypoints {kp_max:.3g} px apart "
+        f"where the peaks agree, {int(over.sum())} over their limit (the "
+        f"offset maps' difference x kpd x frame px a heatmap px, at most "
+        f"{float(kp_limit.max()):.3g} px, plus {KP_ATOL:g} px); whole frame, "
+        f"each engine its own crops: keypoints {kp_e2e:.3g} px apart | "
+        f"{card}")
+    check(boxes_equal, "8c card vs CPU: the boxes differ")
+    check(mat_err <= MAT_REL_TOL * mat_max, "8c crop matrices: card vs CPU "
+          "over the limit")
+    check(crop_err <= CROP_ATOL, "8c crops: card vs the CPU's crop_boxes "
+          "from the same matrices over the limit")
+    check(hm_err <= HEATMAP_REL_TOL * hm_max, "8c pose stage heatmaps: card "
+          "vs CPU over the limit")
+    check(bool(agree[clear].all()), "8c: maps with a clear top-2 margin "
+          "peak elsewhere on the card than on the CPU")
+    check(not bool(over.any()), "8c keypoints: card vs CPU over the limit "
+          "where the peaks agree")
+    del engines, runs
+    torch.cuda.empty_cache()
+
+
+def decode_graph_times(eng, frames, card, device="cuda"):
+    """8e: the decode inside the pose stage at the frame's and the chunk's
+    shape, and the whole pose stage (normalise, forward with the flip,
+    decode) on crops of the same shape: device time by graph replay (an
+    enqueue of the pose stage can outlast any spin, as the launch queue
+    fills).  Launches here are not the path's."""
+    from udp_pose_tpu_torch.ops import peak_offset as po
+    for n in (1, 8):
+        with DecodeRecorder() as rec:
+            eng.infer_frames(frames[:n])
+        shape = check_decode_calls(rec.calls, n * MAX_PERSONS,
+                                   f"infer_frames of {n}")
+        net = rec.calls[0][0]
+        ms = graph_ms(po.udp_offset_decode_fused, [(net, KPD)])
+        bound_ms, bound_by = bound_of(*fused_bound(
+            layout_of(net), batch=net.shape[0], J=net.shape[1] // 3,
+            hw=tuple(net.shape[-2:])))
+        pw, ph = eng._pose.input_wh
+        rows = n * MAX_PERSONS
+        crops = torch.rand(rows, ph, pw, 3, device=device) * 255
+        center = torch.full((rows, 2), 400.0, device=device)
+        scale = torch.full((rows, 2), 1.2, device=device)
+        pose_ms = graph_ms(eng._pose.infer_fn, [(crops, center, scale)],
+                           iters=3, repeats=3)
+        log(f"[detect] 8e {n} frame(s): pose stage on {rows} crops "
+            f"{pose_ms:.3f} ms device (graph replay), of which the decode "
+            f"of {shape} {ms * 1e3:.2f} us (bound {bound_ms * 1e3:.2f} us, "
+            f"{bound_by}) | {card}")
+
+
+def time_frames(fn, n_frames, reps=3):
+    """frames/s of ``fn()`` handling ``n_frames`` frames to host results:
+    the median of ``reps`` runs after one warm-up, and the runs' ms."""
+    fn()
+    runs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return n_frames / np.median(runs) * 1e3, runs
+
+
+def spin_cycles_per_ms():
+    """Clock cycles of ``torch.cuda._sleep`` a millisecond, measured."""
+    torch.cuda._sleep(1000)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(20_000_000)
+    end.record()
+    torch.cuda.synchronize()
+    return 20_000_000 / start.elapsed_time(end)
+
+
+def stage_breakdown(eng, frames, reps=5):
+    """Host and device ms of each stage of ``_run`` (its ``mark`` hook),
+    medians over ``reps`` runs after one warm-up.  Host: the time to
+    enqueue the stage, in a plain run.  Device: CUDA events around each
+    stage of a second run, in which the card finishes the stage before,
+    then spins (``torch.cuda._sleep``) while the host enqueues the stage,
+    so that the events time the card's own work on it and not its wait
+    for the host.  Returns (host, device, the stages whose enqueue
+    outlasted the spin in some run: their device time includes waiting)."""
+    cycles = spin_cycles_per_ms()
+    host = {s: [] for s in STAGES}
+    dev = {s: [] for s in STAGES}
+    unheld = set()
+    for rep in range(reps + 1):
+        clock = []
+        torch.cuda.synchronize()
+        clock.append(time.perf_counter())
+        eng._run(frames, mark=lambda stage: clock.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        h = {s: (clock[i + 1] - clock[i]) * 1e3 for i, s in enumerate(STAGES)}
+        spans, state = [], {}
+
+        def hold(stage):
+            torch.cuda.synchronize()
+            state["spin"] = 2 * h[stage] + 5
+            torch.cuda._sleep(int(state["spin"] * cycles))
+            state["start"] = torch.cuda.Event(enable_timing=True)
+            state["start"].record()
+            state["t"] = time.perf_counter()
+
+        def mark(stage):
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            spans.append((state["start"], end,
+                          (time.perf_counter() - state["t"]) * 1e3,
+                          state["spin"]))
+            if len(spans) < len(STAGES):
+                hold(STAGES[len(spans)])
+
+        hold(STAGES[0])
+        eng._run(frames, mark=mark)
+        torch.cuda.synchronize()
+        if rep:                                   # not the warm-up
+            for s, (start, end, enqueue_ms, spin_ms) in zip(STAGES, spans):
+                host[s].append(h[s])
+                dev[s].append(start.elapsed_time(end))
+                if enqueue_ms >= spin_ms:
+                    unheld.add(s)
+    return ({s: float(np.median(v)) for s, v in host.items()},
+            {s: float(np.median(v)) for s, v in dev.items()}, unheld)
+
+
+def post_frame(port, frame):
+    buf = io.BytesIO()
+    np.save(buf, frame)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", "/v1/detect_pose", body=buf.getvalue(),
+                     headers={"Content-Type": "application/x-npy"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def check_http(card, cfg_fn=w32_cfg, device="cuda", n_requests=4):
+    """8f: concurrent /v1/detect_pose requests over HTTP, coalesced by
+    the frame batcher; each answer the engine's single-frame one."""
+    from udp_pose_tpu_torch.engine.server import PoseServer, PoseService
+    from udp_pose_tpu_torch.ops.peak_offset import udp_offset_decode_fused
+    service = PoseService(cfg_fn("bfloat16"), device=device, seed=0,
+                          window_ms=100.0, detector="yolov5n",
+                          max_persons=MAX_PERSONS, max_frames=8,
+                          det_kwargs={"conf_thres": LOW_CONF})
+    server = PoseServer(service, host="127.0.0.1", port=0)
+    thread = server.serve_in_thread()
+    try:
+        frames = detect_frames(n_requests, seed=86)
+        chunk = service.fused.infer_frames(frames)     # warms the shapes
+        results = [None] * n_requests
+        gate = threading.Barrier(n_requests)
+
+        def client(i):
+            gate.wait()
+            t0 = time.perf_counter()
+            results[i] = post_frame(server.port, frames[i]) + (
+                time.perf_counter() - t0,)
+
+        launches0 = udp_offset_decode_fused.launches
+        clients = [threading.Thread(target=client, args=(i,))
+                   for i in range(n_requests)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+        check(not any(c.is_alive() for c in clients), "a client hung")
+        launched = udp_offset_decode_fused.launches - launches0
+        log_ = service.frame_batcher.log_snapshot()
+        status, text = get(server.port, "/metrics")
+        check(status == 200 and b"udp_pose_frame_batches_total" in text,
+              "/metrics lacks the frame batch counter")
+        line = [ln for ln in text.decode().splitlines()
+                if ln.startswith('udp_pose_batch_frames{stat="max"}')]
+        check(line and float(line[0].split()[-1]) > 1,
+              f"/metrics shows no frame batching: {line}")
+        check(launched == len(log_), f"{launched} decode launches for "
+              f"{len(log_)} frame batches")
+        worst = 0.0
+        for want, (status, body, _) in zip(chunk, results):
+            check(status == 200, f"/v1/detect_pose answered {status}")
+            check(sorted(body) == ["boxes", "det_scores", "keypoints",
+                                   "latency_ms", "scores"],
+                  f"/v1/detect_pose keys {sorted(body)}")
+            n = len(body["boxes"])
+            check(np.asarray(body["keypoints"]).shape == (n, 17, 2)
+                  and np.isfinite(body["keypoints"]).all(),
+                  "served keypoints misshapen or not finite")
+            if list(log_) == [n_requests]:   # the chunk's own batch shape
+                check(np.array_equal(np.asarray(body["boxes"], np.float32),
+                                     want["boxes"]),
+                      "served boxes != infer_frames of the same frames")
+                worst = max(worst, float(np.abs(
+                    np.asarray(body["keypoints"]) - want["keypoints"]).max()))
+        status, body = get(server.port, "/healthz")
+        check(status == 200 and json.loads(body)["detector"] is True,
+              "/healthz does not report the detector")
+        log(f"[detect] 8f {n_requests} concurrent /v1/detect_pose 720p "
+            f"requests: all 200 with boxes, det_scores, keypoints, scores; "
+            f"frame batches {list(log_)} ({line[0]}), {launched} decode "
+            f"launch(es); latencies "
+            f"{[round(r[2] * 1e3, 1) for r in results]} ms; persons "
+            f"{[len(r[1]['boxes']) for r in results]}"
+            + (f"; served == infer_frames of the same {n_requests} frames in "
+               f"boxes, keypoints max abs diff {worst:.3g} px"
+               if list(log_) == [n_requests] else "") + f" | {card}")
+    finally:
+        server.shutdown()
+        thread.join(timeout=30)
+
+
+def check_cli(tmp, card, pose_cfg=W32_YAML, device="cuda"):
+    """8g: ``python -m udp_pose_tpu_torch.infer --fused --detector
+    yolov5n`` on two generated 720p images and a six-frame video."""
+    import cv2
+    src = os.path.join(tmp, "imgs")
+    os.makedirs(src)
+    frames = detect_frames(6, seed=87)
+    for i in range(2):
+        cv2.imwrite(os.path.join(src, f"f{i}.png"), frames[i])
+    video = os.path.join(tmp, "clip.avi")
+    writer = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"MJPG"), 10.0,
+                             DETECT_HW[::-1])
+    check(writer.isOpened(), "cv2 cannot write an MJPG avi")
+    for f in frames:
+        writer.write(f)
+    writer.release()
+    for source, extra in ((src, []), (video, ["--chunk", "4"])):
+        out = os.path.join(tmp, "out" + "".join(extra))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "udp_pose_tpu_torch.infer", "--source",
+             source, "--pose-cfg", pose_cfg, "--detector", "yolov5n",
+             "--fused", "--device", device, "--save-dir", out, *extra],
+            cwd=REPO,
+            capture_output=True, text=True, timeout=300)
+        check(proc.returncode == 0, f"infer CLI on {source} exited "
+              f"{proc.returncode}: {proc.stderr[-1500:]}")
+        written = sorted(os.listdir(out))
+        check(written == (["f0.png", "f1.png"] if source == src
+                          else ["out_clip.avi"]),
+              f"infer CLI wrote {written}")
+        log(f"[detect] 8g python -m udp_pose_tpu_torch.infer --fused "
+            f"--detector yolov5n {' '.join(extra)} on "
+            f"{os.path.basename(source)}: exit 0, wrote {written} in "
+            f"{time.perf_counter() - t0:.1f} s | {card}")
+
+
+def phase_detect(tmp, cfg_fn=w32_cfg, pose_yaml=W32_YAML, device="cuda"):
+    """Phase 8, detect-then-pose at full width: YOLOv5n at 640, w32
+    256x192 bf16 with the flip test, ``max_persons`` 16, seeded 720p
+    frames, random weights.  Returns (the fused decode's launches on this
+    path, a function that profiles a frame and frees the engine)."""
+    from udp_pose_tpu_torch.engine.fused import FusedDetectPose
+    from udp_pose_tpu_torch.ops import peak_offset as po
+    card = card_line()
+    t_phase = time.perf_counter()
+    check_yolo(card, device)
+    check_nms(device)
+    check_card_vs_cpu(card, cfg_fn, device)
+    torch.backends.cudnn.allow_tf32 = True       # PyTorch's default
+    eng = FusedDetectPose(cfg_fn("bfloat16"), None, yolo_variant="n",
+                          max_persons=MAX_PERSONS, det_size=DET_SIZE,
+                          conf_thres=LOW_CONF, device=device, seed=0)
+    frames = detect_frames(8)
+    H, W = DETECT_HW
+    g = eng._letterbox_geom(H, W)
+    canvas_hw = (g["nH"] + g["top"] + g["bottom"],
+                 g["nW"] + g["left"] + g["right"])
+    eng.infer_frames(frames)                      # warm every shape once
+    eng.infer_frame(frames[0])
+    eng.infer_frame_low_bw(frames[0])
+    decode_graph_times(eng, frames, card, device)
+
+    # the path: every count set to 0 here and read once at the end of 8f;
+    # nothing in between launches a kernel other than through the path
+    po.udp_offset_decode_fused.launches = po.fused_peak_offset.launches = 0
+    # 8c, 8d: a stubbed head (known candidates) against the host path, in
+    # each serving shape; one decode launch a frame or a chunk
+    pred, stub = stub_head(stub_rows(), device=device)
+    want, want_sc = host_path_boxes(pred, LOW_CONF, (H, W), canvas_hw)
+    check(len(want) > MAX_PERSONS, f"stub: {len(want)} host boxes")
+    yolo, eng.yolo = eng.yolo, stub
+    shapes = {}
+    try:
+        for what, run, rows in (
+                ("infer_frame", lambda: [eng.infer_frame(frames[0])], 16),
+                ("infer_frames", lambda: eng.infer_frames(frames), 128),
+                ("low-bw", lambda: [eng.infer_frame_low_bw(frames[0])], 16)):
+            with DecodeRecorder() as rec:
+                outs = run()
+            shapes[what] = check_decode_calls(rec.calls, rows, what)
+            for out in outs:
+                check(np.array_equal(out["boxes"], want[:MAX_PERSONS])
+                      and np.array_equal(out["scores"],
+                                         want_sc[:MAX_PERSONS]),
+                      f"{what}: boxes != the host path's: "
+                      f"{out['boxes'][:2]} vs {want[:2]}")
+                check(np.isfinite(out["keypoints"]).all()
+                      and out["keypoints"].shape == (MAX_PERSONS, 17, 2),
+                      f"{what}: non-finite or misshapen keypoints")
+        handles = [eng.submit_frame(f) for f in frames[:3]]
+        piped = [eng.fetch(h) for h in handles]
+        kp_diff = max(float(np.abs(p["keypoints"] - eng.infer_frame(f)[
+            "keypoints"]).max()) for p, f in zip(piped, frames[:3]))
+        check(all(np.array_equal(p["boxes"], want[:MAX_PERSONS])
+                  for p in piped), "submit/fetch boxes != the host path's")
+        check(kp_diff == 0, f"submit/fetch keypoints {kp_diff:.3g} px from "
+              f"infer_frame's of the same frames")
+    finally:
+        eng.yolo = yolo
+    log(f"[detect] 8c stubbed head ({len(stub_rows())} candidates: ties, "
+        f"duplicates, another class): the 16 boxes and scores of "
+        f"infer_frame, of each frame of infer_frames (8) and of low-bw == "
+        f"the host path's first 16 (non_max_suppression -> scale_boxes -> "
+        f"padding_bbox), exactly; 3 frames in flight by submit/fetch: the "
+        f"same boxes, keypoints {kp_diff:.3g} px from infer_frame's; 8d one "
+        f"fused-decode launch each, bit-equal to the plain version: "
+        + "; ".join(f"{k} {v}" for k, v in shapes.items()))
+    # with the random YOLOv5n: every row filled, and nothing between the
+    # upload and the readback waits for the card
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with DecodeRecorder() as rec:
+            handle = eng.submit_frame(frames[1])
+    except RuntimeError as e:
+        raise CheckFailed(f"submit_frame waited for the card: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out = eng.fetch(handle)
+    check(len(out["boxes"]) == MAX_PERSONS, f"random YOLOv5n at conf "
+          f"{LOW_CONF}: {len(out['boxes'])} persons, not {MAX_PERSONS}")
+    check(np.isfinite(out["keypoints"]).all(), "non-finite keypoints")
+    shape = check_decode_calls(rec.calls, MAX_PERSONS, "random YOLOv5n")
+    log(f"[detect] 8c random YOLOv5n, conf {LOW_CONF}: {len(out['boxes'])} "
+        f"persons; decode {shape} bit-equal to the plain version; "
+        f"submit_frame ran under torch.cuda.set_sync_debug_mode('error'): "
+        f"no synchronising call from the upload to the readback")
+
+    # 8e: frames/s and where a frame's time goes
+    rates = {"infer_frame": time_frames(
+        lambda: [eng.infer_frame(f) for f in frames], len(frames))}
+    for depth in (2, 3, 4):
+        def piped(depth=depth):
+            inflight = []
+            for f in frames:
+                inflight.append(eng.submit_frame(f))
+                if len(inflight) >= depth:
+                    eng.fetch(inflight.pop(0))
+            for h in inflight:
+                eng.fetch(h)
+        rates[f"submit/fetch x{depth}"] = time_frames(piped, len(frames))
+    rates["infer_frames chunk 8"] = time_frames(
+        lambda: eng.infer_frames(frames), len(frames))
+    rates["infer_stream_low_bw"] = time_frames(
+        lambda: list(eng.infer_stream_low_bw(iter(frames))), len(frames))
+    for name, (fps, runs) in rates.items():
+        log(f"[detect] 8e {name}: {fps:.1f} frames/s (median of 3 runs of "
+            f"{len(frames)} 720p frames: "
+            f"{', '.join(f'{r:.1f}' for r in runs)} ms) | {card}")
+    for n in (1, 8):
+        host, dev, unheld = stage_breakdown(eng, frames[:n])
+        note = (f"; not held throughout: {', '.join(sorted(unheld))}"
+                if unheld else "")
+        log(f"[detect] 8e stages, {n} frame(s) a run, ms host (enqueue) / "
+            f"device (CUDA events, the card held back while each stage is "
+            f"enqueued{note}): "
+            + "; ".join(f"{s} {host[s]:.2f} / {dev[s]:.3f}"
+                        for s in STAGES)
+            + f"; total {sum(host.values()):.2f} / "
+            f"{sum(dev.values()):.3f} | {card}")
+    check_http(card, cfg_fn, device)
+    launches = po.udp_offset_decode_fused.launches
+    check(po.fused_peak_offset.launches == 0, "peak-only kernel launched")
+    check_cli(tmp, card, pose_yaml, device)
+    log(f"[detect] phase 8 {time.perf_counter() - t_phase:.1f} s; fused "
+        f"decode launches on the path {launches}")
+
+    def profile():
+        """8e: the card's idle share over 5 frames of ``infer_frame``."""
+        wall, busy, top, kernels = profile_device(
+            lambda: [eng.infer_frame(f) for f in frames[:5]], n=1)
+        if busy > 0:
+            log(f"[detect] 8e profile, 5 infer_frame calls: {wall:.2f} ms "
+                f"wall, card busy {busy:.2f} ms (idle share "
+                f"{1 - busy / wall:.3f}), {kernels / 5:.0f} device kernels "
+                f"and copies a frame; top kernels (ms): "
+                + "; ".join(f"{k[:60]} {t:.2f}" for k, t in top)
+                + f" | {card}")
+        else:
+            log("[detect] 8e profile: the profiler saw no device time; "
+                "idle share not measured")
+        torch.cuda.empty_cache()
+
+    return launches, profile
+
+
 # ------------------------------------------------------------------ main
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1204,16 +1891,21 @@ def main(argv=None):
         phase_build()
         peak = phase_kernel(peak_before=args.peak_before)
         _, layout, profile_model = phase_model()
+        # timed before any profiler session, like phase 5
+        with tempfile.TemporaryDirectory() as tmp:
+            detected, profile_detect = phase_detect(tmp)
         # 3b's one-launch check reads the profiler's kernel list, which
         # has missed the ctypes-launched kernel in a process's later
         # profiler sessions: 3b holds the first one
         fused = phase_fused()
         profile_model()
+        profile_detect()
         phase_blur()
-        launches = phase_server(w32_cfg("bfloat16"))
+        paths = {"pose_serving": phase_server(w32_cfg("bfloat16"))}
         with tempfile.TemporaryDirectory() as tmp:
-            trained = phase_train(tmp)
-        launches = {k: v + trained[k] for k, v in launches.items()}
+            paths["training"] = phase_train(tmp)
+        paths["detect_then_pose"] = {"udp_offset_decode_fused": detected,
+                                     "fused_peak_offset": 0}
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1223,13 +1915,17 @@ def main(argv=None):
               "replaces": "udp_pose_tpu/ops/pallas/decode_kernels.py:83",
               "matched": True, "library_ms": None}
     print(card_line())
+    by_path = {name: {p: n[name] for p, n in paths.items()}
+               for name in ("udp_offset_decode_fused", "fused_peak_offset")}
     print(json.dumps({"kernels": [
         {"name": "udp_offset_decode_fused", **common,
-         "launches": launches["udp_offset_decode_fused"],
+         "launches": sum(by_path["udp_offset_decode_fused"].values()),
+         "launches_by_path": by_path["udp_offset_decode_fused"],
          "layout": layout, **fused[layout]},
         {"name": "fused_peak_offset", **common,
-         "launches": launches["fused_peak_offset"], "on_main_path": False,
-         **peak},
+         "launches": sum(by_path["fused_peak_offset"].values()),
+         "launches_by_path": by_path["fused_peak_offset"],
+         "on_main_path": False, **peak},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -68,3 +68,39 @@ def test_peak_only_kernel_equals_plain_version(cuda):
     torch.cuda.synchronize()
     assert po.fused_peak_offset.launches == before + 1
     assert _same_bits(got, want)
+
+
+@pytest.mark.parametrize("batch", [16, 8 * 16])
+def test_fused_decode_at_the_detect_then_pose_shapes(cuda, batch):
+    """The fused decode as the detect-then-pose engine calls it: the
+    ``max_persons`` = 16 crops of one frame, and 8 frames of them in one
+    ``infer_frames`` chunk; channels-last as the model hands it over."""
+    net = _net(np.random.default_rng(batch), batch, 17, 64, 48).to(cuda)
+    net = net.contiguous(memory_format=torch.channels_last)
+    before = po.udp_offset_decode_fused.launches
+    got = po.udp_offset_decode_fused(net, 4.0)
+    want = po.udp_offset_decode_reference(net, 4.0)
+    torch.cuda.synchronize()
+    assert po.udp_offset_decode_fused.launches == before + 1
+    assert _same_bits(got, want)
+
+
+def test_nms_torch_on_the_card_equals_the_cpu(cuda):
+    from udp_pose_tpu_torch.ops.nms import nms_torch, nms_torch_batched
+    rng = np.random.default_rng(3)
+    F, n = 4, 512
+    xy = rng.uniform(0, 600, (F, n, 2)).astype(np.float32)
+    wh = rng.uniform(10, 120, (F, n, 2)).astype(np.float32)
+    boxes = torch.from_numpy(np.concatenate([xy, xy + wh], -1))
+    scores = torch.from_numpy(rng.integers(0, 50, (F, n)).astype(
+        np.float32) / 50)                                  # many ties
+    scores[:, 400:] = -torch.inf
+    scores[2] = -torch.inf                                 # an empty frame
+    want = nms_torch_batched(boxes, scores, 0.45, 16, plus_one=False)
+    got = nms_torch_batched(boxes.to(cuda), scores.to(cuda), 0.45, 16,
+                            plus_one=False)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    one = nms_torch(boxes[0].to(cuda), scores[0].to(cuda), 0.45, 16)
+    assert torch.equal(one[0].cpu(), nms_torch(boxes[0], scores[0], 0.45,
+                                               16)[0])

@@ -2,9 +2,11 @@
 
 A CPU ``PoseServer`` on the reduced HRNet answers concurrent
 ``application/x-npy`` ``/v1/pose`` requests as ``UdpPosePipeline.infer_pose``
-does; entry points called without ``device="cpu"`` raise on a host
-without CUDA; nothing in the port or in ``chip_smoke.py`` imports JAX or
-the JAX package.
+does, and, with a detector, concurrent ``/v1/detect_pose`` requests as
+``FusedDetectPose.infer_frame`` does, their frames batched together;
+entry points called without ``device="cpu"`` raise on a host without
+CUDA; nothing in the port or in ``chip_smoke.py`` imports JAX or the JAX
+package.
 """
 
 import ast
@@ -53,12 +55,13 @@ def _request(port, method, path, body=None, headers=None):
         conn.close()
 
 
-def _post_npy(port, frame, boxes):
+def _post_npy(port, frame, boxes=None, path="/v1/pose"):
     buf = io.BytesIO()
     np.save(buf, frame)
-    status, body = _request(port, "POST", "/v1/pose", buf.getvalue(), {
-        "Content-Type": "application/x-npy",
-        "X-Boxes": json.dumps(np.asarray(boxes).tolist())})
+    headers = {"Content-Type": "application/x-npy"}
+    if boxes is not None:
+        headers["X-Boxes"] = json.dumps(np.asarray(boxes).tolist())
+    status, body = _request(port, "POST", path, buf.getvalue(), headers)
     return status, json.loads(body)
 
 
@@ -126,6 +129,67 @@ def test_other_routes(server):
     assert status == 200 and b'code="409"' in text
 
 
+@pytest.fixture(scope="module")
+def detect_server():
+    service = PoseService(_cfg(), device="cpu", window_ms=300.0,
+                          detector="yolov5n", max_persons=4, max_frames=8,
+                          det_kwargs={"det_size": 128, "conf_thres": 0.01})
+    srv = PoseServer(service, host="127.0.0.1", port=0)
+    thread = srv.serve_in_thread()
+    yield srv
+    srv.shutdown()
+    thread.join(timeout=30)
+    assert not thread.is_alive()
+
+
+def test_detect_pose_requests_batch_frames(detect_server):
+    """Four concurrent /v1/detect_pose requests of one frame size and one
+    of another: 200 with boxes, det_scores, keypoints and scores; the
+    same-size frames share a dispatch (``/metrics``), and each answer is
+    the engine's single-frame one."""
+    service = detect_server.service
+    assert service.fused._pose is service.pipe      # one pose model
+    rng = np.random.default_rng(12)
+    frames = [rng.integers(0, 256, (72, 128, 3), dtype=np.uint8)
+              for _ in range(4)]
+    frames.append(rng.integers(0, 256, (64, 64, 3), dtype=np.uint8))
+    out = [None] * len(frames)
+    gate = threading.Barrier(len(frames))
+
+    def client(i):
+        gate.wait()
+        out[i] = _post_npy(detect_server.port, frames[i],
+                           path="/v1/detect_pose")
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(frames))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    log = service.frame_batcher.log_snapshot()
+    assert sum(log) == 5 and max(log) > 1, log
+    for frame, (status, body) in zip(frames, out):
+        assert status == 200, body
+        want = service.fused.infer_frame(frame)
+        n = len(want["boxes"])
+        assert n >= 1
+        np.testing.assert_array_equal(body["boxes"], want["boxes"])
+        np.testing.assert_allclose(body["det_scores"], want["scores"],
+                                   rtol=1e-6)
+        assert np.asarray(body["keypoints"]).shape == (n, 17, 2)
+        assert np.asarray(body["scores"]).shape == (n, 17, 1)
+        np.testing.assert_allclose(body["keypoints"], want["keypoints"],
+                                   rtol=0, atol=1e-3)
+    status, text = _request(detect_server.port, "GET", "/metrics")
+    assert status == 200 and b"udp_pose_frame_batches_total" in text
+    assert b'udp_pose_batch_frames{stat="max"} ' + \
+        str(max(log)).encode() in text
+    status, body = _request(detect_server.port, "GET", "/healthz")
+    assert status == 200 and json.loads(body)["detector"] is True
+
+
 def test_host_crops_and_buckets_equal_jax():
     rng = np.random.default_rng(4)
     img = rng.integers(0, 256, (120, 160, 3), dtype=np.uint8)
@@ -171,6 +235,13 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
         UdpPosePipeline(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PoseService(cfg)
+    from udp_pose_tpu_torch.engine.detector import build_yolo_detector
+    from udp_pose_tpu_torch.engine.fused import FusedDetectPose
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FusedDetectPose(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_yolo_detector()
+    from udp_pose_tpu_torch import infer as infer_cli
     from udp_pose_tpu_torch import serve
     from udp_pose_tpu_torch import test as test_cli
     from udp_pose_tpu_torch import train as train_cli
@@ -178,6 +249,12 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
         args = ["--cfg", str(W32_YAML)]
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main(args + (["--port", "0"] if main is serve.main else []))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--cfg", str(W32_YAML), "--port", "0",
+                    "--detector", "yolov5n"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        infer_cli.main(["--source", str(REPO), "--pose-cfg", str(W32_YAML),
+                        "--detector", "yolov5n", "--fused"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_cli.run(cfg, None, None, None, "", device="cuda")
 

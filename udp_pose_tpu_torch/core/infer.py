@@ -30,10 +30,12 @@ MPII_FLIP_PAIRS = ((0, 5), (1, 4), (2, 3), (10, 15), (11, 14), (12, 13))
 
 
 def normalize_images(images, mean=IMAGENET_MEAN, std=IMAGENET_STD):
-    """uint8/float [0, 255] NHWC → normalised float32 NHWC."""
+    """uint8/float [0, 255] NHWC → normalised float32 NHWC.  ``mean`` and
+    ``std``: 3 values, or float32 tensors already on the images' device
+    (no host → device copy, which the host would wait for)."""
     x = images.float() / 255.0
-    mean = torch.tensor(mean, dtype=torch.float32, device=x.device)
-    std = torch.tensor(std, dtype=torch.float32, device=x.device)
+    mean = torch.as_tensor(mean, dtype=torch.float32, device=x.device)
+    std = torch.as_tensor(std, dtype=torch.float32, device=x.device)
     return (x - mean) / std
 
 
@@ -63,6 +65,8 @@ def make_infer_fn(model, *, target_type: str = "gaussian",
     if flip_mode not in ("two_pass", "fold"):
         raise ValueError(f"flip_mode {flip_mode!r}: 'two_pass' or 'fold'")
     device = next(model.parameters()).device
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device)
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device)
 
     def forward(x_nhwc):
         # NHWC → NCHW view: channels-last strides, which the model keeps
@@ -73,7 +77,8 @@ def make_infer_fn(model, *, target_type: str = "gaussian",
         images = torch.as_tensor(images, device=device)
         center = torch.as_tensor(center, dtype=torch.float32, device=device)
         scale = torch.as_tensor(scale, dtype=torch.float32, device=device)
-        x = normalize_images(images) if normalize else images.float()
+        x = normalize_images(images, mean, std) if normalize \
+            else images.float()
         x = cast_to_compute_dtype(model, x)
         B = x.shape[0]
         if flip_test and flip_mode == "fold":

@@ -17,6 +17,7 @@ from typing import Dict, List
 import numpy as np
 
 from ..eval.cocoeval import COCOKeypointEval
+from ..ops.boxes import xywh_to_cs
 from ..ops.nms import oks_nms, soft_oks_nms
 from .base import JointsDataset
 
@@ -83,15 +84,7 @@ class COCODataset(JointsDataset):
 
     def _xywh2cs(self, x, y, w, h):
         """Parity: coco.py:214-229."""
-        center = np.array([x + w * 0.5, y + h * 0.5], np.float32)
-        if w > self.aspect_ratio * h:
-            h = w * 1.0 / self.aspect_ratio
-        elif w < self.aspect_ratio * h:
-            w = h * self.aspect_ratio
-        scale = np.array([w / self.pixel_std, h / self.pixel_std], np.float32)
-        if center[0] != -1:
-            scale = scale * 1.25
-        return center, scale
+        return xywh_to_cs(x, y, w, h, self.aspect_ratio)
 
     def _load_gt_db(self):
         """Parity: coco.py:143-208 (bbox sanitising, vis clamp)."""

@@ -1,2 +1,3 @@
 """Serving engines (port of ``udp_pose_tpu/engine``): the top-down pose
-pipeline and the HTTP daemon with cross-request crop batching."""
+pipeline, the detectors, the detect-then-pose engine and the HTTP daemon
+with cross-request crop and frame batching."""

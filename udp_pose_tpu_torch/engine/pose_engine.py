@@ -17,6 +17,15 @@ import numpy as np
 
 from ..utils.platform import resolve_device
 
+SKELETONS = {  # 1-based joint pairs (pose_engine.py:17-26)
+    "coco": [[16, 14], [14, 12], [17, 15], [15, 13], [12, 13], [6, 12],
+             [7, 13], [6, 7], [6, 8], [7, 9], [8, 10], [9, 11], [2, 3],
+             [1, 2], [1, 3], [2, 4], [3, 5], [4, 6], [5, 7]],
+    "mpii": [[9, 10], [12, 13], [12, 11], [3, 2], [2, 1], [14, 15],
+             [15, 16], [4, 5], [5, 6], [9, 8], [8, 7], [7, 3], [7, 4],
+             [9, 13], [9, 14]],
+}
+
 
 def _next_bucket(n, buckets=(1, 2, 4, 8, 16, 32, 64, 128)):
     for b in buckets:
@@ -47,6 +56,7 @@ class UdpPosePipeline:
         self.input_wh = tuple(cfg.MODEL.IMAGE_SIZE)
         self.num_joints = cfg.MODEL.NUM_JOINTS
         dataset = cfg.DATASET.DATASET.lower()
+        self.skeleton = SKELETONS.get(dataset)
         self.flip_pairs = (MPII_FLIP_PAIRS if dataset == "mpii"
                            else COCO_FLIP_PAIRS)
         self.model = build_model(cfg, device=self.device, seed=seed)
@@ -101,3 +111,9 @@ class UdpPosePipeline:
             return (np.zeros((0, self.num_joints, 2), np.float32),
                     np.zeros((0, self.num_joints, 1), np.float32))
         return self.infer_crops(*host_crops(img, boxes, self.input_wh))
+
+    def draw_keypoints(self, image, keypoints, radius=1):
+        """Draw ``keypoints`` (N, J, 2) and the skeleton on ``image`` in
+        place (OpenCV); returns it."""
+        from .io import draw_keypoints
+        return draw_keypoints(image, keypoints, self.skeleton, radius)

@@ -1,15 +1,18 @@
-"""HTTP pose-serving daemon with cross-request crop micro-batching.
+"""HTTP pose-serving daemon with cross-request micro-batching.
 
 Port of ``udp_pose_tpu/engine/server.py``: concurrent clients' person
 crops are warped on the host (native batch warp), concatenated
 into ONE padded device batch, and decoded back to per-request
-source-space keypoints.  Stdlib-only (``http.server``).  Endpoints:
+source-space keypoints; with a detector, concurrent clients' frames of
+one size run as one :meth:`.fused.FusedDetectPose.infer_frames` chunk.
+Stdlib-only (``http.server``).  Endpoints:
 
-  GET  /healthz         liveness + engine state (model, device)
+  GET  /healthz         liveness + engine state (model, device, detector)
   GET  /metrics         Prometheus text: request counts, latency quantiles,
-                        batch occupancy, persons served
+                        crop and frame batch occupancy, persons served
   POST /v1/pose         image + boxes → keypoints (top-down, micro-batched)
-  POST /v1/detect_pose  409: the detector is not ported yet
+  POST /v1/detect_pose  image → boxes, det_scores, keypoints, scores
+                        (needs a detector; 409 without one)
 
 Request bodies: ``application/json`` with ``{"image_b64": ..., "boxes":
 [[x1,y1,x2,y2], ...]}``; or raw ``image/jpeg`` / ``image/png`` /
@@ -65,6 +68,28 @@ def _drain_queue(q):
             continue
         j.exc = EngineStateError("batcher closed before dispatch")
         j.event.set()
+
+
+def _collect(q, first, window_s, room):
+    """The jobs of one dispatch: ``first``, then more from ``q`` while
+    ``room(batch)`` holds, waiting at most ``window_s`` after the first so
+    that a lone request is not held hostage; a shutdown sentinel goes
+    back on the queue."""
+    batch = [first]
+    deadline = time.monotonic() + window_s
+    while room(batch):
+        wait = deadline - time.monotonic()
+        if wait <= 0 and q.empty():
+            break
+        try:
+            nxt = q.get(timeout=max(wait, 0.0))
+        except queue.Empty:
+            break
+        if nxt is None:                # shutdown: finish this batch
+            q.put(None)
+            break
+        batch.append(nxt)
+    return batch
 
 
 class _Job:
@@ -128,22 +153,9 @@ class CropBatcher:
             if job is None:
                 _drain_queue(self._q)
                 return
-            batch = [job]
-            total = job.n
-            deadline = time.monotonic() + self.window_s
-            while total < self.max_batch:
-                wait = deadline - time.monotonic()
-                if wait <= 0 and self._q.empty():
-                    break
-                try:
-                    nxt = self._q.get(timeout=max(wait, 0.0))
-                except queue.Empty:
-                    break
-                if nxt is None:            # shutdown: finish this batch
-                    self._q.put(None)
-                    break
-                batch.append(nxt)
-                total += nxt.n
+            batch = _collect(self._q, job, self.window_s,
+                             lambda b: sum(j.n for j in b) < self.max_batch)
+            total = sum(j.n for j in batch)
             try:
                 self._dispatch(batch, total)
             except Exception as e:                 # scatter the failure
@@ -166,6 +178,91 @@ class CropBatcher:
             j.event.set()
 
 
+class _FrameJob:
+    __slots__ = ("frame", "event", "out", "exc")
+
+    def __init__(self, frame):
+        self.frame = frame
+        self.event = threading.Event()
+        self.out = self.exc = None
+
+
+class FrameBatcher:
+    """Cross-request frame batching for the detect-then-pose engine.
+
+    A dispatcher thread drains up to ``max_frames`` queued frames
+    (waiting ``window_ms`` after the first), groups them by (H, W), and
+    runs each group as one :meth:`.fused.FusedDetectPose.infer_frames`
+    chunk of its own size; a lone frame takes ``infer_frame``.  A 720p frame's detection
+    and at most ``max_persons`` crops leave the card mostly idle, so
+    frames of several callers share one detector batch, one NMS and one
+    pose batch.  ``batch_log`` keeps the frames of each dispatch."""
+
+    def __init__(self, fused, max_frames=8, window_ms=3.0):
+        self.fused = fused
+        self.max_frames = max(1, int(max_frames))
+        self.window_s = float(window_ms) / 1e3
+        self._q = queue.Queue()
+        self._closed = False
+        self.batch_log = deque(maxlen=4096)    # frames per dispatch
+        self._log_lock = threading.Lock()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="frame-batcher")
+        self._thread.start()
+
+    def infer(self, frame):
+        """Blocking: returns the fused engine's per-frame result dict."""
+        if self._closed:
+            raise EngineStateError("batcher is closed")
+        job = _FrameJob(frame)
+        self._q.put(job)
+        job.event.wait()
+        if job.exc is not None:
+            raise job.exc
+        return job.out
+
+    def log_snapshot(self):
+        with self._log_lock:
+            return tuple(self.batch_log)
+
+    def close(self):
+        self._closed = True
+        self._q.put(None)
+        self._thread.join(timeout=10)
+        _drain_queue(self._q)          # jobs that raced the sentinel
+
+    def _loop(self):
+        while True:
+            job = self._q.get()
+            if job is None:
+                _drain_queue(self._q)
+                return
+            batch = _collect(self._q, job, self.window_s,
+                             lambda b: len(b) < self.max_frames)
+            groups = {}
+            for j in batch:
+                groups.setdefault(j.frame.shape[:2], []).append(j)
+            for group in groups.values():
+                try:
+                    self._dispatch(group)
+                except Exception as e:                 # scatter the failure
+                    for j in group:
+                        j.exc = e
+                        j.event.set()
+
+    def _dispatch(self, group):
+        with self._log_lock:
+            self.batch_log.append(len(group))
+        if len(group) == 1:
+            group[0].out = self.fused.infer_frame(group[0].frame)
+            group[0].event.set()
+            return
+        frames = np.stack([j.frame for j in group])
+        for j, out in zip(group, self.fused.infer_frames(frames)):
+            j.out = out
+            j.event.set()
+
+
 class Metrics:
     """Lock-guarded counters + latency ring buffers, rendered as
     Prometheus text on scrape."""
@@ -185,7 +282,7 @@ class Metrics:
             self.latency.setdefault(endpoint, deque(maxlen=4096)).append(
                 seconds)
 
-    def render(self, batch_log=()):
+    def render(self, batch_log=(), frame_batch_log=()):
         with self._lock:
             lines = ["# TYPE udp_pose_requests_total counter"]
             for (ep, code), n in sorted(self.requests.items()):
@@ -215,15 +312,29 @@ class Metrics:
             lines.append(f'udp_pose_batch_crops{{stat="max"}} {arr.max()}')
             lines.append("# TYPE udp_pose_batches_total counter")
             lines.append(f"udp_pose_batches_total {len(arr)}")
+        if frame_batch_log:
+            arr = np.asarray(frame_batch_log)
+            lines.append("# TYPE udp_pose_batch_frames gauge")
+            lines.append(f'udp_pose_batch_frames{{stat="mean"}} '
+                         f"{arr.mean():.3f}")
+            lines.append(f'udp_pose_batch_frames{{stat="max"}} {arr.max()}')
+            lines.append("# TYPE udp_pose_frame_batches_total counter")
+            lines.append(f"udp_pose_frame_batches_total {len(arr)}")
         return "\n".join(lines) + "\n"
 
 
 class PoseService:
     """The engine bundle behind the HTTP layer: a ``UdpPosePipeline`` on
-    ``device`` fronted by a :class:`CropBatcher` for /v1/pose."""
+    ``device`` fronted by a :class:`CropBatcher` for /v1/pose and, with a
+    ``detector`` (``yolov5n`` … ``yolov5l``), a
+    :class:`.fused.FusedDetectPose` fronted by a :class:`FrameBatcher`
+    for /v1/detect_pose.  ``det_kwargs`` go to ``FusedDetectPose``
+    (``det_size``, ``conf_thres``, ``iou_thres``, ``padding``, ...)."""
 
     def __init__(self, cfg, weights=None, flip_test=None, max_batch=64,
-                 window_ms=3.0, device="cuda", seed=0):
+                 window_ms=3.0, device="cuda", seed=0, detector="",
+                 detector_weights=None, max_persons=16, max_frames=8,
+                 det_kwargs=None):
         from .pose_engine import UdpPosePipeline
 
         self.pipe = UdpPosePipeline(cfg, weights, flip_test=flip_test,
@@ -238,6 +349,16 @@ class PoseService:
         self.batcher = CropBatcher(self.pipe, max_batch=max_batch,
                                    window_ms=window_ms)
         self.metrics = Metrics()
+        self.fused = self.frame_batcher = None
+        if detector:
+            from .fused import FusedDetectPose
+            self.fused = FusedDetectPose(
+                self.pipe, yolo_variant=detector.replace("yolov5", "") or "n",
+                yolo_weights=detector_weights, max_persons=max_persons,
+                seed=seed, **(det_kwargs or {}))
+            self.frame_batcher = FrameBatcher(self.fused,
+                                              max_frames=max_frames,
+                                              window_ms=window_ms)
 
     def pose(self, img, boxes):
         """img (H, W, 3) RGB u8; boxes (N, ≥4) xyxy → result dict."""
@@ -257,9 +378,14 @@ class PoseService:
         return {"keypoints": preds, "scores": maxvals}
 
     def detect_pose(self, img):
-        raise EngineStateError(
-            "/v1/detect_pose is not ported to udp_pose_tpu_torch yet; "
-            "send boxes to /v1/pose")
+        """img (H, W, 3) RGB u8 → boxes, det_scores, keypoints, scores of
+        the persons the detector finds."""
+        if self.fused is None:
+            raise EngineStateError(
+                "server started without --detector; /v1/detect_pose is off")
+        out = self.frame_batcher.infer(img)
+        return {"keypoints": out["keypoints"], "scores": out["maxvals"],
+                "boxes": out["boxes"], "det_scores": out["scores"]}
 
     def state(self):
         pipe = self.pipe
@@ -270,7 +396,7 @@ class PoseService:
             "input_wh": list(pipe.input_wh),
             "num_joints": pipe.num_joints,
             "flip_test": pipe.flip_test,
-            "detector": False,
+            "detector": self.fused is not None,
             "platform": dev.type,
             "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                        else "cpu"),
@@ -278,6 +404,8 @@ class PoseService:
 
     def close(self):
         self.batcher.close()
+        if self.frame_batcher is not None:
+            self.frame_batcher.close()
 
 
 def _decode_image(body, content_type):
@@ -326,7 +454,9 @@ def make_handler(service):
             elif path == "/metrics":
                 self._send(200,
                            service.metrics.render(
-                               service.batcher.log_snapshot()).encode(),
+                               service.batcher.log_snapshot(),
+                               service.frame_batcher.log_snapshot()
+                               if service.frame_batcher else ()).encode(),
                            ctype="text/plain; version=0.0.4")
             else:
                 self._send(404, {"error": f"no route {path}"})

@@ -1,5 +1,8 @@
-"""Pose models (port of ``udp_pose_tpu/models``): HRNet so far."""
+"""Pose models and the detector (port of ``udp_pose_tpu/models``):
+HRNet and YOLOv5 so far."""
 
-from .registry import MODELS, build_model, init_weights, register_model
+from .registry import (DETECTORS, MODELS, build_detector, build_model,
+                       init_weights, register_model)
 
-__all__ = ["MODELS", "build_model", "init_weights", "register_model"]
+__all__ = ["DETECTORS", "MODELS", "build_detector", "build_model",
+           "init_weights", "register_model"]

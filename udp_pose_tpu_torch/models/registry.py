@@ -1,7 +1,9 @@
 """Model registry (port of ``udp_pose_tpu/models/registry.py``).
 
-Only ``pose_hrnet`` is ported so far; any other name raises ``KeyError``
-naming what is registered.
+Pose models by ``cfg.MODEL.NAME`` (only ``pose_hrnet`` is ported so
+far; any other name raises ``KeyError`` naming what is registered), and
+the YOLOv5 detectors by name (``yolov5n``, ``yolov5s``, ``yolov5m``,
+``yolov5l``).
 """
 
 from __future__ import annotations
@@ -14,8 +16,11 @@ from torch import nn
 
 from ..utils.platform import resolve_device
 from .hrnet import pose_hrnet_from_cfg
+from .yolov5 import VARIANTS, YOLOv5
 
 MODELS: Dict[str, Callable] = {}
+DETECTORS: Dict[str, Callable] = {
+    f"yolov5{v}": (lambda v=v: YOLOv5(v)) for v in VARIANTS}
 
 
 def register_model(name: str):
@@ -59,7 +64,22 @@ def build_model(cfg, device="cuda", seed: int = 0,
     if name not in MODELS:
         raise KeyError(
             f"unknown model {name!r}; available: {sorted(MODELS)}")
-    model = init_weights(MODELS[name](cfg), seed)
+    return _place(init_weights(MODELS[name](cfg), seed), dev, train)
+
+
+def build_detector(name="yolov5n", device="cuda", seed: int = 0) -> nn.Module:
+    """The detector ``name`` (``yolov5n`` … ``yolov5l``, or the bare
+    variant letter) on ``device``, in eval mode, with seeded random
+    weights."""
+    dev = resolve_device(device)
+    key = name if name.startswith("yolov5") else f"yolov5{name}"
+    if key not in DETECTORS:
+        raise KeyError(
+            f"unknown detector {name!r}; available: {sorted(DETECTORS)}")
+    return _place(init_weights(DETECTORS[key](), seed), dev, False)
+
+
+def _place(model, dev, train):
     if train:
         model = model.to(device=dev).train()
     else:

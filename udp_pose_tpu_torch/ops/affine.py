@@ -2,8 +2,10 @@
 
 The UDP crop matrix and joint rotation of training (reference deep_hrnet/
 lib/dataset/JointsDataset.py:29-73, :226-228), as torch functions and
-the numpy twins the host data workers use, and the host-side matrices of
-the serving path's crop warp.
+the numpy twins the host data workers use, and the matrices and the bilinear
+crop warp of the detect-then-pose path, on the device
+(:func:`classic_affine_matrix`, :func:`crop_boxes`) and on the host
+(:func:`classic_affine_mats_np`).
 
 Coordinate convention (UDP): the continuous image spans ``size - 1``
 pixel intervals.  Matrices map **destination pixel → source pixel**
@@ -112,6 +114,128 @@ def udp_warp_matrix_np(rot_deg, center, scale, out_size_wh):
     m[1, 2] = (0.5 * s200[0] * math.sin(theta)
                - 0.5 * s200[1] * math.cos(theta) + center[1])
     return m
+
+
+def classic_affine_matrix(center, scale, rot_deg, out_size_wh, inv=False,
+                          shift=(0.0, 0.0)):
+    """The classic (non-UDP) 3-point affine transform, batched over the
+    leading dims of ``center`` and ``scale`` (..., 2).
+
+    Reference ``get_affine_transform`` (deep_hrnet/lib/utils/
+    transforms.py:77-109): a crop box of ``scale * 200`` centred at
+    ``center`` (moved by ``shift`` × the box), rotated by ``rot_deg``
+    degrees, mapped onto ``out_size_wh`` so that the box width spans the
+    output width; the y-scale equals the x-scale.  ``inv=False`` gives
+    source → destination, ``inv=True`` destination → source.  Solves the
+    3×3 system as the JAX package does; returns (..., 2, 3) float32.
+    ``rot_deg`` and ``shift`` are numbers, so that nothing is copied from
+    the host to the device and nothing waits for the device."""
+    center = torch.as_tensor(center, dtype=torch.float32)
+    s200 = torch.as_tensor(scale, dtype=torch.float32,
+                           device=center.device) * PIXEL_STD
+    dst_w, dst_h = float(out_size_wh[0]), float(out_size_wh[1])
+    rot = float(rot_deg) * math.pi / 180.0
+    sin, cos = math.sin(rot), math.cos(rot)
+    src_w = s200[..., 0]
+    src0 = center + s200 * torch.stack(
+        [torch.full_like(src_w, float(v)) for v in shift], dim=-1)
+    src1 = src0 + torch.stack([src_w * 0.5 * sin, -src_w * 0.5 * cos],
+                              dim=-1)
+    d = src0 - src1
+    src2 = src1 + torch.stack([-d[..., 1], d[..., 0]], dim=-1)
+    # the destination triangle: (w/2, h/2), (w/2, h/2 - w/2), (0, h/2 - w/2)
+    zero = torch.zeros_like(src_w)
+    dst = torch.stack([torch.stack([zero + dst_w * 0.5, zero + dst_h * 0.5],
+                                   dim=-1),
+                       torch.stack([zero + dst_w * 0.5,
+                                    zero + (dst_h * 0.5 - dst_w * 0.5)],
+                                   dim=-1),
+                       torch.stack([zero,
+                                    zero + (dst_h * 0.5 - dst_w * 0.5)],
+                                   dim=-1)], dim=-2)
+    src = torch.stack([src0, src1, src2], dim=-2)              # (..., 3, 2)
+    if inv:
+        src, dst = dst, src
+    src_h = torch.cat([src, torch.ones_like(src[..., :1])], dim=-1)
+    # A @ [x, y, 1]^T = dst for the (2, 3) A: src_h @ A^T = dst
+    sol, _ = torch.linalg.solve_ex(src_h, dst, check_errors=False)
+    return sol.transpose(-1, -2)
+
+
+def apply_affine(points_xy, matrix):
+    """Apply a (2, 3) affine matrix to (..., 2) points."""
+    points_xy = torch.as_tensor(points_xy, dtype=torch.float32)
+    return points_xy @ matrix[:, :2].T + matrix[:, 2]
+
+
+def _sample_grid(matrices, out_hw):
+    """Source coordinates (..., h, w) float32 of each output pixel under
+    the (..., 2, 3) destination → source ``matrices``: ``m0·x + m1·y +
+    m2`` with ``m0·x + (m1·y)`` rounded once, as the JAX graph's
+    contracted multiply-add computes it (a coordinate 1 ulp off moves a
+    crop value by up to 255 ulp)."""
+    out_h, out_w = out_hw
+    dev = matrices.device
+    dst_x = torch.arange(out_w, dtype=torch.float64, device=dev)[None, :]
+    dst_y = torch.arange(out_h, dtype=torch.float32, device=dev)[:, None]
+    m = matrices.float()[..., None, None]
+
+    def row(r):
+        ax_by = (m[..., r, 0, :, :].double() * dst_x
+                 + (m[..., r, 1, :, :] * dst_y).double()).float()
+        return ax_by + m[..., r, 2, :, :]
+
+    return row(0), row(1)
+
+
+def _bilinear_gather(flat, base, src_x, src_y, H, W):
+    """Sample frames at float coords, zero outside: ``flat`` holds the
+    frames as (frames·H·W, C) rows, ``base`` (..., 1, 1) each sample's
+    first row.  Integer taps are gathered as they are and weighted in
+    float32 (four times fewer bytes gathered than a float frame)."""
+    x0 = torch.floor(src_x)
+    y0 = torch.floor(src_y)
+    fx = src_x - x0
+    fy = src_y - y0
+    x0 = x0.to(torch.int64)
+    y0 = y0.to(torch.int64)
+
+    def tap(yi, xi):
+        inb = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+        idx = base + yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
+        vals = flat[idx.reshape(-1)].reshape(*idx.shape, flat.shape[1])
+        return vals.float() * inb[..., None].float()
+
+    w00 = ((1 - fx) * (1 - fy))[..., None]
+    w01 = (fx * (1 - fy))[..., None]
+    w10 = ((1 - fx) * fy)[..., None]
+    w11 = (fx * fy)[..., None]
+    return (tap(y0, x0) * w00 + tap(y0, x0 + 1) * w01
+            + tap(y0 + 1, x0) * w10 + tap(y0 + 1, x0 + 1) * w11)
+
+
+def warp_affine(image, matrix, out_hw):
+    """Bilinear warp of one (H, W, C) image with a (2, 3) destination →
+    source matrix (the ``WARP_INVERSE_MAP`` convention), zero outside the
+    image → (out_h, out_w, C) float32."""
+    return crop_boxes(image, matrix[None], out_hw)[0]
+
+
+def crop_boxes(image, matrices, out_hw):
+    """Warp many boxes out of frames on the device: an (H, W, C) frame
+    with (N, 2, 3) matrices → (N, h, w, C), or (F, H, W, C) frames with
+    (F, N, 2, 3) matrices → (F, N, h, w, C); float32, zero outside the
+    frame.  ``out_hw`` is (out_h, out_w)."""
+    batched = image.dim() == 4
+    frames = image if batched else image[None]
+    mats = matrices if batched else matrices[None]
+    F_, H, W, C = frames.shape
+    src_x, src_y = _sample_grid(mats.float(), out_hw)       # (F, N, h, w)
+    base = (torch.arange(F_, device=frames.device) * (H * W)).view(
+        F_, 1, 1, 1)
+    out = _bilinear_gather(frames.reshape(F_ * H * W, C), base, src_x,
+                           src_y, H, W)
+    return out if batched else out[0]
 
 
 def classic_affine_mats_np(center, scale, out_size_wh):

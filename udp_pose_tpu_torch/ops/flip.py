@@ -2,7 +2,9 @@
 
 The flipped forward's output is un-flipped with a width reverse and a
 channel permute on the device (reference deep_hrnet/lib/utils/
-transforms.py: ``flip_back`` :15-29, ``flip_back_offset`` :31-47).
+transforms.py: ``flip_back`` :15-29, ``flip_back_offset`` :31-47).  The
+permute stacks views in the new order, so no index tensor is copied to
+the device and the host does not wait for it.
 Layout (B, C, H, W), as in the JAX package.  ``fliplr_joints`` mirrors
 a sample's joints for the training flip (:50-64).
 """
@@ -21,12 +23,16 @@ def flip_pair_permutation(num_joints, flip_pairs):
     return perm
 
 
+def _permute_dim1(x, perm):
+    """``x[:, perm]`` for a host permutation ``perm``."""
+    return torch.stack([x[:, int(p)] for p in perm], dim=1)
+
+
 def flip_back(output_flipped, flip_pairs):
     """Un-flip (B, J, H, W) heatmaps: width-reverse, swap paired joints."""
     J = output_flipped.shape[1]
-    perm = torch.as_tensor(flip_pair_permutation(J, flip_pairs),
-                           device=output_flipped.device)
-    return output_flipped.flip(3)[:, perm]
+    return _permute_dim1(output_flipped.flip(3),
+                         flip_pair_permutation(J, flip_pairs))
 
 
 def flip_back_offset(output_flipped, flip_pairs):
@@ -39,9 +45,9 @@ def flip_back_offset(output_flipped, flip_pairs):
                       device=output_flipped.device)
     sign[1::3] = -1.0
     out = output_flipped.flip(3) * sign[None, :, None, None]
-    perm = torch.as_tensor(flip_pair_permutation(J, flip_pairs),
-                           device=output_flipped.device)
-    return out.reshape(B, J, 3, H, W)[:, perm].reshape(B, C, H, W)
+    return _permute_dim1(out.reshape(B, J, 3, H, W),
+                         flip_pair_permutation(J, flip_pairs)).reshape(
+                             B, C, H, W)
 
 
 def fliplr_joints(joints, joints_vis, width, flip_pairs):

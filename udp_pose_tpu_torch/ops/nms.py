@@ -1,15 +1,20 @@
-"""Host NMS family: greedy box-IoU NMS, OKS-IoU, OKS-NMS, soft-OKS-NMS.
+"""NMS family (port of ``udp_pose_tpu/ops/nms.py``).
 
-The port's copy of the numpy half of ``udp_pose_tpu/ops/nms.py``
-(reference deep_hrnet/lib/nms/nms.py:35-177).  COCO evaluation uses the
-OKS variants (lib/dataset/coco.py:342-351); candidate counts there are
-tiny, so they run on the host.  Box IoU uses the reference's ``+1``
-pixel-area convention (nms.py:52).
+The host half (reference deep_hrnet/lib/nms/nms.py:35-177): greedy
+box-IoU NMS, OKS-IoU, OKS-NMS and soft-OKS-NMS in numpy.  COCO
+evaluation uses the OKS variants (lib/dataset/coco.py:342-351);
+candidate counts there are tiny, so they run on the host.  Box IoU uses
+the reference's ``+1`` pixel-area convention (nms.py:52) by default.
+
+The device half, :func:`nms_torch` and :func:`nms_torch_batched`: the
+fixed-shape greedy NMS of the detect-then-pose graph (``nms_jax``), one
+frame or F frames at a time, with no host synchronisation.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # COCO keypoint sigmas (lib/nms/nms.py:77)
 COCO_SIGMAS = np.array(
@@ -107,3 +112,62 @@ def soft_oks_nms(kpts, scores, areas, thresh, sigmas=None, in_vis_thre=None,
         scores = scores[resort]
         keep.append(int(i))
     return keep
+
+
+def _iou_matrix(boxes, plus_one=True):
+    """(..., N, 4) xyxy → (..., N, N) IoU, in ``nms_jax``'s arithmetic."""
+    off = 1.0 if plus_one else 0.0
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    areas = (x2 - x1 + off) * (y2 - y1 + off)
+    xx1 = torch.maximum(x1[..., :, None], x1[..., None, :])
+    yy1 = torch.maximum(y1[..., :, None], y1[..., None, :])
+    xx2 = torch.minimum(x2[..., :, None], x2[..., None, :])
+    yy2 = torch.minimum(y2[..., :, None], y2[..., None, :])
+    inter = ((xx2 - xx1 + off).clamp_min(0.0)
+             * (yy2 - yy1 + off).clamp_min(0.0))
+    return inter / (areas[..., :, None] + areas[..., None, :] - inter)
+
+
+def nms_torch_batched(boxes, scores, iou_thresh, max_out, plus_one=True):
+    """Fixed-shape greedy NMS over F frames at once, on the tensors'
+    device.
+
+    boxes (F, N, 4) xyxy, scores (F, N); rows to ignore carry score
+    -inf.  Returns (keep_idx (F, max_out) int32 padded with -1, keep_mask
+    (F, N) bool).  Each of ``min(max_out, N)`` rounds takes the first
+    highest live score (a tie keeps the lower index, as ``nms_jax`` and
+    the native ``greedy_nms`` do) and suppresses the rows whose IoU with
+    it exceeds ``iou_thresh``.  No ``.item()``, ``nonzero`` or boolean
+    indexing: nothing waits for the device."""
+    F, n = scores.shape
+    iou = _iou_matrix(boxes, plus_one=plus_one)
+    rows = torch.arange(n, device=scores.device)
+    alive = scores > -torch.inf
+    kept = torch.zeros_like(alive)
+    neg_inf = torch.full_like(scores, -torch.inf)
+    keep_idx = []
+    for _ in range(min(max_out, n)):
+        cand = torch.where(alive, scores, neg_inf)
+        i = cand.argmax(dim=1)                                     # (F,)
+        valid = cand.gather(1, i[:, None])[:, 0] > -torch.inf
+        hit = rows[None, :] == i[:, None]
+        overlap = iou.gather(1, i[:, None, None].expand(F, 1, n))[:, 0] \
+            > iou_thresh
+        alive = torch.where(valid[:, None], alive & ~overlap & ~hit, alive)
+        kept |= hit & valid[:, None]
+        # a round that finds nothing leaves nothing for the later ones,
+        # so the valid rounds are a prefix and fill slots 0, 1, ...
+        keep_idx.append(torch.where(valid, i, -1).to(torch.int32))
+    keep_idx += [torch.full((F,), -1, dtype=torch.int32,
+                            device=scores.device)] * (max_out - len(keep_idx))
+    return torch.stack(keep_idx, dim=1), kept
+
+
+def nms_torch(boxes, scores, iou_thresh, max_out, plus_one=True):
+    """Fixed-shape greedy NMS of one frame (``nms_jax``): boxes (N, 4)
+    xyxy, scores (N,) with -inf on padding rows → (keep_idx (max_out,)
+    int32 padded with -1, keep_mask (N,) bool).  ``plus_one=False`` gives
+    the plain IoU of the YOLO path (boxes.py:153)."""
+    keep_idx, kept = nms_torch_batched(boxes[None], scores[None],
+                                       iou_thresh, max_out, plus_one)
+    return keep_idx[0], kept[0]

@@ -1,11 +1,14 @@
 """Pose-serving daemon of the PyTorch port (port of ``tools/serve.py``).
 
 Serves ``/v1/pose`` (client-supplied boxes; crops micro-batched across
-requests into one device batch), ``/healthz`` and ``/metrics`` over
+requests into one device batch), with ``--detector`` also
+``/v1/detect_pose`` (frames of concurrent requests batched into one
+detect-then-pose chunk), ``/healthz`` and ``/metrics`` over
 :mod:`udp_pose_tpu_torch.engine.server`:
 
     python -m udp_pose_tpu_torch.serve \
-        --cfg configs/coco/hrnet_w32_256x192_udp_offset.yaml --port 0
+        --cfg configs/coco/hrnet_w32_256x192_udp_offset.yaml --port 0 \
+        [--detector yolov5n]
 """
 
 from __future__ import annotations
@@ -33,6 +36,17 @@ def parse_args(argv=None):
     p.add_argument("--window-ms", type=float, default=3.0,
                    help="micro-batch collection window after the first "
                         "request")
+    p.add_argument("--detector", default="",
+                   choices=["", "yolov5n", "yolov5s", "yolov5m", "yolov5l"],
+                   help="enable /v1/detect_pose with this YOLOv5 variant")
+    p.add_argument("--detector-weights", default="",
+                   help="ultralytics YOLOv5 state dict (.pt/.pth) "
+                        "(default: seeded random init)")
+    p.add_argument("--max-persons", type=int, default=16,
+                   help="person rows a /v1/detect_pose frame carries")
+    p.add_argument("--max-frames", type=int, default=8,
+                   help="max frames of concurrent /v1/detect_pose "
+                        "requests per device batch")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")
     return p.parse_args(argv)
@@ -46,7 +60,10 @@ def main(argv=None):
     service = PoseService(
         load_config(args.cfg), weights=args.weights or None,
         flip_test=args.flip, max_batch=args.max_batch,
-        window_ms=args.window_ms, device=args.device)
+        window_ms=args.window_ms, device=args.device,
+        detector=args.detector,
+        detector_weights=args.detector_weights or None,
+        max_persons=args.max_persons, max_frames=args.max_frames)
     server = PoseServer(service, host=args.host, port=args.port)
 
     def stop(signum, frame):

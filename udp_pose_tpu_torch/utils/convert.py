@@ -1,8 +1,10 @@
-"""Weights into the port: JAX-package variables and reference ``.pth``.
+"""Weights into the port: JAX-package variables, reference ``.pth`` and
+ultralytics YOLOv5 state dicts.
 
 The port's own copy of the reverse half of
-``udp_pose_tpu/utils/torch_convert.py`` (``Converter(reverse=True)`` and
-the HRNet mapping ``_map_pose_hrnet``): it walks the JAX package's flax
+``udp_pose_tpu/utils/torch_convert.py`` (``Converter(reverse=True)``, the
+HRNet mapping ``_map_pose_hrnet`` and the YOLOv5 mapping ``_map_yolov5``):
+it walks the JAX package's flax
 variables — nested dicts of numpy arrays under ``params`` and
 ``batch_stats`` — and emits the reference torch state_dict, whose keys
 are the port's module names.  Layout rules: flax conv kernel
@@ -12,6 +14,7 @@ batch_stats mean/var → running_mean/running_var.
 
 from __future__ import annotations
 
+import os
 from typing import Dict
 
 import numpy as np
@@ -168,6 +171,80 @@ def variables_to_state_dict(variables, cfg) -> Dict[str, np.ndarray]:
     cv = Converter(variables)
     _map_pose_hrnet(cv, stages_from_cfg(cfg))
     return cv.sd
+
+
+# ultralytics yolov5 v6.0 module indices → the JAX package's layer names
+_YOLO_LAYERS = [
+    ("0", "b0", "conv"), ("1", "b1", "conv"), ("2", "b2", "c3"),
+    ("3", "b3", "conv"), ("4", "b4", "c3"), ("5", "b5", "conv"),
+    ("6", "b6", "c3"), ("7", "b7", "conv"), ("8", "b8", "c3"),
+    ("9", "b9", "sppf"), ("10", "h10", "conv"), ("13", "h13", "c3"),
+    ("14", "h14", "conv"), ("17", "h17", "c3"), ("18", "h18", "conv"),
+    ("20", "h20", "c3"), ("21", "h21", "conv"), ("23", "h23", "c3"),
+]
+
+
+def _map_yolov5(cv: Converter, prefix="model."):
+    def conv_unit(tp, *path):
+        cv.conv(f"{tp}.conv", *path, "conv")
+        cv.bn(f"{tp}.bn", *path, "bn")
+
+    for idx, name, kind in _YOLO_LAYERS:
+        tp = prefix + idx
+        if kind == "conv":
+            conv_unit(tp, name)
+        elif kind == "sppf":
+            conv_unit(f"{tp}.cv1", name, "cv1")
+            conv_unit(f"{tp}.cv2", name, "cv2")
+        else:
+            for cvname in ("cv1", "cv2", "cv3"):
+                conv_unit(f"{tp}.{cvname}", name, cvname)
+            j = 0
+            while cv.probe(f"{tp}.m.{j}.cv1.conv.weight", name, f"m{j}"):
+                conv_unit(f"{tp}.m.{j}.cv1", name, f"m{j}", "cv1")
+                conv_unit(f"{tp}.m.{j}.cv2", name, f"m{j}", "cv2")
+                j += 1
+    for li in range(3):
+        cv.conv(f"{prefix}24.m.{li}", f"detect{li}")
+
+
+def yolov5_variables_to_state_dict(variables) -> Dict[str, np.ndarray]:
+    """The JAX package's flax YOLOv5 variables (numpy) → the port's
+    YOLOv5 state dict, which is the ultralytics v6.0 layout
+    (``model.{i}...``)."""
+    cv = Converter(variables)
+    _map_yolov5(cv)
+    return cv.sd
+
+
+def ultralytics_state_dict(sd) -> Dict[str, np.ndarray]:
+    """An ultralytics YOLOv5 state dict (``torch.save(model.state_dict())``
+    of a ``yolov5*.pt`` model, whose keys carry one ``model.`` prefix, or
+    two from an ``attempt_load`` wrapper) → the port's keys: exactly one
+    ``model.`` prefix, the ``anchor*`` buffers dropped."""
+    out = {}
+    for k, v in sd.items():
+        while k.startswith("model."):
+            k = k[len("model."):]
+        if "anchor" in k:
+            continue
+        out["model." + k] = v if torch.is_tensor(v) else np.asarray(v)
+    return out
+
+
+def load_yolov5_weights(weights) -> Dict[str, object]:
+    """YOLOv5 weights in any of the forms the engines take → the port's
+    state dict: the JAX package's variables (a dict with ``params``), a
+    state dict (the port's or ultralytics'), or a ``.pt`` / ``.pth`` path
+    to a saved ultralytics state dict."""
+    if isinstance(weights, (str, os.PathLike)):
+        if not str(weights).endswith((".pt", ".pth")):
+            raise ValueError(f"detector weights {weights!r}: a .pt or .pth "
+                             "file holding a state dict")
+        weights = torch.load(weights, map_location="cpu", weights_only=True)
+    if "params" in weights:
+        return yolov5_variables_to_state_dict(weights)
+    return ultralytics_state_dict(weights)
 
 
 def state_dict_to_torch(sd) -> Dict[str, torch.Tensor]:
