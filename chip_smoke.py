@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--peak-before OLD/peak_offset.cu]
 
-Builds the port's CUDA source ``udp_pose_tpu_torch/csrc/peak_offset.cu``
-and holds both of its kernels bit for bit against their plain PyTorch
+Builds the port's CUDA sources ``udp_pose_tpu_torch/csrc/peak_offset.cu``
+and ``csrc/int8_conv.cu`` (one nvcc each, started together) and holds
+both kernels of the first bit for bit against their plain PyTorch
 versions on the card: the peak-only mode on six map families (phase 3;
 with ``--peak-before``, also an earlier revision of the source, timed in
 turns with this one).  Runs full-width HRNet-w32 256×192 UDP-offset
@@ -24,9 +25,18 @@ detect-then-pose at full width (YOLOv5n at 640, w32 bf16 with the flip
 test, 16 persons, 720p frames): the detector card vs CPU, the device NMS
 against the host NMS, the fused engine's boxes against the host path on
 a stubbed head, one decode launch a frame or a chunk, frames/s and a
-stage breakdown, ``/v1/detect_pose`` over HTTP and the infer CLI.  The
-kernels' launches count phases 6, 7 and 8, each path on its own.  Any
-failed check exits nonzero before the last line, which is
+stage breakdown, ``/v1/detect_pose`` over HTTP and the infer CLI.
+Phase 9, int8 (right after phase 8): both int8 conv kernels bit for bit
+against their plain versions and ``_int_mm`` against exact products at
+every int8 conv shape of w32 (B=256) and YOLOv5n, each timed beside its
+bound, ``_int_mm`` and the bf16 cuDNN conv (9a); the pipeline
+calibrating itself, then int8 and bf16 crops/s in both flip modes, card
+vs CPU (9b); ``/v1/pose`` of an int8 server (9c); int8 detect-then-pose
+frames/s (9d); QAT train steps (9e); the test CLI with ``TPU.QUANTIZE
+int8`` (9f).  The kernels' launches count phases 6, 7 and 8, each path
+in one window, and the two int8 paths (9b-9c, 9d) in windows around
+each of their own calls: the bf16 engines timed in turns with them and
+the card-vs-CPU checks run outside.  Any failed check exits nonzero before the last line, which is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits 1.
 Imports nothing of JAX or of the JAX package.
 """
@@ -225,14 +235,23 @@ def set_tf32(enabled):
 
 # ---------------------------------------------------------------- phase 2
 def phase_build():
+    """Both CUDA sources, one nvcc each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from udp_pose_tpu_torch.ops import _build
+    names = ("peak_offset", "int8_conv")
     t0 = time.perf_counter()
-    _build.load("peak_offset")
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = dict(zip(names, pool.map(_build.build, names)))
+    for name in names:
+        _build.load(name)
     secs = time.perf_counter() - t0
-    log(f"[build] peak_offset.cu -> {_build.library_path('peak_offset')} "
-        f"in {secs:.2f} s")
-    if "peak_offset" in _build.build_logs:
-        log("[build] nvcc: " + _build.build_logs["peak_offset"][1].strip())
+    for name, lib in libs.items():
+        log(f"[build] {name}.cu -> {lib}"
+            + (f" in {_build.build_logs[name][0]:.2f} s; nvcc: "
+               + _build.build_logs[name][1].strip()
+               if name in _build.build_logs else " (built before)"))
+    log(f"[build] both sources in {secs:.2f} s")
     return secs
 
 
@@ -739,8 +758,6 @@ def requests_for(n_requests, frame_hw, seed=7):
 def phase_server(cfg, device="cuda", n_requests=4, frame_hw=(720, 1280)):
     """Returns each kernel's launches while serving the requests."""
     from udp_pose_tpu_torch.engine.server import PoseServer, PoseService
-    from udp_pose_tpu_torch.ops.peak_offset import (fused_peak_offset,
-                                                    udp_offset_decode_fused)
 
     service = PoseService(cfg, device=device, seed=0, window_ms=50.0)
     server = PoseServer(service, host="127.0.0.1", port=0)
@@ -754,16 +771,14 @@ def phase_server(cfg, device="cuda", n_requests=4, frame_hw=(720, 1280)):
             gate.wait()
             results[i] = post_pose(server.port, *reqs[i])
 
-        fused_peak_offset.launches = udp_offset_decode_fused.launches = 0
+        zero_launches()
         clients = [threading.Thread(target=client, args=(i,))
                    for i in range(n_requests)]
         for c in clients:
             c.start()
         for c in clients:
             c.join(timeout=600)
-        launches = {"udp_offset_decode_fused":
-                    udp_offset_decode_fused.launches,
-                    "fused_peak_offset": fused_peak_offset.launches}
+        launches = read_launches()
         check(not any(c.is_alive() for c in clients), "a client hung")
         batches = service.batcher.log_snapshot()
         J = cfg.MODEL.NUM_JOINTS
@@ -980,7 +995,8 @@ def check_step(cfg, train_ds, card, device="cuda"):
     set_tf32(True)
 
 
-def repeated_batch_steps(cfg, batch, card, n_steps=8, device="cuda"):
+def repeated_batch_steps(cfg, batch, card, n_steps=8, device="cuda",
+                         label="(b) w32 bf16"):
     """(b) bf16: ``n_steps`` steps of a fresh w32 on one pre-built batch,
     each ended by a synchronize; returns the step times (s)."""
     from udp_pose_tpu_torch.core.loss import make_loss_fn
@@ -1002,7 +1018,7 @@ def repeated_batch_steps(cfg, batch, card, n_steps=8, device="cuda"):
           f"not fall in {n_steps} steps: {losses}")
     B = len(batch["image"])
     ms = np.median(secs[WARM_STEPS:]) * 1e3
-    log(f"[train] (b) w32 bf16 B={B}, one pre-built batch repeated: losses "
+    log(f"[train] {label} B={B}, one pre-built batch repeated: losses "
         f"{', '.join(f'{v:.5g}' for v in losses)}; step "
         f"{', '.join(f'{s * 1e3:.1f}' for s in secs)} ms (first "
         f"{WARM_STEPS} warm-up); median {ms:.2f} ms/step = "
@@ -1113,7 +1129,7 @@ def phase_train(tmp, cfg_fn=w32_cfg, device="cuda"):
     # the run, with the kernels' counts read just after it
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, device=device, train=True)
-    po.udp_offset_decode_fused.launches = po.fused_peak_offset.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     record = train_cli.run(cfg, model, train_ds, val_ds, out_dir, device)
     run_s = time.perf_counter() - t0
@@ -1122,8 +1138,7 @@ def phase_train(tmp, cfg_fn=w32_cfg, device="cuda"):
     t0 = time.perf_counter()
     _, perf = test_cli.run(cfg, weights, val_ds, out_dir, device)
     test_s = time.perf_counter() - t0
-    launches = {"udp_offset_decode_fused": po.udp_offset_decode_fused.launches,
-                "fused_peak_offset": po.fused_peak_offset.launches}
+    launches = read_launches()
     eval_batches = -(-len(val_ds) // cfg.TEST.BATCH_SIZE_PER_GPU)
     n_val = len(record["validations"]) + 1
     check(launches["udp_offset_decode_fused"] == n_val * eval_batches,
@@ -1750,7 +1765,7 @@ def phase_detect(tmp, cfg_fn=w32_cfg, pose_yaml=W32_YAML, device="cuda"):
 
     # the path: every count set to 0 here and read once at the end of 8f;
     # nothing in between launches a kernel other than through the path
-    po.udp_offset_decode_fused.launches = po.fused_peak_offset.launches = 0
+    zero_launches()
     # 8c, 8d: a stubbed head (known candidates) against the host path, in
     # each serving shape; one decode launch a frame or a chunk
     pred, stub = stub_head(stub_rows(), device=device)
@@ -1847,8 +1862,8 @@ def phase_detect(tmp, cfg_fn=w32_cfg, pose_yaml=W32_YAML, device="cuda"):
             + f"; total {sum(host.values()):.2f} / "
             f"{sum(dev.values()):.3f} | {card}")
     check_http(card, cfg_fn, device)
-    launches = po.udp_offset_decode_fused.launches
-    check(po.fused_peak_offset.launches == 0, "peak-only kernel launched")
+    launches = read_launches()
+    check(launches["fused_peak_offset"] == 0, "peak-only kernel launched")
     check_cli(tmp, card, pose_yaml, device)
     log(f"[detect] phase 8 {time.perf_counter() - t_phase:.1f} s; fused "
         f"decode launches on the path {launches}")
@@ -1870,6 +1885,592 @@ def phase_detect(tmp, cfg_fn=w32_cfg, pose_yaml=W32_YAML, device="cuda"):
         torch.cuda.empty_cache()
 
     return launches, profile
+
+
+# ---------------------------------------------------------------- phase 9
+INT8_SITES_W32 = 293             # w32's 294 convs less final_layer
+INT8_SITES_YOLOV5N = 57          # YOLOv5n convs less the three detect heads
+CPU_GEMM_ROWS = 4096             # rows of each _int_mm held against the CPU
+
+
+def kernel_wrappers():
+    """Every kernel wrapper of the port, by the name the kernels line
+    gives it."""
+    from udp_pose_tpu_torch.ops import int8_conv as ic
+    from udp_pose_tpu_torch.ops import peak_offset as po
+    return {"udp_offset_decode_fused": po.udp_offset_decode_fused,
+            "fused_peak_offset": po.fused_peak_offset,
+            "quant_im2col": ic.quant_im2col,
+            "dequant_epilogue": ic.dequant_epilogue}
+
+
+def zero_launches():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+class PathLaunches:
+    """The launches of one path, summed over the windows in which only
+    that path runs: :meth:`run` sets every count to 0 just before its call
+    and reads them just after.  ``want`` holds what the batches that the
+    path served should have launched (:meth:`served`)."""
+
+    def __init__(self, name):
+        self.name = name
+        self.counts = dict.fromkeys(kernel_wrappers(), 0)
+        self.want = dict.fromkeys(kernel_wrappers(), 0)
+
+    def run(self, fn, *args):
+        zero_launches()
+        try:
+            return fn(*args)
+        finally:
+            for name, n in read_launches().items():
+                self.counts[name] += n
+
+    def served(self, decodes, int8_sites):
+        """Batches served: ``decodes`` decode launches and ``int8_sites``
+        launches of each int8 kernel."""
+        self.want["udp_offset_decode_fused"] += decodes
+        self.want["quant_im2col"] += int8_sites
+        self.want["dequant_epilogue"] += int8_sites
+
+    def check(self):
+        check(self.counts == self.want and self.want["quant_im2col"] > 0,
+              f"{self.name}: launches {self.counts}, but its batches should "
+              f"have launched {self.want}")
+
+
+def forwards(cfg):
+    """Pose forwards a batch: two in the flip test's two_pass mode."""
+    return 2 if (cfg.TEST.FLIP_TEST and cfg.TEST.get(
+        "FLIP_MODE", "fold") == "two_pass") else 1
+
+
+def int8_sites(model, x):
+    """The int8 sites of ``model``'s forward on ``x``, in call order:
+    (conv module, its input's shape and dtype); the heads that
+    ``DEFAULT_SKIP`` keeps in float are left out."""
+    from udp_pose_tpu_torch.models.quantize import DEFAULT_SKIP, _matches
+    from udp_pose_tpu_torch.utils.convert import conv_sites
+    sites, seen, hooks = conv_sites(model), [], []
+    for name, mod in model.named_modules():
+        if name in sites and not _matches(sites[name], DEFAULT_SKIP):
+            hooks.append(mod.register_forward_pre_hook(
+                lambda m, args: seen.append((m, tuple(args[0].shape),
+                                             args[0].dtype))))
+    try:
+        with torch.inference_mode():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def int8_shape_run(conv, shape, dtype, device, seed):
+    """9a at one conv shape: the weight quantisation and both kernels
+    against their plain versions on the card, bit for bit (the weights
+    against the CPU's); ``_int_mm`` against the exact float64 product
+    on the card and the CPU's integer product on its first rows; times
+    (graph replay) of each kernel, its plain version, ``_int_mm`` and the
+    bf16 cuDNN conv of the same shape; each kernel's byte bound."""
+    import torch.nn.functional as F
+
+    from udp_pose_tpu_torch.models.quantize import Int8Conv2d, quantize_kernel
+    from udp_pose_tpu_torch.ops import int8_conv as ic
+    N, C, H, W = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=device).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    layer = Int8Conv2d(conv, float(x.float().abs().amax()) * 0.9)
+    args = (layer.inv_s_a, layer.kernel_size, layer.stride, layer.padding,
+            layer.k_pad)
+    Ho, Wo = ic.conv_out_hw(H, W, *args[1:4])
+    M, O = N * Ho * Wo, layer.out_channels
+    a = ic.quant_im2col(x, *args)
+    acc = ic.int8_gemm(a, layer.w_gemm)
+    y = ic.dequant_epilogue(acc, layer.scale, layer.bias, dtype, M, O)
+    exact = (a.double() @ layer.w_gemm.double().t()).to(torch.int32)
+    rows = min(CPU_GEMM_ROWS, a.shape[0])
+    cpu = ic.int8_gemm(a[:rows].cpu(), layer.w_gemm.cpu())
+    what = f"{tuple(shape)} k{layer.kernel_size[0]} s{layer.stride[0]} -> {O}"
+    check(all(torch.equal(d.cpu(), c) for d, c in zip(
+        quantize_kernel(conv.weight), quantize_kernel(conv.weight.cpu()))),
+          f"weight quantisation: card != CPU at {what}")
+    a_ref = ic.quant_im2col_reference(x, *args)
+    y_ref = ic.dequant_epilogue_reference(acc, layer.scale, layer.bias,
+                                          dtype, M, O)
+    errs = {"quant_im2col": float((a.int() - a_ref.int()).abs().max()),
+            "dequant_epilogue": float((y.double() - y_ref.double()).abs()
+                                      .max())}
+    check(torch.equal(a, a_ref),
+          f"quant_im2col != its plain version at {what}")
+    check(torch.equal(y, y_ref),
+          f"dequant_epilogue != its plain version at {what}")
+    check(torch.equal(acc, exact), f"_int_mm != the exact product at {what}")
+    check(torch.equal(acc[:rows].cpu(), cpu),
+          f"_int_mm on the card != the CPU's at {what}")
+    elt = x.element_size()
+    w_bf = conv.weight.detach().to(torch.bfloat16)
+    x_bf = x.to(torch.bfloat16)
+    fast = dict(iters=5, repeats=3, warm_s=0.02)
+    t = {"quant_im2col": graph_ms(lambda: ic.quant_im2col(x, *args), [()],
+                                  **fast),
+         "dequant_epilogue": graph_ms(lambda: ic.dequant_epilogue(
+             acc, layer.scale, layer.bias, dtype, M, O), [()], **fast),
+         "int_mm": graph_ms(lambda: torch._int_mm(a, layer.w_gemm.t()),
+                            [()], **fast),
+         "cudnn_bf16": graph_ms(lambda: F.conv2d(
+             x_bf, w_bf, None, conv.stride, conv.padding), [()], **fast),
+         "plain_quant_im2col": cuda_ms(lambda: ic.quant_im2col_reference(
+             x, *args), [()], iters=2, repeats=1, warm_s=0.0),
+         "plain_dequant_epilogue": cuda_ms(
+             lambda: ic.dequant_epilogue_reference(
+                 acc, layer.scale, layer.bias, dtype, M, O), [()], iters=2,
+             repeats=1, warm_s=0.0)}
+    bounds = {"quant_im2col": bound_of(x.numel() * elt + a.numel(), 0)[0],
+              "dequant_epilogue": bound_of(M * O * (4 + elt) + O * 8, 0)[0]}
+    return t, bounds, errs, what
+
+
+def check_int8_kernels(card, cfg_fn=w32_cfg, device="cuda", fold_batch=256,
+                       det_hw=(384, 640)):
+    """9a: every distinct int8 conv shape of w32 (B = ``fold_batch``, the
+    fold batch of 128 crops with the flip) and of YOLOv5n on a 720p
+    frame's canvas.  Returns, per kernel, its numbers summed over one w32
+    fold forward for the kernels line, and its largest |card - plain|
+    over every shape of both nets."""
+    from udp_pose_tpu_torch.models import build_detector, build_model
+    cfg = cfg_fn("bfloat16")
+    w, h = cfg.MODEL.IMAGE_SIZE
+    nets = {"w32": int8_sites(build_model(cfg, device=device),
+                              torch.zeros(1, 3, h, w, dtype=torch.bfloat16,
+                                          device=device)),
+            "yolov5n": int8_sites(build_detector("yolov5n", device=device),
+                                  torch.zeros(1, 3, *det_hw, device=device))}
+    check(len(nets["w32"]) == INT8_SITES_W32
+          and len(nets["yolov5n"]) == INT8_SITES_YOLOV5N,
+          f"int8 sites: w32 {len(nets['w32'])}, YOLOv5n "
+          f"{len(nets['yolov5n'])}")
+    totals, t_start = {}, time.perf_counter()
+    errs = {"quant_im2col": 0.0, "dequant_epilogue": 0.0}
+    for net, sites in nets.items():
+        shapes = {}
+        for conv, shape, dtype in sites:
+            n = fold_batch if net == "w32" else shape[0]
+            key = ((n,) + shape[1:], dtype, conv.out_channels,
+                   conv.kernel_size, conv.stride, conv.padding)
+            shapes.setdefault(key, [conv, 0])[1] += 1
+        sums = {}
+        for i, (key, (conv, count)) in enumerate(sorted(
+                shapes.items(), key=lambda kv: str(kv[0]))):
+            t, bounds, err, what = int8_shape_run(conv, key[0], key[1],
+                                                  device, seed=i)
+            errs = {k: max(v, err[k]) for k, v in errs.items()}
+            for k, v in list(t.items()) + [(f"bound_{k}", v)
+                                           for k, v in bounds.items()]:
+                sums[k] = sums.get(k, 0.0) + count * v
+            log(f"[int8] 9a {net} {what} {str(key[1])[6:]} x{count}: "
+                f"bit-equal; quant_im2col {t['quant_im2col'] * 1e3:.1f} us "
+                f"(bound {bounds['quant_im2col'] * 1e3:.1f}, plain "
+                f"{t['plain_quant_im2col'] * 1e3:.1f}); dequant_epilogue "
+                f"{t['dequant_epilogue'] * 1e3:.1f} us (bound "
+                f"{bounds['dequant_epilogue'] * 1e3:.1f}, plain "
+                f"{t['plain_dequant_epilogue'] * 1e3:.1f}); _int_mm "
+                f"{t['int_mm'] * 1e3:.1f} us; bf16 cuDNN conv "
+                f"{t['cudnn_bf16'] * 1e3:.1f} us")
+            torch.cuda.empty_cache()
+        totals[net] = sums
+        log(f"[int8] 9a {net}, one forward ({len(sites)} int8 sites, "
+            f"{len(shapes)} shapes, ms): quant_im2col "
+            f"{sums['quant_im2col']:.3f} (bound "
+            f"{sums['bound_quant_im2col']:.3f}, plain "
+            f"{sums['plain_quant_im2col']:.3f}), _int_mm "
+            f"{sums['int_mm']:.3f}, dequant_epilogue "
+            f"{sums['dequant_epilogue']:.3f} (bound "
+            f"{sums['bound_dequant_epilogue']:.3f}, plain "
+            f"{sums['plain_dequant_epilogue']:.3f}); the three "
+            f"{sums['quant_im2col'] + sums['int_mm'] + sums['dequant_epilogue']:.3f}"
+            f" against the bf16 cuDNN convs {sums['cudnn_bf16']:.3f} | {card}")
+    log(f"[int8] 9a {time.perf_counter() - t_start:.1f} s")
+    w32 = totals["w32"]
+    return {name: {"max_abs_err": errs[name], "ms": w32[name],
+                   "plain_ms": w32[f"plain_{name}"],
+                   "bound_ms": w32[f"bound_{name}"], "bound_by": "bytes",
+                   "library_ms": None,
+                   "per": f"one w32 fold forward, B={fold_batch}, "
+                          f"{INT8_SITES_W32} launches",
+                   "yolov5n_frame_ms": totals["yolov5n"][name],
+                   "int_mm_ms": w32["int_mm"],
+                   "cudnn_bf16_conv_ms": w32["cudnn_bf16"]}
+            for name in ("quant_im2col", "dequant_epilogue")}
+
+
+def int8_card_vs_cpu(table, card, cfg_fn=w32_cfg, device="cuda"):
+    """9b: the int8 w32 in fp32 with TF32 off, card against CPU, on 4
+    crops with the same table.  The gate is site by site: every int8
+    site, fed the input it got on the card, must give the card's output
+    on the CPU bit for bit.  Across the whole net an activation ulps from
+    a quantiser's rounding tie lands on either side of it and the step
+    cascades, so the whole-net heatmap difference is as large as int8's
+    own drift from fp32 (on one H100, 80.3 against 85.9 for these crops)
+    and would pass a card that ran float convs: it is printed beside that
+    drift and gates nothing.  Where the peaks agree, the keypoints are
+    held to what the offset maps' difference carries (times kpd, in
+    source pixels) plus KP_ATOL px."""
+    from udp_pose_tpu_torch.core.infer import make_infer_fn
+    from udp_pose_tpu_torch.models import build_model
+    from udp_pose_tpu_torch.models.quantize import Int8Conv2d, QuantizedModel
+    set_tf32(False)
+    cfg = cfg_fn("float32")
+    crops, center, scale = random_crops(4, cfg, seed=12)
+    got, card_sites, cpu_sites = {}, {}, {}
+    for run in ("card", "cpu", "cpu_fp32"):
+        model = build_model(cfg, device=device if run == "card" else "cpu",
+                            seed=0)
+        net = model if run == "cpu_fp32" else QuantizedModel(model, table)
+        if run == "cpu":
+            cpu_sites = {name: m for name, m in net.named_modules()
+                         if isinstance(m, Int8Conv2d)}
+        def keep(m, args, out, name):
+            card_sites.setdefault(name, (args[0], out))
+
+        hooks = [m.register_forward_hook(
+            lambda m, args, out, name=name: keep(m, args, out, name))
+            for name, m in net.named_modules()
+            if run == "card" and isinstance(m, Int8Conv2d)]
+        infer = make_infer_fn(net, target_type="offset", flip_test=True,
+                              post_process=True, kpd=KPD)
+        with DecodeRecorder() as rec:
+            preds = infer(crops, center, scale)[0]
+        for h in hooks:
+            h.remove()
+        got[run] = (rec.calls[0][0].cpu(), rec.calls[0][2].cpu(), preds.cpu())
+    with torch.inference_mode():
+        exact = sum(int(torch.equal(y.cpu(), cpu_sites[name](x.cpu())))
+                    for name, (x, y) in card_sites.items())
+    (hm, packed, preds), (hm_cpu, packed_cpu, p_cpu) = got["card"], got["cpu"]
+    diff = (hm - hm_cpu).abs()
+    hm_max, hm_err = float(hm_cpu.abs().max()), float(diff.max())
+    drift = float((hm_cpu - got["cpu_fp32"][0]).abs().max())
+    W, H = hm.shape[-1], hm.shape[-2]
+    agree = peak_index(packed, W) == peak_index(packed_cpu, W)
+    off_err = torch.stack([diff[:, 1::3].amax((-2, -1)),
+                           diff[:, 2::3].amax((-2, -1))], -1)
+    span = (torch.from_numpy(scale) * 200.0
+            / torch.tensor([W - 1.0, H - 1.0]))[:, None, :]
+    kp_err = (preds - p_cpu).abs()
+    over = (kp_err > off_err * KPD * span + KP_ATOL).any(-1) & agree
+    kp_max = float(kp_err.amax(-1)[agree].max()) if agree.any() else 0.0
+    log(f"[int8] 9b int8 w32 fp32 TF32 off, 4 crops, card vs CPU with the "
+        f"same table: {exact} of {len(card_sites)} int8 sites bit-equal "
+        f"on the card's site inputs; heatmaps {hm_err:.3g} apart (max |hm| "
+        f"{hm_max:.3g}, mean diff {float(diff.mean()):.3g}; a number only, "
+        f"beside the int8 vs fp32 drift on the CPU, {drift:.3g}); peaks "
+        f"equal on "
+        f"{int(agree.sum())} of {agree.numel()} maps; keypoints {kp_max:.3g}"
+        f" px apart where they agree, {int(over.sum())} over their limit | "
+        f"{card}")
+    check(exact == len(card_sites) == INT8_SITES_W32,
+          f"9b: {exact} of {len(card_sites)} int8 sites equal card vs CPU")
+    check(not bool(over.any()), "9b int8 keypoints: card vs CPU over the "
+          "limit where the peaks agree")
+    set_tf32(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def int8_serving(path, card, cfg_fn=w32_cfg, device="cuda",
+                 batch=SERVE_BATCH, iters=10):
+    """9b: full-width w32 bf16 with the flip at B = ``batch``: the
+    pipeline calibrates itself on two batches, then int8 and bf16 crops/s
+    in both flip modes (host u8 crops in, decoded keypoints out), the
+    engaged sites, peak memory, the card against the CPU and the
+    int8-vs-bf16 drift.  Every int8 batch runs inside a window of
+    ``path``; the bf16 batches and the card-vs-CPU check run outside.
+    Returns the table."""
+    from udp_pose_tpu_torch.engine.pose_engine import UdpPosePipeline
+
+    def pipe(mode, **kw):
+        cfg = cfg_fn("bfloat16")
+        cfg.TEST.FLIP_MODE = mode
+        return UdpPosePipeline(cfg, device=device, seed=0, **kw)
+
+    def served(p, *args):
+        """One int8 pipeline batch, as the path's launches expect it."""
+        def call():
+            int8_sites = (0 if p.int8.calibrating else
+                          INT8_SITES_W32 * forwards(p.cfg))
+            out = p.infer_crops(*args)
+            path.served(1, int8_sites)
+            return out
+        return call
+
+    modes = ("two_pass", "fold")
+    int8 = {"two_pass": pipe("two_pass", quantize="int8", calib_batches=2)}
+    t0 = time.perf_counter()
+    for seed in (10, 11):
+        check(int8["two_pass"].int8.calibrating, "calibrated too early")
+        path.run(served(int8["two_pass"],
+                        *random_crops(batch, cfg_fn("bfloat16"), seed)))
+    calib_s = time.perf_counter() - t0
+    table = int8["two_pass"].int8.table
+    check(table is not None and len(table) == INT8_SITES_W32 + 1,
+          f"self-calibration: table of {0 if table is None else len(table)}")
+    int8["fold"] = pipe("fold", act_scales=table)
+    bf16 = {mode: pipe(mode) for mode in modes}
+    crops, center, scale = random_crops(batch, cfg_fn("bfloat16"), seed=9)
+    rates, peaks = {}, {}
+    for mode in modes:
+        for kind in ("bf16", "int8", "int8", "bf16"):
+            if kind == "int8":
+                fn = served(int8[mode], crops, center, scale)
+                run = lambda f, *a: path.run(f, *a)       # noqa: E731
+            else:
+                p = bf16[mode]
+                fn = lambda p=p: p.infer_crops(crops, center, scale)  # noqa
+                run = lambda f, *a: f(*a)                  # noqa: E731
+            ms = [run(host_ms, fn, iters) for _ in range(3)]
+            rates.setdefault(f"{kind}/{mode}", []).append(
+                batch / np.median(ms) * 1e3)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            run(fn)
+            peaks[f"{kind}/{mode}"] = torch.cuda.max_memory_allocated() / 1e9
+    for mode in modes:
+        check(len(int8[mode].int8.qmodel.engaged) == INT8_SITES_W32,
+              f"{mode}: {len(int8[mode].int8.qmodel.engaged)} engaged sites")
+    kp_q = path.run(served(int8["two_pass"], crops, center, scale))[0]
+    kp_b = bf16["two_pass"].infer_crops(crops, center, scale)[0]
+    drift = np.abs(kp_q - kp_b)
+    log(f"[int8] 9b w32 256x192 bf16 flip B={batch}: self-calibrated on 2 "
+        f"batches in {calib_s:.2f} s ({len(table)} sites in the table, "
+        f"{INT8_SITES_W32} engaged: final_layer stays bf16); "
+        f"{INT8_SITES_W32} quant_im2col + {INT8_SITES_W32} _int_mm + "
+        f"{INT8_SITES_W32} dequant_epilogue launches a forward (two_pass: 2 "
+        f"forwards a batch, fold: 1 of 2B) | {card}")
+    for key, r in rates.items():
+        log(f"[int8] 9b {key}: {np.median(r):.1f} crops/s (runs "
+            f"{', '.join(f'{v:.1f}' for v in r)}, in turns bf16, int8, int8,"
+            f" bf16, each the median of 3 x {iters} batches); peak "
+            f"max_memory_allocated {peaks[key]:.2f} GB | {card}")
+    log(f"[int8] 9b int8 vs bf16 keypoints on the same {batch} crops "
+        f"(random weights: a number only): max {drift.max():.3g} px, median "
+        f"{np.median(drift):.3g} px")
+    del int8, bf16
+    torch.cuda.empty_cache()
+    int8_card_vs_cpu(table, card, cfg_fn, device)
+    return table, {k: float(np.median(v)) for k, v in rates.items()}
+
+
+def int8_http(path, card, cfg_fn=w32_cfg, device="cuda",
+              frame_hw=(720, 1280)):
+    """9c: ``/v1/pose`` of a server started with ``quantize="int8"``:
+    ``/healthz`` says calibrated after its first two batches.  The
+    requests run inside one window of ``path``."""
+    from udp_pose_tpu_torch.engine.server import PoseServer, PoseService
+    service = PoseService(cfg_fn("bfloat16"), device=device, seed=0,
+                          window_ms=5.0, quantize="int8")
+    server = PoseServer(service, host="127.0.0.1", port=0)
+    thread = server.serve_in_thread()
+
+    def requests():
+        states, lat = [], []
+        for frame, boxes in requests_for(3, frame_hw, seed=91):
+            states.append(json.loads(get(server.port, "/healthz")[1]))
+            status, body, secs = post_pose(server.port, frame, boxes)
+            check(status == 200 and np.isfinite(body["keypoints"]).all(),
+                  f"/v1/pose int8 answered {status}")
+            lat.append(round(secs * 1e3, 1))
+        states.append(json.loads(get(server.port, "/healthz")[1]))
+        return states, lat
+
+    try:
+        states, lat = path.run(requests)
+        seen = [(s["quantize"], s["calibrated"]) for s in states]
+        check(seen == [("int8", False)] * 2 + [("int8", True)] * 2,
+              f"/healthz int8 states {seen}")
+        pipe = service.pipe
+        check(len(pipe.int8.qmodel.engaged) == INT8_SITES_W32,
+              "the server's int8 model engages the wrong sites")
+        batches = len(service.batcher.log_snapshot())
+        calib = pipe.int8.calib.batches
+        path.served(batches, (batches - calib) * INT8_SITES_W32
+                    * forwards(pipe.cfg))
+        log(f"[int8] 9c /v1/pose --quantize int8, 3 requests one after "
+            f"another: /healthz (quantize, calibrated) {seen}; latencies "
+            f"{lat} ms (the first {calib} calibrate and serve bf16); "
+            f"{batches} batches | {card}")
+    finally:
+        server.shutdown()
+        thread.join(timeout=30)
+
+
+def int8_detect(table, path, card, cfg_fn=w32_cfg, device="cuda",
+                hw=DETECT_HW, det_size=DET_SIZE):
+    """9d: ``FusedDetectPose(quantize="int8")`` with the pose table of 9b
+    and a detector that calibrates itself on its first two frames; one
+    frame under ``set_sync_debug_mode("error")``; frames/s of
+    ``infer_frame``, ``submit_frame``/``fetch`` 3 deep and chunks of 8
+    beside the float engine.  Every call of the int8 engine runs inside
+    a window of ``path``; the float engine's run outside."""
+    from udp_pose_tpu_torch.engine.fused import FusedDetectPose
+    kw = dict(yolo_variant="n", max_persons=MAX_PERSONS, det_size=det_size,
+              conf_thres=LOW_CONF, device=device, seed=0)
+    engines = {"bf16": FusedDetectPose(cfg_fn("bfloat16"), None, **kw),
+               "int8": FusedDetectPose(cfg_fn("bfloat16"), None,
+                                       quantize="int8", pose_act_scales=table,
+                                       **kw)}
+    q = engines["int8"]
+    pose_sites = INT8_SITES_W32 * forwards(q._pose.cfg)
+
+    def runs(fn, n_runs):
+        """``fn`` doing ``n_runs`` device runs (a frame, or a chunk, and
+        one decode each) of the int8 engine, counted as the path expects:
+        the detector runs int8 from the frame that froze its table."""
+        def call():
+            out = path.run(fn)
+            det_sites = (0 if q.det_act_scales is None
+                         else INT8_SITES_YOLOV5N)
+            path.served(n_runs, n_runs * (pose_sites + det_sites))
+            return out
+        return call
+
+    frames = detect_frames(8, seed=92, hw=hw)
+    for f in frames[:2]:
+        check(q.det_act_scales is None, "detector calibrated too early")
+        runs(lambda f=f: q.infer_frame(f), 1)()
+    check(q.det_act_scales is not None
+          and len(q.det_int8.active().engaged) == INT8_SITES_YOLOV5N,
+          "the detector did not calibrate itself on two frames")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = runs(lambda: q.submit_frame(frames[2]), 1)()
+    except RuntimeError as e:
+        raise CheckFailed(f"int8 submit_frame waited for the card: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out = path.run(q.fetch, handle)
+    check(len(out["boxes"]) == MAX_PERSONS
+          and np.isfinite(out["keypoints"]).all(),
+          f"int8 frame: {len(out['boxes'])} persons")
+    rates = {}
+    for kind in ("bf16", "int8", "int8", "bf16"):
+        eng = engines[kind]
+
+        def piped(eng=eng):
+            inflight = []
+            for f in frames:
+                inflight.append(eng.submit_frame(f))
+                if len(inflight) >= 3:
+                    eng.fetch(inflight.pop(0))
+            for h in inflight:
+                eng.fetch(h)
+
+        for name, fn, n_runs in (
+                ("infer_frame", lambda eng=eng: [eng.infer_frame(f)
+                                                 for f in frames],
+                 len(frames)),
+                ("submit/fetch x3", piped, len(frames)),
+                ("infer_frames chunk 8",
+                 lambda eng=eng: eng.infer_frames(frames), 1)):
+            if kind == "int8":
+                fn = runs(fn, n_runs)
+            rates.setdefault(f"{kind} {name}", []).append(
+                time_frames(fn, len(frames))[0])
+    for key, r in rates.items():
+        log(f"[int8] 9d {key}: {np.median(r):.1f} frames/s (runs "
+            f"{', '.join(f'{v:.1f}' for v in r)}, engines in turns bf16, "
+            f"int8, int8, bf16) | {card}")
+    log(f"[int8] 9d FusedDetectPose(quantize='int8'): the detector "
+        f"calibrated on 2 letterboxed frames ({INT8_SITES_YOLOV5N} int8 "
+        f"sites, the detect heads in float), the pose net from 9b's table; "
+        f"submit_frame ran under set_sync_debug_mode('error'); "
+        f"{len(out['boxes'])} persons a frame")
+    del engines
+    torch.cuda.empty_cache()
+    return {k: float(np.median(v)) for k, v in rates.items()}
+
+
+def int8_qat(card, cfg_fn=w32_cfg, device="cuda", batch=32):
+    """9e: QAT (``TPU.QAT int8``) train steps at full width, bf16 autocast,
+    on one seeded batch: samples/s and a finite, falling loss."""
+    from udp_pose_tpu_torch.ops.targets import offset_targets_np
+    cfg = cfg_fn("bfloat16")
+    cfg.TPU.QAT = "int8"
+    w, h = cfg.MODEL.IMAGE_SIZE
+    rng = np.random.default_rng(93)
+    tgts, wts = [], []
+    for _ in range(batch):
+        joints = np.concatenate([rng.uniform(0, w - 1, (17, 1)),
+                                 rng.uniform(0, h - 1, (17, 1)),
+                                 np.zeros((17, 1))], 1)
+        t, wt = offset_targets_np(joints, np.ones((17, 3)),
+                                  cfg.MODEL.HEATMAP_SIZE, cfg.MODEL.IMAGE_SIZE,
+                                  cfg.LOSS.KPD)
+        tgts.append(t)
+        wts.append(wt)
+    data = {"image": rng.integers(0, 256, (batch, h, w, 3), dtype=np.uint8),
+            "target": np.stack(tgts), "target_weight": np.stack(wts)}
+    repeated_batch_steps(cfg, data, card, n_steps=6, device=device,
+                         label="9e QAT int8 (fake-quant convs)")
+
+
+def int8_test_cli(tmp, card, device="cuda", pose_yaml=W32_YAML):
+    """9f: ``python -m udp_pose_tpu_torch.test ... TPU.QUANTIZE int8`` on
+    a synthetic COCO val set written to disk."""
+    import cv2
+    root = os.path.join(tmp, "coco_int8")
+    frames = synthetic_coco(root, "val2017", 16, np.random.default_rng(94))
+    os.makedirs(os.path.join(root, "images", "val2017"))
+    for img_id, frame in frames.items():
+        cv2.imwrite(os.path.join(root, "images", "val2017",
+                                 "%012d.jpg" % img_id), frame)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "udp_pose_tpu_torch.test", "--cfg", pose_yaml,
+         "--device", device, "DATASET.ROOT", root, "OUTPUT_DIR",
+         os.path.join(tmp, "out_int8"), "LOG_DIR", os.path.join(tmp, "log"),
+         "TEST.USE_GT_BBOX", "True", "TPU.QUANTIZE", "int8"],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    text = proc.stdout + proc.stderr
+    check(proc.returncode == 0, f"test CLI with TPU.QUANTIZE int8 exited "
+          f"{proc.returncode}: {text[-1500:]}")
+    want = f"int8 PTQ: calibrated {INT8_SITES_W32} conv sites"
+    check(want in text, f"the test CLI log lacks {want!r}")
+    log(f"[int8] 9f python -m udp_pose_tpu_torch.test TPU.QUANTIZE int8 on "
+        f"{2 * len(frames)} synthetic crops: exit 0, '{want}', in "
+        f"{time.perf_counter() - t0:.1f} s | {card}")
+
+
+def phase_int8(tmp, cfg_fn=w32_cfg, pose_yaml=W32_YAML, device="cuda",
+               det_hw=(384, 640), frame_hw=DETECT_HW, det_size=DET_SIZE):
+    """Phase 9, int8 PTQ serving and QAT at full width.  Returns (the
+    launches of each kernel on the two int8 paths, the new kernels' entries
+    of the kernels line, crops/s and frames/s)."""
+    card = card_line()
+    t_phase = time.perf_counter()
+    kernels = check_int8_kernels(card, cfg_fn, device, det_hw=det_hw)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    serving = PathLaunches("int8_serving")
+    detect = PathLaunches("int8_detect_then_pose")
+    table, crops_s = int8_serving(serving, card, cfg_fn, device)
+    int8_http(serving, card, cfg_fn, device, frame_hw)
+    frames_s = int8_detect(table, detect, card, cfg_fn, device, frame_hw,
+                           det_size)
+    for path in (serving, detect):
+        path.check()
+    paths = {path.name: path.counts for path in (serving, detect)}
+    int8_qat(card, cfg_fn, device)
+    int8_test_cli(tmp, card, device, pose_yaml)
+    log(f"[int8] phase 9 {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{paths}")
+    return paths, kernels, crops_s, frames_s
 
 
 # ------------------------------------------------------------------ main
@@ -1894,6 +2495,9 @@ def main(argv=None):
         # timed before any profiler session, like phase 5
         with tempfile.TemporaryDirectory() as tmp:
             detected, profile_detect = phase_detect(tmp)
+        paths = {"detect_then_pose": detected}
+        with tempfile.TemporaryDirectory() as tmp:
+            int8_paths, int8_kernels, _, _ = phase_int8(tmp)
         # 3b's one-launch check reads the profiler's kernel list, which
         # has missed the ctypes-launched kernel in a process's later
         # profiler sessions: 3b holds the first one
@@ -1901,32 +2505,39 @@ def main(argv=None):
         profile_model()
         profile_detect()
         phase_blur()
-        paths = {"pose_serving": phase_server(w32_cfg("bfloat16"))}
+        paths["pose_serving"] = phase_server(w32_cfg("bfloat16"))
         with tempfile.TemporaryDirectory() as tmp:
             paths["training"] = phase_train(tmp)
-        paths["detect_then_pose"] = {"udp_offset_decode_fused": detected,
-                                     "fused_peak_offset": 0}
+        paths.update(int8_paths)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
-    common = {"route": "cuda",
+    decode = {"route": "cuda",
               "source": "udp_pose_tpu_torch/csrc/peak_offset.cu",
               "replaces": "udp_pose_tpu/ops/pallas/decode_kernels.py:83",
               "matched": True, "library_ms": None}
+    int8 = {"route": "cuda",
+            "source": "udp_pose_tpu_torch/csrc/int8_conv.cu",
+            "matched": True}
+    replaces = {"quant_im2col": "udp_pose_tpu/models/quantize.py:203-204",
+                "dequant_epilogue": "udp_pose_tpu/models/quantize.py:214-218"}
+
+    def launches(name):
+        by_path = {p: n[name] for p, n in paths.items()}
+        return {"launches": sum(by_path.values()),
+                "launches_by_path": by_path}
+
     print(card_line())
-    by_path = {name: {p: n[name] for p, n in paths.items()}
-               for name in ("udp_offset_decode_fused", "fused_peak_offset")}
     print(json.dumps({"kernels": [
-        {"name": "udp_offset_decode_fused", **common,
-         "launches": sum(by_path["udp_offset_decode_fused"].values()),
-         "launches_by_path": by_path["udp_offset_decode_fused"],
+        {"name": "udp_offset_decode_fused", **decode,
+         **launches("udp_offset_decode_fused"),
          "layout": layout, **fused[layout]},
-        {"name": "fused_peak_offset", **common,
-         "launches": sum(by_path["fused_peak_offset"].values()),
-         "launches_by_path": by_path["fused_peak_offset"],
-         "on_main_path": False, **peak},
-    ]}))
+        {"name": "fused_peak_offset", **decode,
+         **launches("fused_peak_offset"), "on_main_path": False, **peak},
+    ] + [{"name": name, **int8, "replaces": replaces[name], **launches(name),
+          **int8_kernels[name]} for name in ("quant_im2col",
+                                             "dequant_epilogue")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -104,3 +104,73 @@ def test_nms_torch_on_the_card_equals_the_cpu(cuda):
     one = nms_torch(boxes[0].to(cuda), scores[0].to(cuda), 0.45, 16)
     assert torch.equal(one[0].cpu(), nms_torch(boxes[0], scores[0], 0.45,
                                                16)[0])
+
+
+@pytest.mark.parametrize("case", [
+    # (N, C, H, W, kernel, stride, padding, Cout, bias, dtype, channels_last)
+    (4, 64, 32, 24, 3, 1, 1, 64, False, torch.bfloat16, True),
+    (2, 3, 256, 192, 3, 2, 1, 64, False, torch.bfloat16, True),
+    (2, 256, 8, 6, 1, 1, 0, 128, False, torch.bfloat16, True),
+    (1, 3, 96, 128, 6, 2, 2, 16, False, torch.float32, False),
+    (3, 36, 10, 9, 1, 1, 0, 20, True, torch.float32, True),
+    (2, 12, 7, 5, 3, 2, 1, 10, True, torch.bfloat16, False),
+])
+def test_int8_conv_kernels_equal_plain_versions(cuda, case):
+    """quant_im2col and dequant_epilogue on the card against their plain
+    versions, bit for bit, and ``torch._int_mm`` against the CPU's exact
+    integer product: w32 shapes (bf16, channels-last), YOLOv5's 6×6 stem,
+    odd channel counts (scalar epilogue), bias and strided input."""
+    from udp_pose_tpu_torch.models.quantize import Int8Conv2d
+    from udp_pose_tpu_torch.ops import int8_conv as ic
+    N, C, H, W, k, s, p, O, bias, dtype, channels_last = case
+    g = torch.Generator().manual_seed(sum(case[:8]))
+    x = (torch.randn(N, C, H, W, generator=g) * 3).to(dtype)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    conv = torch.nn.Conv2d(C, O, k, s, p, bias=bias)
+    layer = Int8Conv2d(conv, float(x.float().abs().amax()) * 0.8)
+    Ho, Wo = ic.conv_out_hw(H, W, layer.kernel_size, layer.stride,
+                            layer.padding)
+    args = (layer.inv_s_a, layer.kernel_size, layer.stride, layer.padding,
+            layer.k_pad)
+    want_a = ic.quant_im2col(x, *args)
+    want_acc = ic.int8_gemm(want_a, layer.w_gemm)
+    want_y = ic.dequant_epilogue(want_acc, layer.scale, layer.bias, dtype,
+                                 N * Ho * Wo, O)
+    layer, xc = layer.to(cuda), x.to(cuda)
+    counts = (ic.quant_im2col.launches, ic.dequant_epilogue.launches)
+    a = ic.quant_im2col(xc, *args)
+    acc = ic.int8_gemm(a, layer.w_gemm)
+    y = ic.dequant_epilogue(acc, layer.scale, layer.bias, dtype,
+                            N * Ho * Wo, O)
+    out = layer(xc)
+    torch.cuda.synchronize()
+    assert (ic.quant_im2col.launches, ic.dequant_epilogue.launches) == (
+        counts[0] + 2, counts[1] + 2)
+    assert torch.equal(a.cpu(), want_a)
+    assert torch.equal(acc.cpu(), want_acc)
+    assert torch.equal(y.cpu(), want_y)
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(out.cpu(), want_y.view(N, Ho, Wo, O).permute(
+        0, 3, 1, 2))
+
+
+def test_int_mm_shape_rules(cuda):
+    """What ``torch._int_mm`` takes on the card, which the int8 conv pads
+    its GEMM to (``ops/int8_conv.gemm_rows``, ``gemm_pad``): more than 16
+    rows, K and N multiples of 8, the second operand column-major; any
+    row count above 16, odd ones included."""
+    from udp_pose_tpu_torch.ops import int8_conv as ic
+    assert ic.gemm_rows(16) == 17 and ic.gemm_pad(27) == 32
+    g = torch.Generator().manual_seed(5)
+
+    def mm(m, k, n):
+        a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+        got = torch._int_mm(a.to(cuda), w.to(cuda).t())
+        return torch.equal(got.cpu(), ic.int8_gemm(a, w))
+
+    assert all(mm(*s) for s in ((17, 32, 8), (1001, 576, 64), (20, 40, 24)))
+    for m, k, n in ((16, 32, 8), (24, 27, 8), (24, 32, 12)):
+        with pytest.raises(RuntimeError):
+            mm(m, k, n)

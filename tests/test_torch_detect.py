@@ -284,7 +284,7 @@ def test_yolo_detector_and_label_boxes_equal_jax(tmp_path):
 
 def test_build_yolo_detector_on_the_cpu():
     """The port's YOLOv5 as a two-stage detector: its device top-k keeps
-    the rows ``non_max_suppression`` would keep, and int8 refuses."""
+    the rows ``non_max_suppression`` would keep."""
     from udp_pose_tpu_torch.engine.detector import build_yolo_detector
     det = build_yolo_detector("n", input_size=128, conf_thres=0.3,
                               device="cpu", device_topk=64)
@@ -303,5 +303,42 @@ def test_build_yolo_detector_on_the_cpu():
     assert (got is None) == (want is None)
     if got is not None:
         assert got.shape[1] == 4
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_yolo_detector("n", device="cpu", quantize="int8")
+
+
+def test_build_yolo_detector_int8_self_calibration(tmp_path):
+    """``quantize="int8"``: the first ``calib_batches`` frames serve in
+    float while recording every site's amax (the heads too, as the JAX
+    package's collector does), then int8 with the heads in float; the
+    table persists, and a table alone asks for int8."""
+    from udp_pose_tpu_torch.engine.detector import build_yolo_detector
+    from udp_pose_tpu_torch.models import build_detector
+    from udp_pose_tpu_torch.models import quantize as tq
+    fp = build_yolo_detector("n", input_size=128, device="cpu",
+                             device_topk=0)
+    det = build_yolo_detector("n", input_size=128, device="cpu",
+                              device_topk=0, quantize="int8",
+                              calib_batches=2)
+    rng = np.random.default_rng(3)
+    xs = [rng.uniform(0, 1, (1, 96, 128, 3)).astype(np.float32)
+          for _ in range(3)]
+    want = tq.Calibrator(2)
+    model = build_detector("n", device="cpu")
+    for x in xs[:2]:
+        assert det.get_act_scales() is None
+        np.testing.assert_array_equal(det.model_fn(x), fp.model_fn(x))
+        want.update(tq.collect_conv_amax(
+            model, torch.from_numpy(x).permute(0, 3, 1, 2)))
+    assert det.get_act_scales() == want.table()
+    assert "detect0" in want.table()
+    qm = tq.QuantizedModel(model, want.table())
+    with torch.inference_mode():
+        ref = qm(torch.from_numpy(xs[2]).permute(0, 3, 1, 2)).numpy()
+    np.testing.assert_array_equal(det.model_fn(xs[2]), ref)
+    path = str(tmp_path / "det.json")
+    det.save_act_scales(path)
+    by_table = build_yolo_detector("n", input_size=128, device="cpu",
+                                   device_topk=0, act_scales=path)
+    np.testing.assert_array_equal(by_table.model_fn(xs[2]), ref)
+    with pytest.raises(RuntimeError, match="not calibrated"):
+        build_yolo_detector("n", device="cpu",
+                            quantize="int8").save_act_scales(path)

@@ -212,9 +212,112 @@ def test_refusals_and_the_device_rule(pose_vars):
     cfg = reduced_cfg(default_config)
     with pytest.raises(NotImplementedError, match="mesh"):
         FusedDetectPose(cfg, v, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="int8"):
-        FusedDetectPose(cfg, v, device="cpu", quantize="int8")
-    with pytest.raises(NotImplementedError, match="int8"):
-        FusedDetectPose(cfg, v, device="cpu", det_act_scales={})
+    with pytest.raises(ValueError, match="quantize mode"):
+        FusedDetectPose(cfg, v, device="cpu", quantize="int4")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         FusedDetectPose(cfg, v)
+
+
+# ------------------------------------------------------------------ int8
+
+def _int8_kw(pose_vars):
+    _, v, yolo_vars = pose_vars
+    cfg = reduced_cfg(default_config)
+    cfg.TEST.FLIP_TEST = True
+    return cfg, v, dict(yolo_variant="n", yolo_weights=yolo_vars,
+                        max_persons=4, det_size=DET, conf_thres=0.001,
+                        topk=64, device="cpu")
+
+
+def _pose_table(eng):
+    """A pose table recorded on seeded crops of the engine's pose net."""
+    crops = np.random.default_rng(2).integers(0, 256, (4, 64, 64, 3),
+                                              dtype=np.uint8)
+    eng._pose.calibrate_crops(crops)
+    return dict(eng._pose.int8.calib.table())
+
+
+def test_int8_table_rules(pose_vars, tmp_path):
+    """The JAX package's per-subgraph gating: an explicit quantize= wins,
+    else a subgraph's own table asks for int8, else cfg.TPU.QUANTIZE
+    applies to both; the single-dispatch pose path needs a pose table."""
+    from udp_pose_tpu_torch.engine.errors import EngineStateError
+    from udp_pose_tpu_torch.engine.pose_engine import UdpPosePipeline
+    cfg, v, kw = _int8_kw(pose_vars)
+    eng = FusedDetectPose(cfg, v, quantize="int8", **kw)
+    assert eng._pose.int8.calibrating and eng.det_int8.calibrating
+    for run in (lambda: eng.infer_frame(_frame(1, hw=(72, 128))),
+                lambda: eng.infer_frames(np.stack([_frame(1, hw=(72, 128))]))):
+        with pytest.raises(EngineStateError, match="calibration table"):
+            run()
+    assert eng.det_act_scales is None
+    with pytest.raises(EngineStateError, match="not calibrated"):
+        eng.save_det_act_scales(str(tmp_path / "d.json"))
+    table = _pose_table(eng)
+    det_only = FusedDetectPose(cfg, v, det_act_scales={"b0/conv": 1.0}, **kw)
+    assert det_only.det_int8.quantize == "int8"
+    assert det_only._pose.int8.quantize is None
+    pose_only = FusedDetectPose(cfg, v, pose_act_scales=table, **kw)
+    assert pose_only.det_int8.quantize is None
+    assert not pose_only._pose.int8.calibrating
+    off = FusedDetectPose(cfg, v, quantize="", pose_act_scales=table,
+                          det_act_scales={"b0/conv": 1.0}, **kw)
+    assert off.det_int8.quantize is None and off._pose.active_infer() is \
+        off._pose._infer_fp
+    qcfg = cfg.clone()
+    qcfg.TPU.QUANTIZE = "int8"
+    both = FusedDetectPose(qcfg, v, **kw)
+    assert both.det_int8.calibrating and both._pose.int8.calibrating
+    pipe = UdpPosePipeline(cfg, v, device="cpu")
+    with pytest.raises(ValueError, match="pose_act_scales"):
+        FusedDetectPose(pipe, pose_act_scales=table, **{
+            k: a for k, a in kw.items() if k != "device"})
+
+
+def test_int8_detector_self_calibrates_on_letterboxed_frames(pose_vars,
+                                                             tmp_path):
+    """With a pose table the frame path runs; the detector records the
+    host letterbox of its first ``TPU.QUANTIZE_CALIB_BATCHES`` (2)
+    frames and serves them in float (the float engine's boxes and
+    scores) until the table freezes, the freeze frame already int8 as in
+    the JAX package; then it runs int8 with its heads in float."""
+    from udp_pose_tpu_torch.models import quantize as tq
+    from udp_pose_tpu_torch.ops.yolo import letterbox
+    cfg, v, kw = _int8_kw(pose_vars)
+    fp = FusedDetectPose(cfg, v, **kw)
+    table = _pose_table(fp)
+    eng = FusedDetectPose(cfg, v, quantize="int8", pose_act_scales=table,
+                          **kw)
+    frames = [_frame(s, hw=(72, 128)) for s in (11, 12, 13)]
+    want = tq.Calibrator(2)
+    for i, f in enumerate(frames[:2]):
+        got, ref = eng.infer_frame(f), fp.infer_frame(f)
+        if i == 0:
+            np.testing.assert_array_equal(got["boxes"], ref["boxes"])
+            np.testing.assert_array_equal(got["scores"], ref["scores"])
+        x = torch.from_numpy(letterbox(f, DET)).permute(2, 0, 1)[None]
+        want.update(tq.collect_conv_amax(fp.yolo, x.float() / 255.0))
+    assert eng.det_act_scales == want.table()
+    assert {"detect0", "detect1", "detect2"} <= set(eng.det_act_scales)
+    eng.save_det_act_scales(str(tmp_path / "d.json"))
+    assert tq.load_act_scales(str(tmp_path / "d.json")) == want.table()
+    out = eng.infer_frames(np.stack(frames))
+    assert len(out) == 3
+    yolo_q = eng.det_int8.active()
+    assert yolo_q.engaged == set(want.table()) - {"detect0", "detect1",
+                                                  "detect2"}
+    assert len(eng._pose.int8.qmodel.engaged) == len(table) - 1
+
+
+def test_int8_low_bw_pose_self_calibration(pose_vars):
+    """The low-bw stream crops on the host, so it calibrates the pose net
+    from its crops as well as the detector from its canvases; then both
+    run int8."""
+    cfg, v, kw = _int8_kw(pose_vars)
+    eng = FusedDetectPose(cfg, v, quantize="int8", **kw)
+    frames = [_frame(s, hw=(72, 128)) for s in (21, 22, 23)]
+    out = list(eng.infer_stream_low_bw(frames))
+    assert [len(o["boxes"]) for o in out] == [4, 4, 4]
+    assert not eng._pose.int8.calibrating and eng.det_act_scales is not None
+    assert eng._pose.int8.qmodel is not None
+    assert "final_layer" in eng._pose.int8.table

@@ -101,8 +101,10 @@ def test_label_boxes_write_pose_txt(cli_env):
      "mutually exclusive"),
     (["--detector", "yolov5n", "--fused", "--pipeline", "2"],
      "video/webcam"),
-    (["--quantize", "int8"], "not ported"),
-    (["--act-scales", "t.json"], "not ported"),
+    (["--detector", "yolov5n", "--fused", "--quantize", "int8"],
+     "calibration table"),
+    (["--detector", "yolov5n", "--fused", "--quantize", "int8",
+      "--act-scales", "missing.json"], "calibration table"),
 ])
 def test_flag_guards(cli_env, extra, msg):
     args = ["--source", cli_env["src"], "--pose-cfg", cli_env["cfg"],
@@ -120,3 +122,41 @@ def test_module_entry_point(cli_env):
         cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-1500:]
     assert sorted(os.listdir(out)) == ["f0.jpg", "f1.jpg"]
+
+
+def test_int8_tables_load_or_write(cli_env):
+    """``--quantize int8`` with table paths that do not exist: a run
+    without a detector (one box a frame) calibrates the pose net and
+    writes its table; a two-stage run loads it and writes the detector's;
+    a ``--fused`` run loads both and leaves them as they are; ``--fused
+    --low-bw`` calibrates on its own host crops."""
+    from udp_pose_tpu_torch.models.quantize import load_act_scales
+    tmp = cli_env["tmp"]
+    pose_t, det_t = tmp / "pose.json", tmp / "det.json"
+
+    def run(out, *extra):
+        args = _args(cli_env, tmp / out, "--quantize", "int8", *extra,
+                     "TPU.QUANTIZE_CALIB_BATCHES", "1")
+        args[1] = cli_env["video"]
+        if "--detector" not in extra:
+            args.remove("--det-size")
+            args.remove("128")
+        assert infer.main(args) == 0
+
+    run("q_pose", "--act-scales", str(pose_t))
+    pose_table = load_act_scales(str(pose_t))
+    assert "final_layer" in pose_table
+    stamp = pose_t.stat().st_mtime_ns
+    run("q_two_stage", "--detector", "yolov5n", "--act-scales", str(pose_t),
+        "--det-act-scales", str(det_t))
+    det_table = load_act_scales(str(det_t))
+    assert "detect0" in det_table and pose_t.stat().st_mtime_ns == stamp
+    stamps = (stamp, det_t.stat().st_mtime_ns)
+    run("q_fused", "--detector", "yolov5n", "--fused", "--act-scales",
+        str(pose_t), "--det-act-scales", str(det_t))
+    assert os.listdir(tmp / "q_fused") == ["out_clip.mp4"]
+    assert (pose_t.stat().st_mtime_ns, det_t.stat().st_mtime_ns) == stamps
+    low = tmp / "lowbw.json"
+    run("q_lowbw", "--detector", "yolov5n", "--fused", "--low-bw",
+        "--act-scales", str(low), "--conf-thres", "0.001")
+    assert sorted(load_act_scales(str(low))) == sorted(pose_table)

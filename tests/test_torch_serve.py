@@ -114,6 +114,7 @@ def test_other_routes(server):
     state = json.loads(body)
     assert status == 200 and state["platform"] == "cpu"
     assert state["model"] == "pose_hrnet" and state["flip_test"] is True
+    assert state["quantize"] == "" and state["calibrated"] is False
     frame = np.zeros((32, 32, 3), np.uint8)
     buf = io.BytesIO()
     np.save(buf, frame)
@@ -188,6 +189,45 @@ def test_detect_pose_requests_batch_frames(detect_server):
         str(max(log)).encode() in text
     status, body = _request(detect_server.port, "GET", "/healthz")
     assert status == 200 and json.loads(body)["detector"] is True
+
+
+def test_int8_server_calibrates_on_its_first_batches():
+    """``quantize="int8"`` with no table: ``/healthz`` says it is not
+    calibrated; the first ``TPU.QUANTIZE_CALIB_BATCHES`` (2) crop batches
+    serve in float, bucket-padded as the pipeline records them; then it
+    reports ``calibrated`` and answers through the int8 model."""
+    from udp_pose_tpu_torch.utils.convert import conv_sites
+    cfg = _cfg()
+    service = PoseService(cfg, device="cpu", quantize="int8", window_ms=1.0)
+    srv = PoseServer(service, host="127.0.0.1", port=0)
+    thread = srv.serve_in_thread()
+    try:
+        state = json.loads(_request(srv.port, "GET", "/healthz")[1])
+        assert state["quantize"] == "int8" and state["calibrated"] is False
+        rng = np.random.default_rng(4)
+        frame = rng.integers(0, 256, (96, 128, 3), dtype=np.uint8)
+        boxes = np.array([[10, 5, 50, 80], [60, 20, 120, 90],
+                          [0, 0, 40, 60]], np.float32)
+        fp = UdpPosePipeline(cfg, device="cpu")
+        for _ in range(2):
+            status, body = _post_npy(srv.port, frame, boxes)
+            assert status == 200, body
+            np.testing.assert_array_equal(
+                np.asarray(body["keypoints"], np.float32),
+                fp.infer_pose(frame, boxes)[0])
+        state = json.loads(_request(srv.port, "GET", "/healthz")[1])
+        assert state["calibrated"] is True
+        table = service.pipe.int8.table
+        assert len(table) == len(conv_sites(service.pipe.model))
+        status, body = _post_npy(srv.port, frame, boxes)
+        q = UdpPosePipeline(cfg, device="cpu", act_scales=table)
+        np.testing.assert_array_equal(
+            np.asarray(body["keypoints"], np.float32),
+            q.infer_pose(frame, boxes)[0])
+        assert list(service.batcher.log_snapshot()) == [3, 3, 3]
+    finally:
+        srv.shutdown()
+        thread.join(timeout=30)
 
 
 def test_host_crops_and_buckets_equal_jax():

@@ -63,7 +63,16 @@ class TrainState:
 
 
 def create_train_state(cfg, model, steps_per_epoch: int) -> TrainState:
-    """``model`` from ``models.build_model(cfg, train=True)``."""
+    """``model`` from ``models.build_model(cfg, train=True)``.  With
+    ``TPU.QAT int8`` the state trains a
+    :class:`..models.quantize.FakeQuantModel` over ``model``'s own
+    parameters and buffers (quantisation-aware training), so ``model``'s
+    state dict is the trained one."""
+    if cfg.TPU.QAT == "int8":
+        from ..models.quantize import FakeQuantModel
+        model = FakeQuantModel(model)
+    elif cfg.TPU.QAT:
+        raise ValueError(f"unknown TPU.QAT mode {cfg.TPU.QAT!r}")
     opt, sched = make_optimizer(cfg, model.parameters(), steps_per_epoch)
     return TrainState(model=model, optimizer=opt, scheduler=sched)
 

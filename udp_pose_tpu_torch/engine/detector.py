@@ -71,7 +71,8 @@ def build_yolo_detector(variant="n", weights=None, input_size=640,
                         conf_thres=0.25, iou_thres=0.45, person_class=0,
                         max_det=300, device_topk=1024, classes=None,
                         agnostic_nms=False, padding=5, quantize=None,
-                        act_scales=None, device="cuda", seed=0):
+                        act_scales=None, calib_batches=2, device="cuda",
+                        seed=0):
     """The port's YOLOv5 on ``device`` wrapped as a :class:`YoloDetector`
     (``build_flax_yolo_detector``'s counterpart).
 
@@ -83,32 +84,46 @@ def build_yolo_detector(variant="n", weights=None, input_size=640,
     on the device and only they cross to the host for NMS (the same
     result whenever at most k rows clear ``conf_thres``); 0 sends them
     all.
+
+    ``quantize="int8"``: w8a8 detector convs (:mod:`..models.quantize`;
+    the detect heads stay float).  ``act_scales`` (dict or json path) is
+    the calibration table, and a table alone asks for int8; without one
+    the first ``calib_batches`` frames serve in float while recording each
+    site's input amax, then the int8 model takes over.  The table reads
+    back through ``det.get_act_scales()`` and persists with
+    ``det.save_act_scales(path)``.
     """
     from ..models import build_detector
+    from ..models.quantize import SelfCalibrating
     from ..utils.convert import load_yolov5_weights, state_dict_to_torch
 
-    if quantize or act_scales is not None:
-        raise NotImplementedError(
-            "int8 detector serving is not ported to udp_pose_tpu_torch yet")
     model = build_detector(variant, device=device, seed=seed)
     if weights is not None:
         model.load_state_dict(state_dict_to_torch(
             load_yolov5_weights(weights)), strict=True)
     dev = next(model.parameters()).device
+    int8 = SelfCalibrating(model, quantize, act_scales, calib_batches)
 
     @torch.inference_mode()
     def model_fn(x):
         x = torch.as_tensor(x, device=dev).permute(0, 3, 1, 2)
-        pred = model(x)
+        if int8.calibrating:          # record x, and serve it in float
+            int8.record(x)
+            pred = model(x)
+        else:
+            pred = int8.active()(x)
         if device_topk:
             idx = topk_rows(pred[0, :, 4], min(device_topk, pred.shape[1]))
             pred = pred[0, idx][None]
         return pred.cpu().numpy()
 
-    return YoloDetector(model_fn, input_size, conf_thres, iou_thres,
-                        classes=classes, person_class=person_class,
-                        max_det=max_det, agnostic_nms=agnostic_nms,
-                        padding=padding)
+    det = YoloDetector(model_fn, input_size, conf_thres, iou_thres,
+                       classes=classes, person_class=person_class,
+                       max_det=max_det, agnostic_nms=agnostic_nms,
+                       padding=padding)
+    det.get_act_scales = lambda: int8.table
+    det.save_act_scales = int8.save
+    return det
 
 
 class LabelBoxDetector:

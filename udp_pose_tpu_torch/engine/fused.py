@@ -20,6 +20,11 @@ The ``--low-bw`` mode (:meth:`FusedDetectPose.infer_frame_low_bw`,
 :meth:`FusedDetectPose.infer_stream_low_bw`) uploads the host-letterboxed
 canvas, reads the detections back, and uploads person crops warped on
 the host by the native warp, in power-of-two buckets.
+
+int8 (``quantize="int8"``): the YOLOv5 and pose convs run w8a8 through
+the int8 conv kernels (:mod:`..models.quantize`); the detector calibrates
+itself on its first host-letterboxed canvases, the pose net on the
+low-bw stream's host crops or else from a given table.
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ from collections import deque
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .errors import EngineStateError
 
 
 def _not_ported(what):
@@ -43,11 +50,13 @@ class FusedDetectPose:
     ``pose_weights`` as in :class:`.pose_engine.UdpPosePipeline` (a
     reference ``.pth`` path, the JAX package's variables, or a state
     dict).  ``pose_cfg`` may instead be a built ``UdpPosePipeline``, whose
-    model, flip flag and device the engine then shares (``pose_weights``
-    and ``flip_test`` must be None).  ``yolo_weights``: the JAX package's
-    YOLOv5 variables, a state dict (the port's or ultralytics'), or a
-    ``.pt`` / ``.pth`` path of an ultralytics state dict; None keeps the
-    seeded random init.
+    model, flip flag, device and int8 state the engine then shares
+    (``pose_weights``, ``flip_test`` and ``pose_act_scales`` must be
+    None).  ``yolo_weights``: the JAX package's YOLOv5 variables, a state
+    dict (the port's or ultralytics'), or a ``.pt`` / ``.pth`` path of an
+    ultralytics state dict; None keeps the seeded random init.
+    ``quantize="int8"``, ``pose_act_scales``, ``det_act_scales``: int8
+    serving of the two subgraphs (tables as dicts or json paths).
     """
 
     def __init__(self, pose_cfg, pose_weights=None, yolo_variant="n",
@@ -57,25 +66,32 @@ class FusedDetectPose:
                  pose_act_scales=None, det_act_scales=None, padding=5,
                  device="cuda", seed=0):
         from ..models import build_detector
+        from ..models.quantize import SelfCalibrating
         from ..utils.convert import load_yolov5_weights, state_dict_to_torch
         from .pose_engine import UdpPosePipeline
 
         if mesh is not None:
             raise _not_ported("mesh= (frames over several cards)")
-        if quantize or pose_act_scales is not None \
-                or det_act_scales is not None:
-            raise _not_ported("int8 serving")
+        # int8 PTQ serving (models/quantize.py), per subgraph as in the
+        # JAX package (fused.py:51-79 there): an explicit quantize= wins
+        # ("" is off), else the subgraph's own table asks for int8, else
+        # cfg.TPU.QUANTIZE applies to both.  The detector self-calibrates
+        # on host-letterboxed canvases; the single-dispatch pose path
+        # needs a pose table, and the low-bw stream, whose crops exist on
+        # the host, calibrates the pose net itself.
         if isinstance(pose_cfg, UdpPosePipeline):
-            if pose_weights is not None or flip_test is not None:
-                raise ValueError("pose_weights and flip_test belong to the "
-                                 "given UdpPosePipeline")
+            if (pose_weights is not None or flip_test is not None
+                    or pose_act_scales is not None):
+                raise ValueError("pose_weights, flip_test and "
+                                 "pose_act_scales belong to the given "
+                                 "UdpPosePipeline")
             self._pose = pose_cfg
         else:
             self._pose = UdpPosePipeline(pose_cfg, pose_weights,
                                          flip_test=flip_test, device=device,
-                                         seed=seed)
-        if self._pose.cfg.TPU.QUANTIZE:
-            raise _not_ported("TPU.QUANTIZE int8 serving")
+                                         seed=seed, quantize=quantize,
+                                         act_scales=pose_act_scales)
+        cfg = self._pose.cfg
         self.device = self._pose.device
         self.num_joints = self._pose.num_joints
         self.max_persons = int(max_persons)
@@ -92,6 +108,36 @@ class FusedDetectPose:
         if yolo_weights is not None:
             self.yolo.load_state_dict(state_dict_to_torch(
                 load_yolov5_weights(yolo_weights)), strict=True)
+        self.det_int8 = SelfCalibrating(
+            self.yolo, quantize, det_act_scales,
+            cfg.TPU.QUANTIZE_CALIB_BATCHES, default=cfg.TPU.QUANTIZE)
+
+    # ------------------------------------------------------------- int8
+
+    @property
+    def det_act_scales(self):
+        """The detector's calibration table (None until calibrated)."""
+        return self.det_int8.table
+
+    def save_det_act_scales(self, path):
+        self.det_int8.save(path)
+
+    def _calibrate_det(self, canvas_u8):
+        """Record each detector conv's input amax on one host-letterboxed
+        (h, w, 3) u8 canvas; after ``TPU.QUANTIZE_CALIB_BATCHES`` canvases
+        the table freezes, and the frame that froze it serves int8."""
+        x = self._upload(canvas_u8).permute(2, 0, 1)[None].float() / 255.0
+        self.det_int8.record(x)
+
+    def _require_pose_calibrated(self, mode):
+        if self._pose.int8.calibrating:
+            raise EngineStateError(
+                f"int8 pose serving via {mode} needs a calibration table "
+                "(pose_act_scales=...): the single-dispatch path's crops "
+                "exist only on the device, so it does not self-calibrate. "
+                "Produce the table with a UdpPosePipeline or --act-scales "
+                "run, the test CLI with TPU.QUANTIZE int8, or the low-bw "
+                "stream, which crops on the host and self-calibrates")
 
     # ------------------------------------------------------------ geometry
 
@@ -174,7 +220,8 @@ class FusedDetectPose:
 
     def _detect(self, canvases):
         """(F, 3, h, w) float canvases in [0, 255] → raw predictions."""
-        return self.yolo(canvases / 255.0)
+        yolo = self.det_int8.active() if self.det_int8.quantize else self.yolo
+        return yolo(canvases / 255.0)
 
     # ---------------------------------------------------- the device path
 
@@ -219,7 +266,12 @@ class FusedDetectPose:
         handle of device tensors for :meth:`fetch`.  The software-pipelined
         loop (``infer --pipeline``) keeps several frames in flight so that
         the host's work on frame i+1 overlaps the device's on frame i."""
-        return self._run(np.asarray(frame)[None])
+        from ..ops.yolo import letterbox
+        frame = np.asarray(frame)
+        self._require_pose_calibrated("submit_frame/infer_frame")
+        if self.det_int8.calibrating:
+            self._calibrate_det(letterbox(frame, self.det_size))
+        return self._run(frame[None])
 
     def _readback(self, handle):
         """One device → host copy of a handle's five tensors."""
@@ -258,9 +310,17 @@ class FusedDetectPose:
         """Video chunks: frames (F, H, W, 3) RGB u8 → a list of F
         :meth:`infer_frame` dicts.  One detector batch of F canvases, one
         batched NMS and one pose batch of F·``max_persons`` crops."""
+        from ..ops.yolo import letterbox
         frames = np.asarray(frames)
         if frames.shape[0] == 0:
             return []
+        self._require_pose_calibrated("infer_frames")
+        while self.det_int8.calibrating:
+            # calibrate on the chunk's leading frames (cycling when the
+            # chunk is shorter than the budget), then run it all int8
+            self._calibrate_det(letterbox(
+                frames[self.det_int8.calib.seen % frames.shape[0]],
+                self.det_size))
         return self._readback(self._run(frames))
 
     # ------------------------------------------------- low-bandwidth mode
@@ -273,6 +333,10 @@ class FusedDetectPose:
         from ..ops.yolo import letterbox
         H, W = frame.shape[:2]
         canvas = letterbox(frame, self.det_size)
+        if self.det_int8.calibrating:
+            # record this canvas; the frame serves in float until the
+            # table freezes
+            self._calibrate_det(canvas)
         x = self._upload(canvas).permute(2, 0, 1)[None]
         pred = self._detect(x.float())
         det = self._det_post(pred, self._letterbox_geom(H, W), H, W)
@@ -308,6 +372,10 @@ class FusedDetectPose:
                                   classic_affine_mats_np(center, scale,
                                                          (pw, ph)), (ph, pw))
         crops_u8 = np.clip(np.rint(crops), 0, 255).astype(np.uint8)
+        if self._pose.int8.calibrating:
+            # these crops exist on the host: record them; the freeze batch
+            # already serves int8 (fused.py:445-460 there)
+            self._pose.calibrate_crops(crops_u8)
         handle = self._pose.infer_fn(crops_u8, center, scale)[:2]
         bytes_up = (canvas_bytes + crops_u8.nbytes + center.nbytes
                     + scale.nbytes)

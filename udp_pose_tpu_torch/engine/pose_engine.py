@@ -14,6 +14,7 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
 from ..utils.platform import resolve_device
 
@@ -40,14 +41,18 @@ class UdpPosePipeline:
     ``weights``: a reference ``.pth`` path, the JAX package's variables
     (a dict with ``params`` and ``batch_stats``), or a state_dict of the
     port's keys; None keeps the seeded random init (smoke mode).
+    ``quantize="int8"`` serves w8a8 convs (:mod:`..models.quantize`);
+    ``act_scales`` is a calibration table (dict or json path), and without
+    one the first ``calib_batches`` batches (default
+    ``TPU.QUANTIZE_CALIB_BATCHES``) calibrate it.
     """
 
     def __init__(self, cfg, weights=None, flip_test=None, device="cuda",
-                 seed=0):
+                 seed=0, quantize=None, act_scales=None, calib_batches=None):
         from ..config import Node, load_config
-        from ..core.infer import (COCO_FLIP_PAIRS, MPII_FLIP_PAIRS,
-                                  make_infer_fn)
+        from ..core.infer import COCO_FLIP_PAIRS, MPII_FLIP_PAIRS
         from ..models import build_model
+        from ..models.quantize import SelfCalibrating
 
         self.device = resolve_device(device)
         if not isinstance(cfg, Node):
@@ -64,12 +69,58 @@ class UdpPosePipeline:
             self.load_weights(weights)
         self.flip_test = bool(cfg.TEST.FLIP_TEST if flip_test is None
                               else flip_test)
-        self.infer_fn = make_infer_fn(
-            self.model, target_type=cfg.MODEL.TARGET_TYPE,
+        # int8 PTQ serving (models/quantize.py), gated as in the JAX
+        # package: an explicit quantize= wins ("" is off), else a table is
+        # the int8 request, else cfg.TPU.QUANTIZE.  Without a table the
+        # first calib_batches batches serve in float while recording each
+        # conv site's input amax, then the pipeline switches itself.
+        self.int8 = SelfCalibrating(
+            self.model, quantize, act_scales,
+            cfg.TPU.QUANTIZE_CALIB_BATCHES if calib_batches is None
+            else calib_batches, default=cfg.TPU.QUANTIZE)
+        self._infer_fp = self._make_infer(self.model)
+        self._infer_q = None
+
+    def _make_infer(self, model):
+        from ..core.infer import make_infer_fn
+        cfg = self.cfg
+        return make_infer_fn(
+            model, target_type=cfg.MODEL.TARGET_TYPE,
             flip_test=self.flip_test, post_process=cfg.TEST.POST_PROCESS,
             kpd=cfg.LOSS.KPD, flip_pairs=self.flip_pairs,
             flip_mode=cfg.TEST.get("FLIP_MODE", "fold"),
             return_heatmaps=False)
+
+    def active_infer(self):
+        """The graph that serves now: int8 once a table exists (its
+        :class:`..models.quantize.QuantizedModel` is built at first use),
+        else the float one."""
+        model = self.int8.active()
+        if model is self.model:
+            return self._infer_fp
+        if self._infer_q is None:
+            self._infer_q = self._make_infer(model)
+        return self._infer_q
+
+    def infer_fn(self, crops_u8, center, scale):
+        """(B, h, w, 3) u8 crops + (B, 2) center/scale → device tensors
+        (preds (B, J, 2), maxvals (B, J, 1), None) through
+        :meth:`active_infer`."""
+        return self.active_infer()(crops_u8, center, scale)
+
+    def save_act_scales(self, path):
+        """Persist the calibration table (json) for later runs."""
+        self.int8.save(path)
+
+    def calibrate_crops(self, crops_u8):
+        """Record each conv site's input amax on a u8 crop batch (n, h, w,
+        3), normalised and cast to the compute dtype as serving feeds the
+        stem; after ``calib_batches`` batches the table freezes and
+        :meth:`active_infer` turns int8."""
+        from ..core.infer import cast_to_compute_dtype, normalize_images
+        x = normalize_images(torch.as_tensor(crops_u8, device=self.device))
+        self.int8.record(cast_to_compute_dtype(self.model, x)
+                         .permute(0, 3, 1, 2))
 
     def load_weights(self, weights):
         """Load ``weights`` (see the class doc) with ``strict=True``."""
@@ -98,7 +149,13 @@ class UdpPosePipeline:
                 [crops_u8, np.repeat(crops_u8[:1], pad, axis=0)])
             center = np.concatenate([center, np.repeat(center[:1], pad, 0)])
             scale = np.concatenate([scale, np.repeat(scale[:1], pad, 0)])
-        preds, maxvals, _ = self.infer_fn(crops_u8, center, scale)
+        # while calibrating, the padded bucket is recorded and served in
+        # float, the freeze batch included (pose_engine.py:273-284 there)
+        calibrating = self.int8.calibrating
+        if calibrating:
+            self.calibrate_crops(crops_u8)
+        infer = self._infer_fp if calibrating else self.active_infer()
+        preds, maxvals, _ = infer(crops_u8, center, scale)
         return preds.cpu().numpy()[:n], maxvals.cpu().numpy()[:n]
 
     def infer_pose(self, img, boxes):

@@ -7,7 +7,8 @@ source-space keypoints; with a detector, concurrent clients' frames of
 one size run as one :meth:`.fused.FusedDetectPose.infer_frames` chunk.
 Stdlib-only (``http.server``).  Endpoints:
 
-  GET  /healthz         liveness + engine state (model, device, detector)
+  GET  /healthz         liveness + engine state (model, device, detector,
+                        int8 mode and whether its table is calibrated)
   GET  /metrics         Prometheus text: request counts, latency quantiles,
                         crop and frame batch occupancy, persons served
   POST /v1/pose         image + boxes → keypoints (top-down, micro-batched)
@@ -164,6 +165,9 @@ class CropBatcher:
                     j.event.set()
 
     def _dispatch(self, batch, total):
+        # the pipeline pads to the bucket; while it calibrates int8 it
+        # records and serves the padded batch in float (server.py:196-240
+        # there)
         crops = np.concatenate([j.crops for j in batch])
         center = np.concatenate([j.center for j in batch])
         scale = np.concatenate([j.scale for j in batch])
@@ -334,28 +338,34 @@ class PoseService:
     def __init__(self, cfg, weights=None, flip_test=None, max_batch=64,
                  window_ms=3.0, device="cuda", seed=0, detector="",
                  detector_weights=None, max_persons=16, max_frames=8,
-                 det_kwargs=None):
+                 det_kwargs=None, quantize=None, act_scales=None):
         from .pose_engine import UdpPosePipeline
 
         self.pipe = UdpPosePipeline(cfg, weights, flip_test=flip_test,
-                                    device=device, seed=seed)
-        # build the native warp and, on the card, the peak kernel now
-        # rather than inside the first request
+                                    device=device, seed=seed,
+                                    quantize=quantize,
+                                    act_scales=act_scales)
+        # build the native warp and, on the card, the kernels now rather
+        # than inside the first request
         from .. import native
         native.load()
         if self.pipe.device.type == "cuda":
             from ..ops import _build
             _build.load("peak_offset")
+            if self.pipe.int8.quantize:
+                _build.load("int8_conv")
         self.batcher = CropBatcher(self.pipe, max_batch=max_batch,
                                    window_ms=window_ms)
         self.metrics = Metrics()
         self.fused = self.frame_batcher = None
         if detector:
             from .fused import FusedDetectPose
+            # the fused engine shares the pipeline, and with it the pose
+            # calibration table that /v1/pose batches record
             self.fused = FusedDetectPose(
                 self.pipe, yolo_variant=detector.replace("yolov5", "") or "n",
                 yolo_weights=detector_weights, max_persons=max_persons,
-                seed=seed, **(det_kwargs or {}))
+                quantize=quantize, seed=seed, **(det_kwargs or {}))
             self.frame_batcher = FrameBatcher(self.fused,
                                               max_frames=max_frames,
                                               window_ms=window_ms)
@@ -396,6 +406,8 @@ class PoseService:
             "input_wh": list(pipe.input_wh),
             "num_joints": pipe.num_joints,
             "flip_test": pipe.flip_test,
+            "quantize": pipe.int8.quantize or "",
+            "calibrated": pipe.int8.table is not None,
             "detector": self.fused is not None,
             "platform": dev.type,
             "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"

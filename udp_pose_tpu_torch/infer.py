@@ -3,7 +3,8 @@
 
     python -m udp_pose_tpu_torch.infer --source dir/|video.mp4|URL|webcam:0 \\
         --pose-cfg configs/coco/hrnet_w32_256x192_udp_offset.yaml \\
-        --detector yolov5n [--fused [--low-bw | --chunk 8 | --pipeline 3]]
+        --detector yolov5n [--fused [--low-bw | --chunk 8 | --pipeline 3]] \\
+        [--quantize int8 [--act-scales t.json] [--det-act-scales d.json]]
 
 Boxes come from ``--bbox-dir`` (YOLO label files, the pose-labelling
 mode), from the YOLOv5 ``--detector`` (two-stage: host NMS, then the
@@ -76,9 +77,18 @@ def parse_args(argv=None):
                    help="with --fused on videos and webcams: frames kept "
                         "in flight")
     p.add_argument("--quantize", default="", choices=["", "int8"],
-                   help="int8 serving: not ported yet")
+                   help="int8 w8a8 serving of the pose net and the detector "
+                        "(as TPU.QUANTIZE int8): the first frames serve in "
+                        "float while calibrating")
     p.add_argument("--act-scales", default="",
-                   help="int8 calibration table: not ported yet")
+                   help="pose-net calibration table (json): loaded if it "
+                        "exists, else written there after "
+                        "self-calibration")
+    p.add_argument("--det-act-scales", default="",
+                   help="detector calibration table (json), loaded or "
+                        "written alike; with --quantize int8 and no table "
+                        "the detector calibrates on its first letterboxed "
+                        "frames")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")
     p.add_argument("opts", nargs=argparse.REMAINDER,
@@ -89,9 +99,6 @@ def parse_args(argv=None):
 def check_flags(args):
     """The flag guards of ``tools/infer.py``: a combination that would
     silently do nothing stops the run."""
-    if args.quantize or args.act_scales:
-        raise SystemExit("--quantize/--act-scales: int8 serving is not "
-                         "ported to udp_pose_tpu_torch yet")
     if args.fused and not args.detector:
         raise SystemExit("--fused needs --detector")
     if args.low_bw and not args.fused:
@@ -137,6 +144,19 @@ def main(argv=None):
 
     cfg = load_config(args.pose_cfg, args.opts)
     variant = args.detector.replace("yolov5", "")
+    quantize = args.quantize or (cfg.TPU.QUANTIZE or "")
+    # a table path is loaded when the file exists, else written at the end
+    pose_scales, det_scales = (
+        path if path and os.path.exists(path) else None
+        for path in (args.act_scales, args.det_act_scales))
+    if quantize and args.fused and not args.low_bw and pose_scales is None:
+        raise SystemExit(
+            "--quantize with --fused needs a calibration table (--act-scales "
+            "naming an existing json): the fused path's crops exist only on "
+            "the device, so it does not self-calibrate. Produce the table "
+            "with a two-stage run (--quantize int8 --act-scales f.json, no "
+            "--fused), the test CLI with TPU.QUANTIZE int8, or --low-bw, "
+            "which crops on the host and self-calibrates")
     fused = yolo_det = None
     if args.fused:
         from .engine.fused import FusedDetectPose
@@ -146,11 +166,13 @@ def main(argv=None):
             max_persons=args.max_persons, det_size=args.det_size,
             conf_thres=args.conf_thres, iou_thres=args.iou_thres,
             person_class=args.person_class, padding=args.padding,
-            device=args.device)
+            quantize=quantize or None, pose_act_scales=pose_scales,
+            det_act_scales=det_scales, device=args.device)
         pose = fused._pose
     else:
         pose = UdpPosePipeline(cfg, args.pose_weights or None,
-                               device=args.device)
+                               quantize=quantize or None,
+                               act_scales=pose_scales, device=args.device)
         if args.detector:
             yolo_det = build_yolo_detector(
                 variant=variant, weights=args.detector_weights or None,
@@ -158,6 +180,8 @@ def main(argv=None):
                 iou_thres=args.iou_thres, person_class=args.person_class,
                 max_det=args.max_det, classes=args.classes,
                 agnostic_nms=args.agnostic_nms, padding=args.padding,
+                quantize=quantize or None, act_scales=det_scales,
+                calib_batches=cfg.TPU.QUANTIZE_CALIB_BATCHES,
                 device=args.device)
     label_det = (LabelBoxDetector(args.bbox_dir, args.person_class)
                  if args.bbox_dir else None)
@@ -318,7 +342,25 @@ def main(argv=None):
             out_path = os.path.join(args.save_dir, os.path.basename(src))
             cv2.imwrite(out_path, out)
             print(f"saved {out_path}")
+    save_tables(args, pose, fused, yolo_det)
     return 0
+
+
+def save_tables(args, pose, fused, yolo_det):
+    """Write the calibration tables that this run recorded to the
+    ``--act-scales`` / ``--det-act-scales`` paths that did not exist."""
+    from .models.quantize import save_act_scales
+    if (args.act_scales and pose.int8.table
+            and not os.path.exists(args.act_scales)):
+        pose.save_act_scales(args.act_scales)
+        print(f"saved int8 calibration table to {args.act_scales}")
+    if args.det_act_scales and not os.path.exists(args.det_act_scales):
+        got = (fused.det_act_scales if fused is not None else
+               yolo_det.get_act_scales() if yolo_det is not None else None)
+        if got:
+            save_act_scales(args.det_act_scales, got)
+            print("saved detector int8 calibration table to "
+                  f"{args.det_act_scales}")
 
 
 if __name__ == "__main__":

@@ -119,6 +119,7 @@ class PoseHRNet(nn.Module):
         #: compute dtype: models.build_model casts a serving model to it,
         #: the trainer autocasts to it over float32 weights
         self.dtype = dtype
+        self.stages_cfg = tuple(stages_cfg)
         self.conv1 = nn.Conv2d(3, 64, 3, 2, 1, bias=False)
         self.bn1 = BatchNorm2d(64)
         self.conv2 = nn.Conv2d(64, 64, 3, 2, 1, bias=False)

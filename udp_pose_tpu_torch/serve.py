@@ -8,7 +8,7 @@ detect-then-pose chunk), ``/healthz`` and ``/metrics`` over
 
     python -m udp_pose_tpu_torch.serve \
         --cfg configs/coco/hrnet_w32_256x192_udp_offset.yaml --port 0 \
-        [--detector yolov5n]
+        [--detector yolov5n] [--quantize int8 [--act-scales t.json]]
 """
 
 from __future__ import annotations
@@ -47,6 +47,12 @@ def parse_args(argv=None):
     p.add_argument("--max-frames", type=int, default=8,
                    help="max frames of concurrent /v1/detect_pose "
                         "requests per device batch")
+    p.add_argument("--quantize", default=None, choices=[None, "", "int8"],
+                   help="int8 = w8a8 PTQ serving (self-calibrates on the "
+                        "first batches); '' forces off (default: the "
+                        "cfg's TPU.QUANTIZE)")
+    p.add_argument("--act-scales", default="",
+                   help="precomputed int8 calibration table (json)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")
     return p.parse_args(argv)
@@ -63,7 +69,8 @@ def main(argv=None):
         window_ms=args.window_ms, device=args.device,
         detector=args.detector,
         detector_weights=args.detector_weights or None,
-        max_persons=args.max_persons, max_frames=args.max_frames)
+        max_persons=args.max_persons, max_frames=args.max_frames,
+        quantize=args.quantize, act_scales=args.act_scales or None)
     server = PoseServer(service, host=args.host, port=args.port)
 
     def stop(signum, frame):

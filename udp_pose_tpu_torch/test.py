@@ -5,7 +5,10 @@
 
 Loads ``TEST.MODEL_FILE`` (a ``.pth``; without one, ``final_state.pth``
 of the run directory, or else the seeded random init), runs the
-flip-test validation of :mod:`.core.validate` and prints the AP table.
+flip-test validation of :mod:`.core.validate` and prints the AP table;
+``TPU.QUANTIZE int8`` evaluates w8a8 serving calibrated on the first
+``TPU.QUANTIZE_CALIB_BATCHES`` val batches, ``TPU.QAT int8`` the
+fake-quant grid.
 Runs on the card unless given ``--device cpu``.
 """
 
@@ -35,6 +38,22 @@ def run(cfg, weight_file, val_ds, out_dir="", device="cuda"):
     else:
         logger.warning(f"=> no weights at {weight_file!r}; evaluating the "
                        "seeded random init (smoke mode)")
+    if cfg.TPU.QAT == "int8" and cfg.TPU.QUANTIZE != "int8":
+        # a QAT checkpoint evaluated the way it trained; TPU.QUANTIZE int8
+        # wins when both are set (the deployment eval)
+        from .models.quantize import FakeQuantModel
+        model = FakeQuantModel(model)
+        logger.info("=> QAT int8: evaluating through the fake-quant grid")
+    elif cfg.TPU.QAT:
+        raise ValueError(f"unknown TPU.QAT mode {cfg.TPU.QAT!r}")
+    if cfg.TPU.QUANTIZE == "int8":
+        # w8a8 serving, calibrated on the first val batches
+        from .models.quantize import quantize_for_eval
+        model = quantize_for_eval(cfg, model, val_ds)
+        logger.info(f"=> int8 PTQ: calibrated {len(model.act_scales)} conv "
+                    "sites")
+    elif cfg.TPU.QUANTIZE:
+        raise ValueError(f"unknown TPU.QUANTIZE mode {cfg.TPU.QUANTIZE!r}")
     name_values, perf = validate(cfg, val_ds, model, out_dir)
     print_name_value(logger, name_values, cfg.MODEL.NAME)
     logger.info(f"=> perf: {perf:.4f}")

@@ -30,8 +30,6 @@ _NOT_PORTED = (
      "augmentation)"),
     (lambda c: c.TPU.PP, "TPU.PP (pipeline parallelism)"),
     (lambda c: c.TPU.TP, "TPU.TP (tensor parallelism)"),
-    (lambda c: c.TPU.QAT, "TPU.QAT (quantization-aware training)"),
-    (lambda c: c.TPU.QUANTIZE, "TPU.QUANTIZE (int8 serving)"),
     (lambda c: c.TPU.REMAT, "TPU.REMAT (activation rematerialisation)"),
     (lambda c: c.TPU.CKPT_BACKEND != "msgpack", "TPU.CKPT_BACKEND orbax"),
     (lambda c: c.AUTO_RESUME, "AUTO_RESUME (resume from checkpoints)"),
@@ -127,6 +125,13 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda"):
     state = create_train_state(cfg, model, steps_per_epoch)
     step_fn = make_train_step(make_loss_fn(cfg), with_output=True)
     eval_model = build_model(cfg, device=device)
+    # QAT validates through the fake-quant grid too; the wrapper shares
+    # eval_model's tensors, which serving_copy refreshes each epoch
+    eval_net = eval_model
+    if cfg.TPU.QAT == "int8":
+        from .models.quantize import FakeQuantModel
+        eval_net = FakeQuantModel(eval_model)
+        logger.info("=> QAT int8: training through the fake-quant grid")
     group_ids = (aspect_ratio_group_ids(train_ds)
                  if cfg.DATASET.ASPECT_RATIO_GROUPING else None)
     record = {"steps": [], "validations": [], "best_perf": 0.0,
@@ -170,8 +175,8 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda"):
             t_iter = t_end
 
         t0 = time.perf_counter()
-        name_values, perf = validate(cfg, val_ds,
-                                     serving_copy(model, eval_model), out_dir)
+        serving_copy(model, eval_model)
+        name_values, perf = validate(cfg, val_ds, eval_net, out_dir)
         record["validations"].append({
             "epoch": epoch, "seconds": time.perf_counter() - t0,
             "crops": len(val_ds), "perf": perf})

@@ -161,6 +161,44 @@ def _map_pose_hrnet(cv: Converter, stages_cfg):
     cv.conv("final_layer", "final_layer")
 
 
+class _SiteRecorder(Converter):
+    """Walks a family mapping over a port model's own state-dict keys and
+    records, for each conv, its module name → the flax module path the
+    JAX package gives the same conv (``quantize._path_of``)."""
+
+    def __init__(self, model):
+        self.keys = set(model.state_dict())
+        self.sites: Dict[str, str] = {}
+
+    def probe(self, tkey: str, *fpath) -> bool:
+        return tkey in self.keys
+
+    def conv(self, tkey: str, *path):
+        self.sites[tkey] = "/".join(path)
+
+    def bn(self, tkey: str, *path):
+        pass
+
+
+def conv_sites(model) -> Dict[str, str]:
+    """{port conv module name: flax path} of a ported model (HRNet or
+    YOLOv5), e.g. ``stage2.0.branches.0.0.conv1`` →
+    ``stage2_0/branch0_0/cb1/conv`` and ``model.24.m.0`` → ``detect0``:
+    the names under which a calibration table keys its conv sites, in
+    either package."""
+    from ..models.hrnet import PoseHRNet
+    from ..models.yolov5 import YOLOv5
+    rec = _SiteRecorder(model)
+    if isinstance(model, PoseHRNet):
+        _map_pose_hrnet(rec, model.stages_cfg)
+    elif isinstance(model, YOLOv5):
+        _map_yolov5(rec)
+    else:
+        raise KeyError(f"no conv-site map for {type(model).__name__}; "
+                       "mapped: PoseHRNet, YOLOv5")
+    return rec.sites
+
+
 def variables_to_state_dict(variables, cfg) -> Dict[str, np.ndarray]:
     """JAX-package variables of ``cfg``'s model → the port's state_dict
     (numpy values; ``model.load_state_dict(strict=True)`` accepts it)."""
