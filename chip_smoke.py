@@ -26,10 +26,13 @@ test, 16 persons, 720p frames): the detector card vs CPU, the device NMS
 against the host NMS, the fused engine's boxes against the host path on
 a stubbed head, one decode launch a frame or a chunk, frames/s and a
 stage breakdown, ``/v1/detect_pose`` over HTTP and the infer CLI.
-Phase 9, int8 (right after phase 8): both int8 conv kernels bit for bit
-against their plain versions and ``_int_mm`` against exact products at
-every int8 conv shape of w32 (B=256) and YOLOv5n, each timed beside its
-bound, ``_int_mm`` and the bf16 cuDNN conv (9a); the pipeline
+Phase 9, int8 (right after phase 8): at every int8 conv shape of w32
+(B=256) and YOLOv5n, the fused int8 conv kernel, which every int8 path
+runs, bit for bit against the three-step card path (``quant_im2col``,
+``_int_mm``, ``dequant_epilogue``) and its plain version, the two
+three-step kernels against theirs and ``_int_mm`` against exact
+products, each timed beside its bound, with ``_int_mm`` and the bf16
+cuDNN conv (9a); the pipeline
 calibrating itself, then int8 and bf16 crops/s in both flip modes, card
 vs CPU (9b); ``/v1/pose`` of an int8 server (9c); int8 detect-then-pose
 frames/s (9d); QAT train steps (9e); the test CLI with ``TPU.QUANTIZE
@@ -45,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import http.client
 import io
 import json
@@ -109,6 +113,7 @@ MAP_HW = (64, 48)
 # kernels' separate multiplies, adds and compares run at half of it
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12 / 2
+INT8_OPS_PER_S = 1979e12         # dense int8 tensor-core rate
 KPD = 4.0                        # LOSS.KPD of the config
 LAYOUTS = ("nchw", "channels_last")
 HEATMAP_REL_TOL = 1e-4           # fp32 card vs CPU, TF32 off (phase 5a)
@@ -203,6 +208,21 @@ def host_ms(fn, iters=10):
         fn()
         torch.cuda.synchronize()
     return (time.perf_counter() - t0) / iters * 1e3
+
+
+def enqueue_us(fn, n=2000):
+    """µs of host time per call of ``fn`` enqueued back to back (no
+    synchronize inside the loop): what one launch costs the host where
+    the host paces the card."""
+    for _ in range(200):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
 
 
 def profile_device(fn, n=3):
@@ -406,9 +426,9 @@ def fused_bound(layout, batch=SERVE_BATCH, J=17, hw=MAP_HW):
     return read + maps * 5 * 4, ops
 
 
-def bound_of(bytes_moved, ops):
+def bound_of(bytes_moved, ops, ops_per_s=FP32_OPS_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = ops / FP32_OPS_PER_S
+    t_ops = ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1900,6 +1920,7 @@ def kernel_wrappers():
     from udp_pose_tpu_torch.ops import peak_offset as po
     return {"udp_offset_decode_fused": po.udp_offset_decode_fused,
             "fused_peak_offset": po.fused_peak_offset,
+            "int8_conv_fused": ic.int8_conv_fused,
             "quant_im2col": ic.quant_im2col,
             "dequant_epilogue": ic.dequant_epilogue}
 
@@ -1923,6 +1944,7 @@ class PathLaunches:
         self.name = name
         self.counts = dict.fromkeys(kernel_wrappers(), 0)
         self.want = dict.fromkeys(kernel_wrappers(), 0)
+        self.layouts = {}
 
     def run(self, fn, *args):
         zero_launches()
@@ -1934,13 +1956,30 @@ class PathLaunches:
 
     def served(self, decodes, int8_sites):
         """Batches served: ``decodes`` decode launches and ``int8_sites``
-        launches of each int8 kernel."""
+        launches of the fused int8 conv (and none of the three-step
+        kernels)."""
         self.want["udp_offset_decode_fused"] += decodes
-        self.want["quant_im2col"] += int8_sites
-        self.want["dequant_epilogue"] += int8_sites
+        self.want["int8_conv_fused"] += int8_sites
+
+    def keep_layouts(self, *engines):
+        """Note every input layout at which the int8 models of
+        ``engines`` (``SelfCalibrating`` states) launched the fused kernel
+        (the plans in each ``Int8Conv2d.launch_plans``), one site for each
+        layout and conv geometry, for :func:`check_path_layouts`."""
+        from udp_pose_tpu_torch.models.quantize import Int8Conv2d
+        for engine in engines:
+            if engine.qmodel is None:
+                continue
+            for m in engine.qmodel.modules():
+                if isinstance(m, Int8Conv2d):
+                    for shape, stride, dtype, _, aligned, *_ in m.launch_plans:
+                        self.layouts.setdefault(
+                            (shape, stride, dtype, aligned, m.out_channels,
+                             m.kernel_size, m.stride, m.padding,
+                             m.bias is not None), m)
 
     def check(self):
-        check(self.counts == self.want and self.want["quant_im2col"] > 0,
+        check(self.counts == self.want and self.want["int8_conv_fused"] > 0,
               f"{self.name}: launches {self.counts}, but its batches should "
               f"have launched {self.want}")
 
@@ -1973,12 +2012,13 @@ def int8_sites(model, x):
 
 
 def int8_shape_run(conv, shape, dtype, device, seed):
-    """9a at one conv shape: the weight quantisation and both kernels
-    against their plain versions on the card, bit for bit (the weights
-    against the CPU's); ``_int_mm`` against the exact float64 product
-    on the card and the CPU's integer product on its first rows; times
-    (graph replay) of each kernel, its plain version, ``_int_mm`` and the
-    bf16 cuDNN conv of the same shape; each kernel's byte bound."""
+    """9a at one conv shape: the weight quantisation against the CPU's,
+    the fused kernel against the three-step card path and the plain
+    version, the three-step kernels against theirs, ``_int_mm`` against
+    the exact float64 product on the card and the CPU's integer product
+    on its first rows, all bit for bit; times (graph replay) of each
+    kernel, the plain versions, ``_int_mm`` and the bf16 cuDNN conv of
+    the same shape; each kernel's bound (ms, and what bounds it)."""
     import torch.nn.functional as F
 
     from udp_pose_tpu_torch.models.quantize import Int8Conv2d, quantize_kernel
@@ -1995,7 +2035,8 @@ def int8_shape_run(conv, shape, dtype, device, seed):
     a = ic.quant_im2col(x, *args)
     acc = ic.int8_gemm(a, layer.w_gemm)
     y = ic.dequant_epilogue(acc, layer.scale, layer.bias, dtype, M, O)
-    exact = (a.double() @ layer.w_gemm.double().t()).to(torch.int32)
+    fused = ic.int8_conv_fused(x, layer).permute(0, 2, 3, 1).reshape(M, O)
+    exact = ic.int8_gemm_reference(a, layer.w_gemm)
     rows = min(CPU_GEMM_ROWS, a.shape[0])
     cpu = ic.int8_gemm(a[:rows].cpu(), layer.w_gemm.cpu())
     what = f"{tuple(shape)} k{layer.kernel_size[0]} s{layer.stride[0]} -> {O}"
@@ -2003,23 +2044,44 @@ def int8_shape_run(conv, shape, dtype, device, seed):
         quantize_kernel(conv.weight), quantize_kernel(conv.weight.cpu()))),
           f"weight quantisation: card != CPU at {what}")
     a_ref = ic.quant_im2col_reference(x, *args)
-    y_ref = ic.dequant_epilogue_reference(acc, layer.scale, layer.bias,
+    # the plain version of the fused kernel is these three plain steps
+    y_ref = ic.dequant_epilogue_reference(exact, layer.scale, layer.bias,
                                           dtype, M, O)
     errs = {"quant_im2col": float((a.int() - a_ref.int()).abs().max()),
             "dequant_epilogue": float((y.double() - y_ref.double()).abs()
-                                      .max())}
+                                      .max()),
+            "int8_conv_fused": float((fused.double() - y_ref.double()).abs()
+                                     .max())}
     check(torch.equal(a, a_ref),
           f"quant_im2col != its plain version at {what}")
-    check(torch.equal(y, y_ref),
-          f"dequant_epilogue != its plain version at {what}")
     check(torch.equal(acc, exact), f"_int_mm != the exact product at {what}")
     check(torch.equal(acc[:rows].cpu(), cpu),
           f"_int_mm on the card != the CPU's at {what}")
+    check(torch.equal(y, y_ref),
+          f"dequant_epilogue != its plain version at {what}")
+    check(torch.equal(fused, y),
+          f"int8_conv_fused != the three-step card path at {what}")
+    # the shift route's blocks of twice the rows, against the tiling they
+    # widen: that launch too must equal the three steps
+    tiling = ic.fused_tiling(shape, O, layer.kernel_size, layer.stride,
+                             layer.padding, ic._loads(x), dtype, card_sms())
+    narrow = (tiling.block_m // 2, tiling.block_n)
+    narrow = ic.FUSED_TILES.index(narrow) if narrow in ic.FUSED_TILES else None
+    if narrow is not None:
+        check(torch.equal(ic.int8_conv_fused(x, layer, narrow).permute(
+            0, 2, 3, 1).reshape(M, O), y), f"int8_conv_fused at tiling "
+            f"{ic.FUSED_TILES[narrow]} != the three-step card path at {what}")
+    del a_ref, exact, y_ref
     elt = x.element_size()
     w_bf = conv.weight.detach().to(torch.bfloat16)
     x_bf = x.to(torch.bfloat16)
     fast = dict(iters=5, repeats=3, warm_s=0.02)
-    t = {"quant_im2col": graph_ms(lambda: ic.quant_im2col(x, *args), [()],
+    once = dict(iters=1, repeats=1, warm_s=0.0)
+    t = {"int8_conv_fused": graph_ms(lambda: ic.int8_conv_fused(x, layer),
+                                     [()], **fast),
+         "narrow_tiles": graph_ms(lambda: ic.int8_conv_fused(
+             x, layer, narrow), [()], **fast) if narrow is not None else 0.0,
+         "quant_im2col": graph_ms(lambda: ic.quant_im2col(x, *args), [()],
                                   **fast),
          "dequant_epilogue": graph_ms(lambda: ic.dequant_epilogue(
              acc, layer.scale, layer.bias, dtype, M, O), [()], **fast),
@@ -2033,9 +2095,35 @@ def int8_shape_run(conv, shape, dtype, device, seed):
              lambda: ic.dequant_epilogue_reference(
                  acc, layer.scale, layer.bias, dtype, M, O), [()], iters=2,
              repeats=1, warm_s=0.0)}
-    bounds = {"quant_im2col": bound_of(x.numel() * elt + a.numel(), 0)[0],
-              "dequant_epilogue": bound_of(M * O * (4 + elt) + O * 8, 0)[0]}
-    return t, bounds, errs, what
+    del a, acc, y, fused
+    if narrow is None:
+        t["narrow_tiles"] = t["int8_conv_fused"]
+    t["wide_sites"] = 0 if narrow is None else 1
+    t["plain_int8_conv_fused"] = cuda_ms(
+        lambda: ic.int8_conv_fused_reference(x, layer), [()], **once)
+    K = layer.kernel_size[0] * layer.kernel_size[1] * C
+    # the fused kernel's least work: the activation read once, the weight,
+    # scale and bias, the output written once; 2 operations a product
+    t["fused_bytes"] = (x.numel() * elt + layer.w_gemm.numel() + M * O * elt
+                        + O * 8)
+    t["fused_ops"] = 2 * M * O * K
+    bounds = {
+        "int8_conv_fused": bound_of(t["fused_bytes"], t["fused_ops"],
+                                    INT8_OPS_PER_S),
+        "quant_im2col": bound_of(x.numel() * elt + ic.gemm_rows(M)
+                                 * layer.k_pad, 0),
+        "dequant_epilogue": bound_of(M * O * (4 + elt) + O * 8, 0)}
+    return t, bounds, errs, f"{what} {tiling.route} {tiling.block_m}x" \
+        f"{tiling.block_n}"
+
+
+@functools.lru_cache(maxsize=None)
+def card_sms(device="cuda"):
+    """Streaming multiprocessors of the card, as the wrapper reads them."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+INT8_KERNELS = ("int8_conv_fused", "quant_im2col", "dequant_epilogue")
 
 
 def check_int8_kernels(card, cfg_fn=w32_cfg, device="cuda", fold_batch=256,
@@ -2058,7 +2146,8 @@ def check_int8_kernels(card, cfg_fn=w32_cfg, device="cuda", fold_batch=256,
           f"int8 sites: w32 {len(nets['w32'])}, YOLOv5n "
           f"{len(nets['yolov5n'])}")
     totals, t_start = {}, time.perf_counter()
-    errs = {"quant_im2col": 0.0, "dequant_epilogue": 0.0}
+    errs = dict.fromkeys(INT8_KERNELS, 0.0)
+    n_shapes = 0
     for net, sites in nets.items():
         shapes = {}
         for conv, shape, dtype in sites:
@@ -2066,49 +2155,120 @@ def check_int8_kernels(card, cfg_fn=w32_cfg, device="cuda", fold_batch=256,
             key = ((n,) + shape[1:], dtype, conv.out_channels,
                    conv.kernel_size, conv.stride, conv.padding)
             shapes.setdefault(key, [conv, 0])[1] += 1
-        sums = {}
+        sums = {"bound_by_bytes": 0.0, "bound_by_ops": 0.0}
         for i, (key, (conv, count)) in enumerate(sorted(
                 shapes.items(), key=lambda kv: str(kv[0]))):
             t, bounds, err, what = int8_shape_run(conv, key[0], key[1],
                                                   device, seed=i)
+            n_shapes += 1
             errs = {k: max(v, err[k]) for k, v in errs.items()}
-            for k, v in list(t.items()) + [(f"bound_{k}", v)
-                                           for k, v in bounds.items()]:
+            for k, v in list(t.items()) + [(f"bound_{k}", b[0])
+                                           for k, b in bounds.items()]:
                 sums[k] = sums.get(k, 0.0) + count * v
+            by = bounds["int8_conv_fused"][1]
+            sums["bound_by_" + ("bytes" if by == "bytes" else "ops")] += (
+                count * bounds["int8_conv_fused"][0])
+            three = t["quant_im2col"] + t["int_mm"] + t["dequant_epilogue"]
+            narrow = (f", at the tiling it widens "
+                      f"{t['narrow_tiles'] * 1e3:.1f}" if t["wide_sites"]
+                      else "")
             log(f"[int8] 9a {net} {what} {str(key[1])[6:]} x{count}: "
-                f"bit-equal; quant_im2col {t['quant_im2col'] * 1e3:.1f} us "
-                f"(bound {bounds['quant_im2col'] * 1e3:.1f}, plain "
-                f"{t['plain_quant_im2col'] * 1e3:.1f}); dequant_epilogue "
-                f"{t['dequant_epilogue'] * 1e3:.1f} us (bound "
-                f"{bounds['dequant_epilogue'] * 1e3:.1f}, plain "
-                f"{t['plain_dequant_epilogue'] * 1e3:.1f}); _int_mm "
-                f"{t['int_mm'] * 1e3:.1f} us; bf16 cuDNN conv "
+                f"bit-equal; int8_conv_fused {t['int8_conv_fused'] * 1e3:.1f}"
+                f" us{narrow} (bound "
+                f"{bounds['int8_conv_fused'][0] * 1e3:.1f}, {by}; "
+                f"plain {t['plain_int8_conv_fused'] * 1e3:.1f}); three steps "
+                f"{three * 1e3:.1f} us (quant_im2col "
+                f"{t['quant_im2col'] * 1e3:.1f}, bound "
+                f"{bounds['quant_im2col'][0] * 1e3:.1f}, plain "
+                f"{t['plain_quant_im2col'] * 1e3:.1f}; _int_mm "
+                f"{t['int_mm'] * 1e3:.1f}; dequant_epilogue "
+                f"{t['dequant_epilogue'] * 1e3:.1f}, bound "
+                f"{bounds['dequant_epilogue'][0] * 1e3:.1f}, plain "
+                f"{t['plain_dequant_epilogue'] * 1e3:.1f}); bf16 cuDNN conv "
                 f"{t['cudnn_bf16'] * 1e3:.1f} us")
             torch.cuda.empty_cache()
+        sums["three_step"] = (sums["quant_im2col"] + sums["int_mm"]
+                              + sums["dequant_epilogue"])
         totals[net] = sums
         log(f"[int8] 9a {net}, one forward ({len(sites)} int8 sites, "
-            f"{len(shapes)} shapes, ms): quant_im2col "
-            f"{sums['quant_im2col']:.3f} (bound "
+            f"{len(shapes)} shapes, ms): int8_conv_fused "
+            f"{sums['int8_conv_fused']:.3f} (bound "
+            f"{sums['bound_int8_conv_fused']:.3f}, of which shapes bound by "
+            f"bytes {sums['bound_by_bytes']:.3f}: "
+            f"{sums['fused_bytes'] / 1e9:.2f} GB, "
+            f"{sums['fused_ops'] / 1e12:.2f} T int8 operations; plain "
+            f"{sums['plain_int8_conv_fused']:.3f}) against the three steps "
+            f"{sums['three_step']:.3f} (quant_im2col "
+            f"{sums['quant_im2col']:.3f}, bound "
             f"{sums['bound_quant_im2col']:.3f}, plain "
-            f"{sums['plain_quant_im2col']:.3f}), _int_mm "
-            f"{sums['int_mm']:.3f}, dequant_epilogue "
-            f"{sums['dequant_epilogue']:.3f} (bound "
+            f"{sums['plain_quant_im2col']:.3f}; _int_mm "
+            f"{sums['int_mm']:.3f}; dequant_epilogue "
+            f"{sums['dequant_epilogue']:.3f}, bound "
             f"{sums['bound_dequant_epilogue']:.3f}, plain "
-            f"{sums['plain_dequant_epilogue']:.3f}); the three "
-            f"{sums['quant_im2col'] + sums['int_mm'] + sums['dequant_epilogue']:.3f}"
-            f" against the bf16 cuDNN convs {sums['cudnn_bf16']:.3f} | {card}")
-    log(f"[int8] 9a {time.perf_counter() - t_start:.1f} s")
-    w32 = totals["w32"]
-    return {name: {"max_abs_err": errs[name], "ms": w32[name],
-                   "plain_ms": w32[f"plain_{name}"],
-                   "bound_ms": w32[f"bound_{name}"], "bound_by": "bytes",
-                   "library_ms": None,
-                   "per": f"one w32 fold forward, B={fold_batch}, "
-                          f"{INT8_SITES_W32} launches",
-                   "yolov5n_frame_ms": totals["yolov5n"][name],
-                   "int_mm_ms": w32["int_mm"],
-                   "cudnn_bf16_conv_ms": w32["cudnn_bf16"]}
-            for name in ("quant_im2col", "dequant_epilogue")}
+            f"{sums['plain_dequant_epilogue']:.3f}) and the bf16 cuDNN convs "
+            f"{sums['cudnn_bf16']:.3f}; int8_conv_fused with the shift "
+            f"route's blocks of twice the rows at the tiling they widen "
+            f"({sums['wide_sites']:.0f} sites on {card_sms()} SMs) "
+            f"{sums['narrow_tiles']:.3f} | {card}")
+    host = int8_host_cost(device)
+    log(f"[int8] 9a host cost of one launch at one frame's 16 crops with "
+        f"the flip (B=32, 3x3 64->64 at 32x24, enqueued back to back): "
+        f"int8_conv_fused {host['int8_conv_fused']:.2f} us, the three steps "
+        f"{host['three_step']:.2f} us, a bf16 cuDNN conv "
+        f"{host['cudnn_bf16']:.2f} us | {card}")
+    log(f"[int8] 9a {time.perf_counter() - t_start:.1f} s: int8_conv_fused "
+        f"bit-equal to the three-step card path and its plain version at "
+        f"all {n_shapes} shapes")
+    w32, yolo = totals["w32"], totals["yolov5n"]
+    per = (f"one w32 fold forward, B={fold_batch}, {INT8_SITES_W32} "
+           f"launches")
+    out = {name: {"max_abs_err": errs[name], "ms": w32[name],
+                  "plain_ms": w32[f"plain_{name}"],
+                  "bound_ms": w32[f"bound_{name}"], "bound_by": "bytes",
+                  "library_ms": None, "per": per,
+                  "yolov5n_frame_ms": yolo[name],
+                  "yolov5n_frame_bound_ms": yolo[f"bound_{name}"]}
+           for name in INT8_KERNELS}
+    out["int8_conv_fused"].update(
+        bound_by=("bytes" if w32["bound_by_bytes"] >= w32["bound_by_ops"]
+                  else "operations"),
+        three_step_ms=w32["three_step"], int_mm_ms=w32["int_mm"],
+        ms_without_wide_blocks=w32["narrow_tiles"],
+        cudnn_bf16_conv_ms=w32["cudnn_bf16"],
+        yolov5n_frame_three_step_ms=yolo["three_step"],
+        yolov5n_frame_cudnn_bf16_conv_ms=yolo["cudnn_bf16"])
+    out["int8_conv_fused"]["host_us_per_launch"] = host["int8_conv_fused"]
+    for name in ("quant_im2col", "dequant_epilogue"):
+        out[name]["on_main_path"] = False
+    return out
+
+
+def int8_host_cost(device):
+    """µs of host time per launch (:func:`enqueue_us`) of the fused int8
+    conv, of the three steps and of a bf16 cuDNN conv, at one of w32's
+    3×3 convs at the detect-then-pose batch."""
+    import torch.nn.functional as F
+
+    from udp_pose_tpu_torch.models.quantize import Int8Conv2d
+    from udp_pose_tpu_torch.ops import int8_conv as ic
+    x = torch.randn(2 * MAX_PERSONS, 64, 32, 24, device=device).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    conv = torch.nn.Conv2d(64, 64, 3, 1, 1).to(device)
+    layer = Int8Conv2d(conv, 3.0)
+    w_bf = conv.weight.detach().to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    args = (layer.inv_s_a, layer.kernel_size, layer.stride, layer.padding,
+            layer.k_pad)
+    M = x.shape[0] * 32 * 24
+
+    def three():
+        acc = ic.int8_gemm(ic.quant_im2col(x, *args), layer.w_gemm)
+        ic.dequant_epilogue(acc, layer.scale, layer.bias, x.dtype, M, 64)
+
+    return {"int8_conv_fused": enqueue_us(lambda: ic.int8_conv_fused(
+                x, layer)),
+            "three_step": enqueue_us(three),
+            "cudnn_bf16": enqueue_us(lambda: F.conv2d(x, w_bf, None, 1, 1))}
 
 
 def int8_card_vs_cpu(table, card, cfg_fn=w32_cfg, device="cuda"):
@@ -2250,8 +2410,7 @@ def int8_serving(path, card, cfg_fn=w32_cfg, device="cuda",
     log(f"[int8] 9b w32 256x192 bf16 flip B={batch}: self-calibrated on 2 "
         f"batches in {calib_s:.2f} s ({len(table)} sites in the table, "
         f"{INT8_SITES_W32} engaged: final_layer stays bf16); "
-        f"{INT8_SITES_W32} quant_im2col + {INT8_SITES_W32} _int_mm + "
-        f"{INT8_SITES_W32} dequant_epilogue launches a forward (two_pass: 2 "
+        f"{INT8_SITES_W32} int8_conv_fused launches a forward (two_pass: 2 "
         f"forwards a batch, fold: 1 of 2B) | {card}")
     for key, r in rates.items():
         log(f"[int8] 9b {key}: {np.median(r):.1f} crops/s (runs "
@@ -2261,6 +2420,7 @@ def int8_serving(path, card, cfg_fn=w32_cfg, device="cuda",
     log(f"[int8] 9b int8 vs bf16 keypoints on the same {batch} crops "
         f"(random weights: a number only): max {drift.max():.3g} px, median "
         f"{np.median(drift):.3g} px")
+    path.keep_layouts(*(p.int8 for p in int8.values()))
     del int8, bf16
     torch.cuda.empty_cache()
     int8_card_vs_cpu(table, card, cfg_fn, device)
@@ -2301,6 +2461,7 @@ def int8_http(path, card, cfg_fn=w32_cfg, device="cuda",
         calib = pipe.int8.calib.batches
         path.served(batches, (batches - calib) * INT8_SITES_W32
                     * forwards(pipe.cfg))
+        path.keep_layouts(pipe.int8)
         log(f"[int8] 9c /v1/pose --quantize int8, 3 requests one after "
             f"another: /healthz (quantize, calibrated) {seen}; latencies "
             f"{lat} ms (the first {calib} calibrate and serve bf16); "
@@ -2392,9 +2553,60 @@ def int8_detect(table, path, card, cfg_fn=w32_cfg, device="cuda",
         f"sites, the detect heads in float), the pose net from 9b's table; "
         f"submit_frame ran under set_sync_debug_mode('error'); "
         f"{len(out['boxes'])} persons a frame")
+    path.keep_layouts(q._pose.int8, q.det_int8)
     del engines
     torch.cuda.empty_cache()
     return {k: float(np.median(v)) for k, v in rates.items()}
+
+
+def layout_tensor(shape, stride, dtype, aligned, scale, seed, device):
+    """A seeded normal activation (times ``scale``) of ``shape`` in the
+    element strides ``stride``, 16-byte aligned or one element past."""
+    span = 1 + sum((n - 1) * st for n, st in zip(shape, stride))
+    g = torch.Generator(device=device).manual_seed(seed)
+    buf = (torch.randn(span + 1, generator=g, device=device) * scale).to(dtype)
+    return buf.as_strided(shape, stride, 0 if aligned else 1)
+
+
+def check_path_layouts(path, card, device="cuda"):
+    """9g: the fused kernel at every input layout at which ``path``
+    launched it (shape, strides, dtype, alignment and conv geometry, so
+    every tiling and route the path ran at the shapes it ran them), with
+    that site's weights on a seeded activation of that layout that spans
+    the quantiser's range, against the three-step card path, bit for bit.
+    Returns the number of layouts."""
+    from udp_pose_tpu_torch.ops import int8_conv as ic
+    check(path.layouts, f"{path.name}: no fused int8 launch recorded")
+    tilings = {}
+    for i, (key, layer) in enumerate(sorted(path.layouts.items(),
+                                            key=lambda kv: str(kv[0]))):
+        shape, stride, dtype, aligned = key[:4]
+        x = layout_tensor(shape, stride, dtype, aligned,
+                          64.0 / layer.inv_s_a, i, device)
+        N, _, H, W = shape
+        Ho, Wo = ic.conv_out_hw(H, W, layer.kernel_size, layer.stride,
+                                layer.padding)
+        M, O = N * Ho * Wo, layer.out_channels
+        a = ic.quant_im2col(x, layer.inv_s_a, layer.kernel_size,
+                            layer.stride, layer.padding, layer.k_pad)
+        want = ic.dequant_epilogue(ic.int8_gemm(a, layer.w_gemm),
+                                   layer.scale, layer.bias, dtype, M, O)
+        got = ic.int8_conv_fused(x, layer).permute(0, 2, 3, 1).reshape(M, O)
+        t = ic.fused_tiling(shape, O, layer.kernel_size, layer.stride,
+                            layer.padding, ic._loads(x), dtype, card_sms())
+        name = f"{t.route} {t.block_m}x{t.block_n}"
+        tilings[name] = tilings.get(name, 0) + 1
+        check(torch.equal(got, want), f"9g {path.name}: int8_conv_fused != "
+              f"the three-step card path at x {shape} strides {stride} "
+              f"{dtype} -> {O}, kernel {layer.kernel_size}, stride "
+              f"{layer.stride} ({name})")
+        del a, want, got, x
+    torch.cuda.empty_cache()
+    log(f"[int8] 9g {path.name}: int8_conv_fused bit-equal to the "
+        f"three-step card path at all {len(path.layouts)} input layouts the "
+        f"path launched it at (layouts by route and tiling: {tilings}) | "
+        f"{card}")
+    return len(path.layouts)
 
 
 def int8_qat(card, cfg_fn=w32_cfg, device="cuda", batch=32):
@@ -2468,6 +2680,9 @@ def phase_int8(tmp, cfg_fn=w32_cfg, pose_yaml=W32_YAML, device="cuda",
     paths = {path.name: path.counts for path in (serving, detect)}
     int8_qat(card, cfg_fn, device)
     int8_test_cli(tmp, card, device, pose_yaml)
+    kernels["int8_conv_fused"]["layouts_checked_by_path"] = {
+        path.name: check_path_layouts(path, card, device)
+        for path in (serving, detect)}
     log(f"[int8] phase 9 {time.perf_counter() - t_phase:.1f} s; launches "
         f"{paths}")
     return paths, kernels, crops_s, frames_s
@@ -2520,7 +2735,8 @@ def main(argv=None):
     int8 = {"route": "cuda",
             "source": "udp_pose_tpu_torch/csrc/int8_conv.cu",
             "matched": True}
-    replaces = {"quant_im2col": "udp_pose_tpu/models/quantize.py:203-204",
+    replaces = {"int8_conv_fused": "udp_pose_tpu/models/quantize.py:188-218",
+                "quant_im2col": "udp_pose_tpu/models/quantize.py:203-204",
                 "dequant_epilogue": "udp_pose_tpu/models/quantize.py:214-218"}
 
     def launches(name):
@@ -2536,8 +2752,7 @@ def main(argv=None):
         {"name": "fused_peak_offset", **decode,
          **launches("fused_peak_offset"), "on_main_path": False, **peak},
     ] + [{"name": name, **int8, "replaces": replaces[name], **launches(name),
-          **int8_kernels[name]} for name in ("quant_im2col",
-                                             "dequant_epilogue")]}))
+          **int8_kernels[name]} for name in INT8_KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

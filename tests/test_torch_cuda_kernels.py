@@ -114,12 +114,27 @@ def test_nms_torch_on_the_card_equals_the_cpu(cuda):
     (1, 3, 96, 128, 6, 2, 2, 16, False, torch.float32, False),
     (3, 36, 10, 9, 1, 1, 0, 20, True, torch.float32, True),
     (2, 12, 7, 5, 3, 2, 1, 10, True, torch.bfloat16, False),
+    (2, 16, 9, 7, 3, 1, 1, 256, True, torch.bfloat16, True),
+    (1, 32, 3, 3, 3, 2, 1, 40, True, torch.float32, True),
+    (1, 32, 3, 3, 3, 1, 1, 24, True, torch.bfloat16, True),
+    (2, 64, 20, 15, 3, 1, 1, 130, True, torch.bfloat16, True),
+    (64, 32, 64, 48, 3, 1, 1, 32, False, torch.bfloat16, True),
+    (96, 64, 32, 24, 3, 1, 1, 64, False, torch.bfloat16, True),
+    (176, 128, 16, 12, 3, 1, 1, 128, True, torch.bfloat16, True),
 ])
 def test_int8_conv_kernels_equal_plain_versions(cuda, case):
     """quant_im2col and dequant_epilogue on the card against their plain
-    versions, bit for bit, and ``torch._int_mm`` against the CPU's exact
-    integer product: w32 shapes (bf16, channels-last), YOLOv5's 6×6 stem,
-    odd channel counts (scalar epilogue), bias and strided input."""
+    versions, bit for bit, ``torch._int_mm`` against the CPU's exact
+    integer product, and the fused kernel, which ``Int8Conv2d`` launches
+    on the card, against both that three-step card path and its plain
+    version: w32 shapes (bf16, channels-last), YOLOv5's 6×6 stem on an
+    NCHW image, odd channel counts (scalar epilogue), bias, strided input,
+    two column blocks (Cout 256) and fewer than 17 output pixels; the
+    shift route's 3×3 stride-1 convs at those edges too (9 pixels, Cout
+    130), at 64 crops of w32's 64×48 branch, and in both of its blocks
+    of twice the rows (w32's 3×3 convs of 64 and 128 channels at
+    batches that have two such blocks an SM), each a launch at the
+    tiling that ``fused_tiling`` gives it."""
     from udp_pose_tpu_torch.models.quantize import Int8Conv2d
     from udp_pose_tpu_torch.ops import int8_conv as ic
     N, C, H, W, k, s, p, O, bias, dtype, channels_last = case
@@ -131,28 +146,41 @@ def test_int8_conv_kernels_equal_plain_versions(cuda, case):
     layer = Int8Conv2d(conv, float(x.float().abs().amax()) * 0.8)
     Ho, Wo = ic.conv_out_hw(H, W, layer.kernel_size, layer.stride,
                             layer.padding)
+    M = N * Ho * Wo
     args = (layer.inv_s_a, layer.kernel_size, layer.stride, layer.padding,
             layer.k_pad)
     want_a = ic.quant_im2col(x, *args)
     want_acc = ic.int8_gemm(want_a, layer.w_gemm)
     want_y = ic.dequant_epilogue(want_acc, layer.scale, layer.bias, dtype,
-                                 N * Ho * Wo, O)
+                                 M, O)
+    want_out = ic.int8_conv_fused_reference(x, layer)
     layer, xc = layer.to(cuda), x.to(cuda)
-    counts = (ic.quant_im2col.launches, ic.dequant_epilogue.launches)
+    counts = (ic.quant_im2col.launches, ic.dequant_epilogue.launches,
+              ic.int8_conv_fused.launches)
     a = ic.quant_im2col(xc, *args)
     acc = ic.int8_gemm(a, layer.w_gemm)
-    y = ic.dequant_epilogue(acc, layer.scale, layer.bias, dtype,
-                            N * Ho * Wo, O)
+    y = ic.dequant_epilogue(acc, layer.scale, layer.bias, dtype, M, O)
     out = layer(xc)
     torch.cuda.synchronize()
-    assert (ic.quant_im2col.launches, ic.dequant_epilogue.launches) == (
-        counts[0] + 2, counts[1] + 2)
+    tiling = ic.fused_tiling(
+        xc.shape, O, layer.kernel_size, layer.stride, layer.padding,
+        ic._loads(xc), dtype,
+        torch.cuda.get_device_properties(xc.device).multi_processor_count)
+    assert (tiling.route == "shift") == (channels_last and s == 1
+                                         and k == 3 and C % 32 == 0
+                                         and dtype == torch.bfloat16)
+    assert (ic.quant_im2col.launches, ic.dequant_epilogue.launches,
+            ic.int8_conv_fused.launches) == (counts[0] + 1, counts[1] + 1,
+                                             counts[2] + 1)
     assert torch.equal(a.cpu(), want_a)
     assert torch.equal(acc.cpu(), want_acc)
     assert torch.equal(y.cpu(), want_y)
     assert out.is_contiguous(memory_format=torch.channels_last)
-    assert torch.equal(out.cpu(), want_y.view(N, Ho, Wo, O).permute(
-        0, 3, 1, 2))
+    assert out.dtype == dtype
+    assert torch.equal(out.permute(0, 2, 3, 1).reshape(M, O), y)
+    assert torch.equal(out.cpu(), want_out)
+    assert torch.equal(ic.int8_conv_fused_reference(xc, layer).cpu(),
+                       want_out)
 
 
 def test_int_mm_shape_rules(cuda):

@@ -55,6 +55,15 @@ def _args(env, out, *extra):
             "0.01", "--device", "cpu", "--save-dir", str(out), *extra]
 
 
+@pytest.mark.parametrize("letter", ["n", "s", "m", "l"])
+def test_detector_takes_the_bare_letter(letter):
+    """``--detector n`` parses as ``--detector yolov5n`` (tools/infer.py
+    strips the prefix the same way)."""
+    args = infer.parse_args(["--source", "x", "--pose-cfg", "y",
+                             "--detector", letter])
+    assert args.detector == f"yolov5{letter}"
+
+
 @pytest.mark.parametrize("mode", [["--fused"], ["--fused", "--low-bw"], []])
 def test_image_dir(cli_env, mode):
     out = cli_env["tmp"] / ("out" + "".join(mode))

@@ -307,6 +307,18 @@ def _imports(path):
             yield node.module
 
 
+@pytest.mark.parametrize("value,want", [
+    ("n", "yolov5n"), ("s", "yolov5s"), ("m", "yolov5m"), ("l", "yolov5l"),
+    ("yolov5n", "yolov5n"), ("", "")])
+def test_serve_detector_takes_the_bare_letter(value, want):
+    """``--detector n`` is ``--detector yolov5n``, as in tools/serve.py."""
+    from udp_pose_tpu_torch import serve
+    args = serve.parse_args(["--cfg", str(W32_YAML), "--detector", value])
+    assert args.detector == want
+    with pytest.raises(SystemExit):
+        serve.parse_args(["--cfg", str(W32_YAML), "--detector", "x"])
+
+
 def test_port_imports_nothing_of_jax():
     files = sorted((REPO / "udp_pose_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")

@@ -23,6 +23,15 @@ import torch
 from ..ops.yolo import (letterbox, non_max_suppression, padding_bbox,
                         scale_boxes, yolo2xyxy)
 
+DETECTORS = ("yolov5n", "yolov5s", "yolov5m", "yolov5l")
+
+
+def detector_name(value: str) -> str:
+    """A detector's name in one spelling: the bare YOLOv5 variant letter
+    (``n`` … ``l``) becomes its name (``yolov5n`` … ``yolov5l``), as the
+    JAX package's CLIs accept both; anything else comes back as given."""
+    return f"yolov5{value}" if f"yolov5{value}" in DETECTORS else value
+
 
 class YoloDetector:
     def __init__(self, model_fn: Callable, input_size=640, conf_thres=0.25,

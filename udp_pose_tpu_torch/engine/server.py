@@ -359,11 +359,13 @@ class PoseService:
         self.metrics = Metrics()
         self.fused = self.frame_batcher = None
         if detector:
+            from .detector import detector_name
             from .fused import FusedDetectPose
             # the fused engine shares the pipeline, and with it the pose
             # calibration table that /v1/pose batches record
+            variant = detector_name(detector).replace("yolov5", "")
             self.fused = FusedDetectPose(
-                self.pipe, yolo_variant=detector.replace("yolov5", "") or "n",
+                self.pipe, yolo_variant=variant,
                 yolo_weights=detector_weights, max_persons=max_persons,
                 quantize=quantize, seed=seed, **(det_kwargs or {}))
             self.frame_batcher = FrameBatcher(self.fused,

@@ -28,6 +28,7 @@ STREAM_PREFIXES = ("rtsp://", "rtmp://", "http://", "https://")
 
 
 def parse_args(argv=None):
+    from .engine.detector import DETECTORS, detector_name
     p = argparse.ArgumentParser(description="detect-then-pose inference")
     p.add_argument("--source", required=True,
                    help="image / dir / video path, stream URL, or "
@@ -38,8 +39,9 @@ def parse_args(argv=None):
                         "random init)")
     p.add_argument("--bbox-dir", default="",
                    help="YOLO label dir (pose-labelling mode)")
-    p.add_argument("--detector", default="",
-                   choices=["", "yolov5n", "yolov5s", "yolov5m", "yolov5l"])
+    p.add_argument("--detector", default="", type=detector_name,
+                   choices=("",) + DETECTORS,
+                   help="YOLOv5 variant: n/s/m/l or yolov5n/...")
     p.add_argument("--detector-weights", default="",
                    help="ultralytics YOLOv5 state dict (.pt/.pth)")
     p.add_argument("--conf-thres", type=float, default=0.25)

@@ -19,8 +19,9 @@ original, and puts an :class:`Int8Conv2d` (serving) or a
 :class:`FakeQuantConv2d` (QAT) in place of each eligible conv; every
 other module of the copy is the original's code on the original's
 tensors.  The int8 conv itself is :func:`..ops.int8_conv.int8_conv2d`:
-the hand-written quantise + im2col kernel, ``torch._int_mm`` and the
-dequant-epilogue kernel.
+on the card one launch of the hand-written implicit-GEMM kernel that
+quantises on load, multiplies on the s8 tensor cores and applies the
+dequant epilogue in registers.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.int8_conv import gemm_pad, int8_conv2d
+from ..ops.int8_conv import gemm_pad, int8_conv2d, k_tile_pad
 from ..utils.convert import conv_sites
 
 # the output heads stay in float (quantize.py:36-44 there): the pose
@@ -234,7 +235,8 @@ def _check_plain(conv):
 class Int8Conv2d(nn.Module):
     """The w8a8 replacement of one ``nn.Conv2d`` (``_quantized_conv``),
     prepared once: the int8 weight in the GEMM layout (N_pad, K_pad) with
-    K in (kh, kw, cin) order, the epilogue scale ``f32(s_a) · s_w``, the
+    K in (kh, kw, cin) order and zero columns up to the fused kernel's K
+    tile, the epilogue scale ``f32(s_a) · s_w``, the
     float32 bias, and the activation's ``1/s_a`` as a float32 value.  The
     forward takes no host sync."""
 
@@ -251,7 +253,7 @@ class Int8Conv2d(nn.Module):
         w_i8, s_w = quantize_kernel(conv.weight)
         O = self.out_channels
         K = w_i8[0].numel()
-        self.k_pad = gemm_pad(K)
+        self.k_pad = k_tile_pad(K)
         w = torch.zeros((gemm_pad(O), self.k_pad), dtype=torch.int8,
                         device=w_i8.device)
         w[:O, :K] = w_i8.permute(0, 2, 3, 1).reshape(O, K)
@@ -262,6 +264,8 @@ class Int8Conv2d(nn.Module):
         self.register_buffer(
             "bias", None if conv.bias is None else conv.bias.detach().float(),
             persistent=False)
+        # the card's launch arguments per input layout (ops.int8_conv)
+        self.launch_plans = {}
 
     def forward(self, x):
         return int8_conv2d(x, self)

@@ -19,6 +19,7 @@ import sys
 
 
 def parse_args(argv=None):
+    from .engine.detector import DETECTORS, detector_name
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--cfg", required=True, help="pose model yaml")
     p.add_argument("--weights", default="",
@@ -36,9 +37,10 @@ def parse_args(argv=None):
     p.add_argument("--window-ms", type=float, default=3.0,
                    help="micro-batch collection window after the first "
                         "request")
-    p.add_argument("--detector", default="",
-                   choices=["", "yolov5n", "yolov5s", "yolov5m", "yolov5l"],
-                   help="enable /v1/detect_pose with this YOLOv5 variant")
+    p.add_argument("--detector", default="", type=detector_name,
+                   choices=("",) + DETECTORS,
+                   help="enable /v1/detect_pose with this YOLOv5 variant "
+                        "(n/s/m/l or yolov5n/...)")
     p.add_argument("--detector-weights", default="",
                    help="ultralytics YOLOv5 state dict (.pt/.pth) "
                         "(default: seeded random init)")
