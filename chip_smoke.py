@@ -19,8 +19,10 @@ channels-last layouts, against its plain version (phase 3b), profiles
 the bf16 batches (phase 5d), checks the fp32 blurs (phase 4), then
 serves ``/v1/pose`` requests over HTTP through the fused kernel (phase
 6), and trains w32 (bf16, B=32) on a seeded synthetic mini-COCO for two
-epochs through ``train.run``, validating through the fused kernel, then
-evaluates and serves the weights it wrote (phase 7).  Phase 8 runs
+epochs through ``train.run`` with the yaml's WORKERS 4 (worker processes
+and the pinned prefetch), validating through the fused kernel, then
+evaluates and serves the weights it wrote, and trains again with the
+in-process loader for comparison (phase 7).  Phase 8 runs
 detect-then-pose at full width (YOLOv5n at 640, w32 bf16 with the flip
 test, 16 persons, 720p frames): the detector card vs CPU, the device NMS
 against the host NMS, the fused engine's boxes against the host path on
@@ -36,10 +38,21 @@ cuDNN conv (9a); the pipeline
 calibrating itself, then int8 and bf16 crops/s in both flip modes, card
 vs CPU (9b); ``/v1/pose`` of an int8 server (9c); int8 detect-then-pose
 frames/s (9d); QAT train steps (9e); the test CLI with ``TPU.QUANTIZE
-int8`` (9f).  The kernels' launches count phases 6, 7 and 8, each path
+int8`` (9f).  Phase 10, the model zoo at full width (right after
+phase 9): ``pose_resnet50`` (10a) and the PSA HRNet (10b) served in
+bf16 at B=128, each held fp32 card vs CPU (their batches profiled
+after 3b); int8 ``pose_resnet50`` (10c:
+self-calibration, crops/s against bf16, the fused int8 conv at every
+layout the path ran against the three-step card path and timed over one
+forward's shapes); MPII HRNet-w32 256x256 (10d: one epoch of
+``train.run`` on a seeded synthetic MPII in memory with WORKERS 4,
+PCKh, a ``/v1/pose`` request with 16 joints, and the fused decode at
+(128, 48, 64, 64) against its plain version and its bound).  The
+kernels' launches count phases 6, 7 and 8, each path
 in one window, and the two int8 paths (9b-9c, 9d) in windows around
 each of their own calls: the bf16 engines timed in turns with them and
-the card-vs-CPU checks run outside.  Any failed check exits nonzero before the last line, which is
+the card-vs-CPU checks run outside; phase 10's paths likewise.  Any
+failed check exits nonzero before the last line, which is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits 1.
 Imports nothing of JAX or of the JAX package.
 """
@@ -395,10 +408,9 @@ def phase_kernel(device="cuda", peak_before=None):
 
 
 # --------------------------------------------------------------- phase 3b
-def decode_inputs(seed, device="cuda", batch=SERVE_BATCH, hw=MAP_HW):
-    """(batch, 51, H, W) net outputs whose heatmap channels are the six
+def decode_inputs(seed, device="cuda", batch=SERVE_BATCH, hw=MAP_HW, J=17):
+    """(batch, 3J, H, W) net outputs whose heatmap channels are the six
     map families and whose offset channels are noise, per layout."""
-    J = 17
     hm, ox, oy = map_families(batch * J, hw, device, seed)
     net = torch.empty(batch, 3 * J, *hw, device=device)
     for c, maps in enumerate((hm, ox, oy)):
@@ -846,7 +858,7 @@ def phase_server(cfg, device="cuda", n_requests=4, frame_hw=(720, 1280)):
 
 
 # ---------------------------------------------------------------- phase 7
-TRAIN_IMAGES, VAL_IMAGES, PEOPLE = 64, 32, 2
+TRAIN_IMAGES, VAL_IMAGES, PEOPLE = 160, 32, 2
 FRAME_WH = (640, 480)
 STEP_LOSS_RTOL = 1e-4            # one step, card vs CPU, TF32 off
 STEP_GRAD_TOL = 1e-3             # x each gradient tensor's max |g| (fp64)
@@ -1146,7 +1158,9 @@ def phase_train(tmp, cfg_fn=w32_cfg, device="cuda"):
     host_ms = (time.perf_counter() - t0) * 1e3 / B
     repeated = repeated_batch_steps(cfg, batch, card, device=device)
 
-    # the run, with the kernels' counts read just after it
+    # the run, with the kernels' counts read just after it: the yaml's
+    # WORKERS (4) worker processes and the pinned prefetch
+    check(cfg.WORKERS == 4, f"WORKERS {cfg.WORKERS}: the yaml's is 4")
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, device=device, train=True)
     zero_launches()
@@ -1166,28 +1180,54 @@ def phase_train(tmp, cfg_fn=w32_cfg, device="cuda"):
           f"times for {n_val} validations of {eval_batches} batches")
     check(launches["fused_peak_offset"] == 0, "peak-only kernel launched")
 
-    steps = record["steps"]
-    losses = [s["loss"] for s in steps]
-    check(len(steps) == cfg.TRAIN.END_EPOCH * (len(train_ds) // B),
-          f"{len(steps)} steps")
-    check(all(np.isfinite(losses)), f"non-finite bf16 loss: {losses}")
-    iter_ms = np.median([s["iter_s"] for s in steps[WARM_STEPS:]]) * 1e3
-    load_ms = np.median([s["load_s"] for s in steps[WARM_STEPS:]]) * 1e3
+    # the same run with the in-process loader (WORKERS 0), outside the
+    # counted window
+    cfg0 = train_cfg(root, out_dir + "_in_process", "bfloat16", cfg_fn)
+    cfg0.WORKERS = 0
+    os.makedirs(cfg0.OUTPUT_DIR)
+    t0 = time.perf_counter()
+    record0 = train_cli.run(cfg0, build_model(cfg0, device=device,
+                                              train=True),
+                            train_ds, val_ds, cfg0.OUTPUT_DIR, device)
+    run0_s = time.perf_counter() - t0
+
     rep_ms = np.median(repeated[WARM_STEPS:]) * 1e3
-    iters = ", ".join(f"{s['iter_s'] * 1e3:.1f}" for s in steps)
-    loads = ", ".join(f"{s['load_s'] * 1e3:.1f}" for s in steps)
-    log(f"[train] train.run w32 bf16 B={B}, {len(steps)} steps over "
-        f"{cfg.TRAIN.END_EPOCH} epochs of {len(train_ds)} samples: losses "
-        f"{', '.join(f'{v:.5g}' for v in losses)}; iteration {iters} ms "
-        f"(batch building {loads} ms) | {card}")
-    log(f"[train] samples/s after {WARM_STEPS} warm-up steps: with the "
-        f"loader {B / iter_ms * 1e3:.1f} (median iteration {iter_ms:.2f} "
-        f"ms, of which batch building {load_ms:.2f} ms); one pre-built "
-        f"batch repeated {B / rep_ms * 1e3:.1f} (median step {rep_ms:.2f} "
-        f"ms); host sample building {load_ms / B:.3f} ms/sample in the run, "
-        f"{host_ms:.3f} ms/sample for the first batch; peak "
-        f"max_memory_allocated {peak_gb:.2f} GB; train.run {run_s:.1f} s "
-        f"| {card}")
+    loader_ms = {}
+    for name, rec, secs in (("the worker loader (WORKERS 4) and prefetch",
+                             record, run_s),
+                            ("the in-process loader (WORKERS 0)", record0,
+                             run0_s)):
+        steps = rec["steps"]
+        losses = [s["loss"] for s in steps]
+        check(len(steps) == cfg.TRAIN.END_EPOCH * (len(train_ds) // B),
+              f"{len(steps)} steps")
+        check(all(np.isfinite(losses)), f"non-finite bf16 loss: {losses}")
+        # each epoch's first steps wait for the loader to fill: median of
+        # the steps after the first WARM_STEPS of each epoch
+        per_epoch = len(steps) // cfg.TRAIN.END_EPOCH
+        warm = [s for s in steps if s["step"] >= WARM_STEPS] or steps
+        iter_ms = np.median([s["iter_s"] for s in warm]) * 1e3
+        load_ms = np.median([s["load_s"] for s in warm]) * 1e3
+        loader_ms[name] = (iter_ms, load_ms)
+        iters = ", ".join(f"{s['iter_s'] * 1e3:.1f}" for s in steps)
+        loads = ", ".join(f"{s['load_s'] * 1e3:.1f}" for s in steps)
+        log(f"[train] train.run w32 bf16 B={B} with {name}, {len(steps)} "
+            f"steps over {cfg.TRAIN.END_EPOCH} epochs of {len(train_ds)} "
+            f"samples: losses {', '.join(f'{v:.5g}' for v in losses)}; "
+            f"iteration {iters} ms (waiting for the batch {loads} ms); "
+            f"{B / iter_ms * 1e3:.1f} samples/s (median iteration "
+            f"{iter_ms:.2f} ms of the {per_epoch - WARM_STEPS} steps after "
+            f"{WARM_STEPS} warm-up steps in each epoch, of which waiting "
+            f"for the batch {load_ms:.2f} ms); train.run {secs:.1f} s "
+            f"| {card}")
+    (w_ms, _), (p_ms, p_load) = loader_ms.values()
+    log(f"[train] samples/s: worker loader + prefetch "
+        f"{B / w_ms * 1e3:.1f}, in-process loader {B / p_ms * 1e3:.1f}, one "
+        f"pre-built batch repeated {B / rep_ms * 1e3:.1f} (median step "
+        f"{rep_ms:.2f} ms); host sample building {p_load / B:.3f} "
+        f"ms/sample in process, {host_ms:.3f} ms/sample for the first "
+        f"batch; peak max_memory_allocated {peak_gb:.2f} GB (the worker "
+        f"run) | {card}")
     for v in record["validations"]:
         log(f"[train] validate after epoch {v['epoch']}: {v['crops']} crops "
             f"in {v['seconds'] * 1e3:.1f} ms = "
@@ -2126,6 +2166,75 @@ def card_sms(device="cuda"):
 INT8_KERNELS = ("int8_conv_fused", "quant_im2col", "dequant_epilogue")
 
 
+def int8_forward_times(net, sites, batch, card, device="cuda"):
+    """9a for one net: :func:`int8_shape_run` at each distinct int8 conv
+    shape of ``sites`` (from :func:`int8_sites`; ``batch`` replaces their
+    batch, None keeps it), logged.  Returns the numbers summed over one
+    forward (each shape times its sites), the largest |card - plain| per
+    kernel, and the number of shapes."""
+    errs = dict.fromkeys(INT8_KERNELS, 0.0)
+    shapes = {}
+    for conv, shape, dtype in sites:
+        n = shape[0] if batch is None else batch
+        key = ((n,) + shape[1:], dtype, conv.out_channels,
+               conv.kernel_size, conv.stride, conv.padding)
+        shapes.setdefault(key, [conv, 0])[1] += 1
+    sums = {"bound_by_bytes": 0.0, "bound_by_ops": 0.0}
+    for i, (key, (conv, count)) in enumerate(sorted(
+            shapes.items(), key=lambda kv: str(kv[0]))):
+        t, bounds, err, what = int8_shape_run(conv, key[0], key[1],
+                                              device, seed=i)
+        errs = {k: max(v, err[k]) for k, v in errs.items()}
+        for k, v in list(t.items()) + [(f"bound_{k}", b[0])
+                                       for k, b in bounds.items()]:
+            sums[k] = sums.get(k, 0.0) + count * v
+        by = bounds["int8_conv_fused"][1]
+        sums["bound_by_" + ("bytes" if by == "bytes" else "ops")] += (
+            count * bounds["int8_conv_fused"][0])
+        three = t["quant_im2col"] + t["int_mm"] + t["dequant_epilogue"]
+        narrow = (f", at the tiling it widens "
+                  f"{t['narrow_tiles'] * 1e3:.1f}" if t["wide_sites"]
+                  else "")
+        log(f"[int8] 9a {net} {what} {str(key[1])[6:]} x{count}: "
+            f"bit-equal; int8_conv_fused {t['int8_conv_fused'] * 1e3:.1f}"
+            f" us{narrow} (bound "
+            f"{bounds['int8_conv_fused'][0] * 1e3:.1f}, {by}; "
+            f"plain {t['plain_int8_conv_fused'] * 1e3:.1f}); three steps "
+            f"{three * 1e3:.1f} us (quant_im2col "
+            f"{t['quant_im2col'] * 1e3:.1f}, bound "
+            f"{bounds['quant_im2col'][0] * 1e3:.1f}, plain "
+            f"{t['plain_quant_im2col'] * 1e3:.1f}; _int_mm "
+            f"{t['int_mm'] * 1e3:.1f}; dequant_epilogue "
+            f"{t['dequant_epilogue'] * 1e3:.1f}, bound "
+            f"{bounds['dequant_epilogue'][0] * 1e3:.1f}, plain "
+            f"{t['plain_dequant_epilogue'] * 1e3:.1f}); bf16 cuDNN conv "
+            f"{t['cudnn_bf16'] * 1e3:.1f} us")
+        torch.cuda.empty_cache()
+    sums["three_step"] = (sums["quant_im2col"] + sums["int_mm"]
+                          + sums["dequant_epilogue"])
+    log(f"[int8] 9a {net}, one forward ({len(sites)} int8 sites, "
+        f"{len(shapes)} shapes, ms): int8_conv_fused "
+        f"{sums['int8_conv_fused']:.3f} (bound "
+        f"{sums['bound_int8_conv_fused']:.3f}, of which shapes bound by "
+        f"bytes {sums['bound_by_bytes']:.3f}: "
+        f"{sums['fused_bytes'] / 1e9:.2f} GB, "
+        f"{sums['fused_ops'] / 1e12:.2f} T int8 operations; plain "
+        f"{sums['plain_int8_conv_fused']:.3f}) against the three steps "
+        f"{sums['three_step']:.3f} (quant_im2col "
+        f"{sums['quant_im2col']:.3f}, bound "
+        f"{sums['bound_quant_im2col']:.3f}, plain "
+        f"{sums['plain_quant_im2col']:.3f}; _int_mm "
+        f"{sums['int_mm']:.3f}; dequant_epilogue "
+        f"{sums['dequant_epilogue']:.3f}, bound "
+        f"{sums['bound_dequant_epilogue']:.3f}, plain "
+        f"{sums['plain_dequant_epilogue']:.3f}) and the bf16 cuDNN convs "
+        f"{sums['cudnn_bf16']:.3f}; int8_conv_fused with the shift "
+        f"route's blocks of twice the rows at the tiling they widen "
+        f"({sums['wide_sites']:.0f} sites on {card_sms()} SMs) "
+        f"{sums['narrow_tiles']:.3f} | {card}")
+    return sums, errs, len(shapes)
+
+
 def check_int8_kernels(card, cfg_fn=w32_cfg, device="cuda", fold_batch=256,
                        det_hw=(384, 640)):
     """9a: every distinct int8 conv shape of w32 (B = ``fold_batch``, the
@@ -2149,67 +2258,11 @@ def check_int8_kernels(card, cfg_fn=w32_cfg, device="cuda", fold_batch=256,
     errs = dict.fromkeys(INT8_KERNELS, 0.0)
     n_shapes = 0
     for net, sites in nets.items():
-        shapes = {}
-        for conv, shape, dtype in sites:
-            n = fold_batch if net == "w32" else shape[0]
-            key = ((n,) + shape[1:], dtype, conv.out_channels,
-                   conv.kernel_size, conv.stride, conv.padding)
-            shapes.setdefault(key, [conv, 0])[1] += 1
-        sums = {"bound_by_bytes": 0.0, "bound_by_ops": 0.0}
-        for i, (key, (conv, count)) in enumerate(sorted(
-                shapes.items(), key=lambda kv: str(kv[0]))):
-            t, bounds, err, what = int8_shape_run(conv, key[0], key[1],
-                                                  device, seed=i)
-            n_shapes += 1
-            errs = {k: max(v, err[k]) for k, v in errs.items()}
-            for k, v in list(t.items()) + [(f"bound_{k}", b[0])
-                                           for k, b in bounds.items()]:
-                sums[k] = sums.get(k, 0.0) + count * v
-            by = bounds["int8_conv_fused"][1]
-            sums["bound_by_" + ("bytes" if by == "bytes" else "ops")] += (
-                count * bounds["int8_conv_fused"][0])
-            three = t["quant_im2col"] + t["int_mm"] + t["dequant_epilogue"]
-            narrow = (f", at the tiling it widens "
-                      f"{t['narrow_tiles'] * 1e3:.1f}" if t["wide_sites"]
-                      else "")
-            log(f"[int8] 9a {net} {what} {str(key[1])[6:]} x{count}: "
-                f"bit-equal; int8_conv_fused {t['int8_conv_fused'] * 1e3:.1f}"
-                f" us{narrow} (bound "
-                f"{bounds['int8_conv_fused'][0] * 1e3:.1f}, {by}; "
-                f"plain {t['plain_int8_conv_fused'] * 1e3:.1f}); three steps "
-                f"{three * 1e3:.1f} us (quant_im2col "
-                f"{t['quant_im2col'] * 1e3:.1f}, bound "
-                f"{bounds['quant_im2col'][0] * 1e3:.1f}, plain "
-                f"{t['plain_quant_im2col'] * 1e3:.1f}; _int_mm "
-                f"{t['int_mm'] * 1e3:.1f}; dequant_epilogue "
-                f"{t['dequant_epilogue'] * 1e3:.1f}, bound "
-                f"{bounds['dequant_epilogue'][0] * 1e3:.1f}, plain "
-                f"{t['plain_dequant_epilogue'] * 1e3:.1f}); bf16 cuDNN conv "
-                f"{t['cudnn_bf16'] * 1e3:.1f} us")
-            torch.cuda.empty_cache()
-        sums["three_step"] = (sums["quant_im2col"] + sums["int_mm"]
-                              + sums["dequant_epilogue"])
+        sums, err, n = int8_forward_times(
+            net, sites, fold_batch if net == "w32" else None, card, device)
         totals[net] = sums
-        log(f"[int8] 9a {net}, one forward ({len(sites)} int8 sites, "
-            f"{len(shapes)} shapes, ms): int8_conv_fused "
-            f"{sums['int8_conv_fused']:.3f} (bound "
-            f"{sums['bound_int8_conv_fused']:.3f}, of which shapes bound by "
-            f"bytes {sums['bound_by_bytes']:.3f}: "
-            f"{sums['fused_bytes'] / 1e9:.2f} GB, "
-            f"{sums['fused_ops'] / 1e12:.2f} T int8 operations; plain "
-            f"{sums['plain_int8_conv_fused']:.3f}) against the three steps "
-            f"{sums['three_step']:.3f} (quant_im2col "
-            f"{sums['quant_im2col']:.3f}, bound "
-            f"{sums['bound_quant_im2col']:.3f}, plain "
-            f"{sums['plain_quant_im2col']:.3f}; _int_mm "
-            f"{sums['int_mm']:.3f}; dequant_epilogue "
-            f"{sums['dequant_epilogue']:.3f}, bound "
-            f"{sums['bound_dequant_epilogue']:.3f}, plain "
-            f"{sums['plain_dequant_epilogue']:.3f}) and the bf16 cuDNN convs "
-            f"{sums['cudnn_bf16']:.3f}; int8_conv_fused with the shift "
-            f"route's blocks of twice the rows at the tiling they widen "
-            f"({sums['wide_sites']:.0f} sites on {card_sms()} SMs) "
-            f"{sums['narrow_tiles']:.3f} | {card}")
+        errs = {k: max(v, err[k]) for k, v in errs.items()}
+        n_shapes += n
     host = int8_host_cost(device)
     log(f"[int8] 9a host cost of one launch at one frame's 16 crops with "
         f"the flip (B=32, 3x3 64->64 at 32x24, enqueued back to back): "
@@ -2688,6 +2741,367 @@ def phase_int8(tmp, cfg_fn=w32_cfg, pose_yaml=W32_YAML, device="cuda",
     return paths, kernels, crops_s, frames_s
 
 
+# --------------------------------------------------------------- phase 10
+RESNET50_YAML = os.path.join(REPO,
+                             "configs/coco/resnet50_256x192_gaussian.yaml")
+PSA_YAML = os.path.join(REPO,
+                        "configs/coco/hrnet_w32_256x192_udpv1_aid_psa.yaml")
+MPII_YAML = os.path.join(REPO, "configs/mpii/hrnet_w32_256x256_udp.yaml")
+INT8_SITES_RESNET50 = 53         # pose_resnet50's 54 convs less final_layer
+MPII_TRAIN, MPII_VAL = 64, 32    # synthetic MPII records (one each a frame)
+MPII_JOINTS = ["rank", "rkne", "rhip", "lhip", "lkne", "lank", "pelvis",
+               "thorax", "upperneck", "head", "rwri", "relb", "rsho",
+               "lsho", "lelb", "lwri"]
+
+
+def yaml_cfg(path, dtype):
+    from udp_pose_tpu_torch.config import load_config
+    cfg = load_config(path)
+    cfg.TPU.DTYPE = dtype
+    return cfg
+
+
+def float_path(name, cfg, card, device="cuda", batch=SERVE_BATCH, iters=10):
+    """10a / 10b: the yaml's serving graph (its own flip test and decode)
+    at full width with seeded random weights.  fp32 with TF32 off, card
+    heatmaps against the CPU's on 4 crops; then bf16 crops/s at B =
+    ``batch`` from host u8 crops, each batch in a window of the path's
+    launches, which must be one fused decode a batch for the offset
+    head and none for the Gaussian one.  Returns (crops/s, launches, a
+    function that profiles those batches, to be called after 3b's
+    profiler session)."""
+    from udp_pose_tpu_torch.core.infer import make_infer_fn_from_cfg
+    from udp_pose_tpu_torch.models import build_model
+
+    def serving(c, dev):
+        return make_infer_fn_from_cfg(build_model(c, device=dev, seed=0), c)
+
+    set_tf32(False)
+    cfg32 = cfg.clone()
+    cfg32.TPU.DTYPE = "float32"
+    crops, center, scale = random_crops(4, cfg32, seed=5)
+    hm = {dev: serving(cfg32, dev)(crops, center, scale)[2].float().cpu()
+          for dev in (device, "cpu")}
+    ref_max = float(hm["cpu"].abs().max())
+    err = float((hm[device] - hm["cpu"]).abs().max())
+    log(f"[zoo] 10 {name} fp32 B=4 heatmaps {tuple(hm['cpu'].shape)}: card "
+        f"vs CPU max abs err {err:.3g}, max |hm| {ref_max:.3g} (limit "
+        f"{HEATMAP_REL_TOL:g} x max |hm|)")
+    check(err <= HEATMAP_REL_TOL * ref_max,
+          f"{name}: card heatmaps != CPU heatmaps")
+    set_tf32(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    infer = serving(cfg, device)
+    crops, center, scale = random_crops(batch, cfg, seed=6)
+    path = PathLaunches(name)
+    ms = [path.run(host_ms, lambda: infer(crops, center, scale), iters)
+          for _ in range(3)]
+    decodes = 3 * (iters + 1) if cfg.MODEL.TARGET_TYPE == "offset" else 0
+    path.served(decodes, 0)
+    check(path.counts == path.want, f"{name}: launches {path.counts}, but "
+          f"its batches should have launched {path.want}")
+    preds = infer(crops, center, scale)[0]
+    check(bool(torch.isfinite(preds).all()), f"{name}: non-finite preds")
+    rate = batch / np.median(ms) * 1e3
+    flip = (f"flip {cfg.TEST.get('FLIP_MODE', 'fold')}"
+            if cfg.TEST.FLIP_TEST else "no flip")
+    log(f"[zoo] 10 {name} {cfg.MODEL.NAME} {cfg.MODEL.IMAGE_SIZE[1]}x"
+        f"{cfg.MODEL.IMAGE_SIZE[0]} {cfg.MODEL.TARGET_TYPE} bf16 B={batch} "
+        f"{flip}: {rate:.1f} crops/s (median of 3 runs of {iters} batches: "
+        f"{', '.join(f'{m:.2f}' for m in ms)} ms/batch); fused decode "
+        f"launches {path.counts['udp_offset_decode_fused']} for "
+        f"{3 * (iters + 1)} batches | {card}")
+
+    def profile():
+        """Where a bf16 batch's time goes: card busy and idle share,
+        device kernels a batch, the top kernels (profiler)."""
+        wall, busy, top, kernels = profile_device(
+            lambda: infer(crops, center, scale))
+        if busy > 0:
+            log(f"[zoo] 10 {name} profile: 3 batches {wall:.2f} ms wall, "
+                f"card busy {busy:.2f} ms (idle share {1 - busy / wall:.3f})"
+                f", {kernels:.0f} device kernels and copies a batch; top "
+                f"kernels (ms): " + "; ".join(f"{k[:60]} {t:.2f}"
+                                              for k, t in top)
+                + f" | {card}")
+        else:
+            log(f"[zoo] 10 {name} profile: the profiler saw no device "
+                "time; idle share not measured")
+
+    return rate, path.counts, profile
+
+
+def int8_resnet(card, device="cuda", batch=SERVE_BATCH, iters=10):
+    """10c: int8 ``pose_resnet50`` at full width.  The pipeline calibrates
+    itself on two batches of B = ``batch`` and serves w8a8 (the deconv
+    head and ``final_layer`` stay bf16): int8 and bf16 crops/s in turns,
+    one fused int8 conv launch a site and batch, bit-equality to the
+    three-step card path at every input layout it ran (9g), and the
+    kernel's time over one forward's shapes against its bound and the
+    bf16 cuDNN convs (9a).  Returns (launches, the kernel's numbers for
+    one forward, crops/s)."""
+    from udp_pose_tpu_torch.engine.pose_engine import UdpPosePipeline
+    from udp_pose_tpu_torch.models import build_model
+    cfg = yaml_cfg(RESNET50_YAML, "bfloat16")
+    path = PathLaunches("int8_pose_resnet50")
+    q = UdpPosePipeline(cfg, device=device, seed=0, quantize="int8",
+                        calib_batches=2)
+    bf16 = UdpPosePipeline(cfg, device=device, seed=0)
+
+    def served(*args):
+        def call():
+            sites = 0 if q.int8.calibrating else INT8_SITES_RESNET50
+            out = q.infer_crops(*args)
+            path.served(0, sites)
+            return out
+        return call
+
+    for seed in (10, 11):
+        path.run(served(*random_crops(batch, cfg, seed)))
+    table = q.int8.table
+    check(table is not None and len(table) == INT8_SITES_RESNET50 + 1,
+          f"pose_resnet50 self-calibration: table of "
+          f"{0 if table is None else len(table)}")
+    crops, center, scale = random_crops(batch, cfg, seed=9)
+    rates = {"bf16": [], "int8": []}
+    for kind in ("bf16", "int8", "int8", "bf16"):
+        if kind == "int8":
+            ms = [path.run(host_ms, served(crops, center, scale), iters)
+                  for _ in range(3)]
+        else:
+            ms = [host_ms(lambda: bf16.infer_crops(crops, center, scale),
+                          iters) for _ in range(3)]
+        rates[kind].append(batch / np.median(ms) * 1e3)
+    check(len(q.int8.qmodel.engaged) == INT8_SITES_RESNET50,
+          f"pose_resnet50: {len(q.int8.qmodel.engaged)} engaged sites")
+    kp_q = path.run(served(crops, center, scale))[0]
+    kp_b = bf16.infer_crops(crops, center, scale)[0]
+    path.check()
+    log(f"[zoo] 10c int8 pose_resnet50 256x192 B={batch} (no flip): "
+        f"self-calibrated ({len(table)} sites in the table, "
+        f"{INT8_SITES_RESNET50} engaged: final_layer and the 3 transposed "
+        f"convs stay bf16); crops/s int8 "
+        f"{', '.join(f'{r:.1f}' for r in rates['int8'])} against bf16 "
+        f"{', '.join(f'{r:.1f}' for r in rates['bf16'])} (in turns bf16, "
+        f"int8, int8, bf16, each the median of 3 x {iters} batches); int8 "
+        f"vs bf16 keypoints (random weights: a number only) median "
+        f"{np.median(np.abs(kp_q - kp_b)):.3g} px; launches "
+        f"{path.counts} | {card}")
+    path.keep_layouts(q.int8)
+    del q, bf16
+    torch.cuda.empty_cache()
+    layouts = check_path_layouts(path, card, device)
+    w, h = cfg.MODEL.IMAGE_SIZE
+    sites = int8_sites(build_model(cfg, device=device),
+                       torch.zeros(1, 3, h, w, dtype=torch.bfloat16,
+                                   device=device))
+    check(len(sites) == INT8_SITES_RESNET50,
+          f"pose_resnet50: {len(sites)} int8 sites")
+    sums, errs, n_shapes = int8_forward_times("pose_resnet50", sites, batch,
+                                              card, device)
+    kernel = {"ms": sums["int8_conv_fused"],
+              "bound_ms": sums["bound_int8_conv_fused"],
+              "bound_by": ("bytes" if sums["bound_by_bytes"]
+                           >= sums["bound_by_ops"] else "operations"),
+              "plain_ms": sums["plain_int8_conv_fused"],
+              "cudnn_bf16_conv_ms": sums["cudnn_bf16"],
+              "three_step_ms": sums["three_step"],
+              "max_abs_err": errs["int8_conv_fused"], "shapes": n_shapes,
+              "layouts_checked": layouts,
+              "per": f"one pose_resnet50 forward, B={batch}, "
+                     f"{INT8_SITES_RESNET50} launches"}
+    return path.counts, kernel, {k: float(np.median(v))
+                                 for k, v in rates.items()}
+
+
+def synthetic_mpii(root, rng):
+    """An MPII annotation set of ``MPII_TRAIN`` and ``MPII_VAL`` records
+    (``annot/{train,valid}.json``, 1-based, 16 joints, a few invisible)
+    with its PCKh ground truth ``annot/gt_valid.mat`` (written with
+    ``scipy.io.savemat``), one seeded 640x480 frame a record, held in
+    memory: {image name: (H, W, 3) u8}."""
+    from scipy.io import savemat
+    os.makedirs(os.path.join(root, "annot"), exist_ok=True)
+    W, H = FRAME_WH
+    frames = {}
+    for image_set, n in (("train", MPII_TRAIN), ("valid", MPII_VAL)):
+        anno = []
+        gt = np.zeros((16, 2, n)), np.zeros((16, n)), np.zeros((2, 2, n))
+        for i in range(n):
+            name = f"{image_set}{i:04d}.jpg"
+            frames[name] = rng.integers(0, 255, (H, W, 3), np.uint8)
+            c = rng.uniform([W * 0.35, H * 0.4], [W * 0.65, H * 0.6])
+            s = rng.uniform(1.0, 1.4)
+            joints = c + rng.uniform(-70, 70, (16, 2)) * s
+            vis = (rng.random(16) > 0.1).astype(int)
+            anno.append({"image": name, "center": (c + 1).tolist(),
+                         "scale": float(s), "joints": (joints + 1).tolist(),
+                         "joints_vis": vis.tolist()})
+            gt[0][:, :, i] = joints + 1
+            gt[1][:, i] = 1 - vis
+            gt[2][:, :, i] = [joints[9] - [20, 25] + 1,
+                              joints[9] + [20, 5] + 1]
+        with open(os.path.join(root, "annot", f"{image_set}.json"),
+                  "w") as f:
+            json.dump(anno, f)
+    savemat(os.path.join(root, "annot", "gt_valid.mat"), {
+        "dataset_joints": np.array([MPII_JOINTS], dtype=object),
+        "jnt_missing": gt[1], "pos_gt_src": gt[0], "headboxes_src": gt[2]})
+    return frames
+
+
+def in_memory_mpii(cfg, frames, is_train):
+    """The package's ``MPIIDataset`` with the seams of
+    :func:`in_memory_coco`: images from ``frames``, crops from the native
+    warp.  (The training input forks its workers, which inherit it.)"""
+    from udp_pose_tpu_torch.data.mpii import MPIIDataset
+    from udp_pose_tpu_torch.native import warp_affine_batch
+
+    class InMemoryMPII(MPIIDataset):
+        def _read_image(self, path):
+            return frames[os.path.basename(path)]
+
+        def _warp(self, img, trans):
+            w, h = (int(v) for v in self.image_size)
+            crop = warp_affine_batch(img, trans[None], (h, w))[0]
+            return np.clip(np.rint(crop), 0, 255).astype(np.uint8)
+
+    image_set = cfg.DATASET.TRAIN_SET if is_train else cfg.DATASET.TEST_SET
+    return InMemoryMPII(cfg, cfg.DATASET.ROOT, image_set, is_train)
+
+
+def decode_64x64(card, device="cuda", batch=SERVE_BATCH):
+    """10d: the fused decode at MPII's (B, 48, 64, 64) maps (the
+    run-time-shape copy of the kernel) against its plain version, bit for
+    bit, in both layouts, and its time against its bound."""
+    from udp_pose_tpu_torch.ops import peak_offset as po
+    hw, J = (64, 64), 16
+    sets = [decode_inputs(seed, device, batch=batch, hw=hw, J=J)
+            for seed in (20, 21, 22)]
+    out = {}
+    for layout in LAYOUTS:
+        worst = 0.0
+        for s in sets:
+            got = po.udp_offset_decode_fused(s[layout], KPD)
+            want = po.udp_offset_decode_reference(s[layout], KPD)
+            check(same_bits(got, want), f"fused decode != plain version at "
+                  f"(B={batch}, {3 * J}, 64, 64) {layout}")
+            worst = max(worst, float((got - want).nan_to_num(0.0).abs()
+                                     .max()))
+        args = [(s[layout], KPD) for s in sets]
+        ms = graph_ms(po.udp_offset_decode_fused, args)
+        plain_ms = cuda_ms(po.udp_offset_decode_reference, args, iters=5,
+                           repeats=3)
+        bytes_moved, ops = fused_bound(layout, batch=batch, J=J, hw=hw)
+        bound_ms, bound_by = bound_of(bytes_moved, ops)
+        log(f"[zoo] 10d udp_offset_decode_fused B={batch} C={3 * J} 64x64 "
+            f"{layout}: bit-equal to the plain version on the map families; "
+            f"kernel {ms * 1e3:.2f} us (graph replay), plain "
+            f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
+            f"({bound_by}: {bytes_moved / 1e6:.1f} MB, {ops / 1e6:.1f} M "
+            f"fp32 operations) | {card}")
+        out[layout] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "max_abs_err": worst}
+    return out
+
+
+def mpii_path(tmp, card, device="cuda"):
+    """10d: ``configs/mpii/hrnet_w32_256x256_udp.yaml`` at full width
+    (bf16) on a seeded synthetic MPII in memory: one epoch of
+    ``train.run`` at B=32 with the yaml's default WORKERS 4 and the
+    prefetch, validated through the fused decode with its PCKh; then one
+    ``/v1/pose`` request to a server on the weights it wrote: 16 joints.
+    Returns the launches of the two paths."""
+    from udp_pose_tpu_torch import train as train_cli
+    from udp_pose_tpu_torch.engine.server import PoseServer, PoseService
+    from udp_pose_tpu_torch.models import build_model
+    root = os.path.join(tmp, "mpii")
+    frames = synthetic_mpii(root, np.random.default_rng(70))
+    cfg = yaml_cfg(MPII_YAML, "bfloat16")
+    cfg.DATASET.ROOT = root
+    cfg.OUTPUT_DIR = os.path.join(tmp, "mpii_run")
+    cfg.TRAIN.END_EPOCH = 1
+    os.makedirs(cfg.OUTPUT_DIR)
+    check(cfg.WORKERS == 4 and cfg.TRAIN.BATCH_SIZE_PER_GPU == 32,
+          f"WORKERS {cfg.WORKERS}, B {cfg.TRAIN.BATCH_SIZE_PER_GPU}")
+    train_ds = in_memory_mpii(cfg, frames, True)
+    val_ds = in_memory_mpii(cfg, frames, False)
+    check(len(train_ds) == MPII_TRAIN and len(val_ds) == MPII_VAL
+          and train_ds.num_joints == 16, "MPII db sizes")
+    training = PathLaunches("mpii_training")
+    t0 = time.perf_counter()
+    record = training.run(train_cli.run, cfg,
+                          build_model(cfg, device=device, train=True),
+                          train_ds, val_ds, cfg.OUTPUT_DIR, device)
+    secs = time.perf_counter() - t0
+    val_batches = -(-MPII_VAL // cfg.TEST.BATCH_SIZE_PER_GPU)
+    training.served(val_batches, 0)
+    check(training.counts == training.want, f"mpii_training: launches "
+          f"{training.counts}, want {training.want}")
+    losses = [s["loss"] for s in record["steps"]]
+    check(len(losses) == MPII_TRAIN // 32 and all(np.isfinite(losses)),
+          f"MPII losses {losses}")
+    nv = record["name_values"]
+    check(list(nv)[:2] == ["Head", "Shoulder"] and np.isfinite(nv["Mean"]),
+          f"MPII name_values {nv}")
+    log(f"[zoo] 10d MPII hrnet_w32 256x256 UDP bf16: train.run one epoch "
+        f"of {MPII_TRAIN} records at B=32 through WORKERS {cfg.WORKERS} "
+        f"and the prefetch, losses {', '.join(f'{v:.5g}' for v in losses)}; "
+        f"validation of {MPII_VAL} crops (flip, {val_batches} fused decode "
+        f"launch(es)): PCKh " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                          nv.items())
+        + f" (random weights); {secs:.1f} s | {card}")
+    serving = PathLaunches("mpii_serving")
+    service = PoseService(cfg, weights=os.path.join(cfg.OUTPUT_DIR,
+                                                    "final_state.pth"),
+                          device=device, window_ms=1.0)
+    check(service.pipe.skeleton is not None and len(service.pipe.skeleton)
+          == 15, "the MPII skeleton")
+    server = PoseServer(service, host="127.0.0.1", port=0)
+    thread = server.serve_in_thread()
+    try:
+        frame, boxes = requests_for(1, (480, 640), seed=71)[0]
+        status, body, secs = serving.run(post_pose, server.port, frame,
+                                         boxes)
+    finally:
+        server.shutdown()
+        thread.join(timeout=30)
+    kp = np.asarray(body.get("keypoints", []), np.float32)
+    check(status == 200 and kp.shape == (len(boxes), 16, 2)
+          and np.isfinite(kp).all(), f"MPII /v1/pose: {status} {kp.shape}")
+    serving.served(1, 0)
+    check(serving.counts == serving.want, f"mpii_serving: launches "
+          f"{serving.counts}, want {serving.want}")
+    log(f"[zoo] 10d MPII /v1/pose on final_state.pth: 200, {len(boxes)} "
+        f"persons x 16 joints in {secs * 1e3:.1f} ms, one fused decode "
+        f"launch | {card}")
+    return {"mpii_training": training.counts,
+            "mpii_serving": serving.counts}
+
+
+def phase_zoo(tmp, device="cuda"):
+    """Phase 10: SimpleBaseline, PSA HRNet, int8 pose_resnet50 and MPII at
+    full width.  Returns (launches by path, the 64x64 decode's numbers,
+    the int8 pose_resnet50 kernel's, crops/s, the functions that profile
+    the two float paths' batches)."""
+    card = card_line()
+    t_phase = time.perf_counter()
+    paths, rates, profiles = {}, {}, []
+    for name, path in (("pose_resnet50_serving", RESNET50_YAML),
+                       ("psa_hrnet_serving", PSA_YAML)):
+        rates[name], paths[name], profile = float_path(
+            name, yaml_cfg(path, "bfloat16"), card, device)
+        profiles.append(profile)
+    paths["int8_pose_resnet50"], int8_kernel, int8_rates = int8_resnet(
+        card, device)
+    rates.update({f"pose_resnet50_{k}": v for k, v in int8_rates.items()})
+    paths.update(mpii_path(tmp, card, device))
+    decode = decode_64x64(card, device)
+    log(f"[zoo] phase 10 {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{paths}")
+    return paths, decode, int8_kernel, rates, profiles
+
+
 # ------------------------------------------------------------------ main
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2713,17 +3127,23 @@ def main(argv=None):
         paths = {"detect_then_pose": detected}
         with tempfile.TemporaryDirectory() as tmp:
             int8_paths, int8_kernels, _, _ = phase_int8(tmp)
+        with tempfile.TemporaryDirectory() as tmp:
+            zoo_paths, decode_64, resnet_int8, _, profile_zoo = phase_zoo(
+                tmp)
         # 3b's one-launch check reads the profiler's kernel list, which
         # has missed the ctypes-launched kernel in a process's later
         # profiler sessions: 3b holds the first one
         fused = phase_fused()
         profile_model()
         profile_detect()
+        for profile in profile_zoo:
+            profile()
         phase_blur()
         paths["pose_serving"] = phase_server(w32_cfg("bfloat16"))
         with tempfile.TemporaryDirectory() as tmp:
             paths["training"] = phase_train(tmp)
         paths.update(int8_paths)
+        paths.update(zoo_paths)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2744,11 +3164,13 @@ def main(argv=None):
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
+    int8_kernels["int8_conv_fused"]["pose_resnet50"] = resnet_int8
     print(card_line())
     print(json.dumps({"kernels": [
         {"name": "udp_offset_decode_fused", **decode,
          **launches("udp_offset_decode_fused"),
-         "layout": layout, **fused[layout]},
+         "layout": layout, **fused[layout],
+         "mpii_b128_c48_64x64": decode_64},
         {"name": "fused_peak_offset", **decode,
          **launches("fused_peak_offset"), "on_main_path": False, **peak},
     ] + [{"name": name, **int8, "replaces": replaces[name], **launches(name),

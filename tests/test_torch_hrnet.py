@@ -123,11 +123,10 @@ def test_w32_parameter_count():
 
 def test_registry_refuses_unported_models():
     cfg = reduced_cfg(default_config)
-    cfg.MODEL.NAME = "pose_resnet"
-    with pytest.raises(KeyError, match="pose_hrnet"):
-        build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        PoseHRNet(stages_from_cfg(reduced_cfg(default_config)), psa=True)
+    for name in ("rsn", "pose_shufflenetv2_plus"):
+        cfg.MODEL.NAME = name
+        with pytest.raises(KeyError, match="pose_hrnet"):
+            build_model(cfg, device="cpu")
 
 
 def test_pipeline_loads_jax_variables_and_reference_pth(pair, tmp_path):

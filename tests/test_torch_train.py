@@ -262,6 +262,10 @@ def _data_cfg(default_config_fn, root):
     cfg.TEST.POST_PROCESS = True
     cfg.TEST.BATCH_SIZE_PER_GPU = 4
     cfg.TRAIN.BATCH_SIZE_PER_GPU = 4
+    # batches built in process: this process has JAX loaded, and the
+    # trainer's forked loader workers of it could deadlock
+    # (tests/test_torch_loader.py runs the workers, spawned)
+    cfg.WORKERS = 0
     return cfg
 
 
@@ -374,7 +378,7 @@ def test_entry_points_refuse_what_is_not_ported(tmp_path):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train_cli.main(["--cfg", str(path), "--device", "cpu", key,
                             value])
-    cfg.DATASET.DATASET = "mpii"
+    cfg.DATASET.DATASET = "crowdpose"
     with pytest.raises(KeyError, match="coco"):
         build_dataset(cfg)
     cfg.DATASET.DATASET = "coco"

@@ -27,6 +27,12 @@ class Node(dict):
             for k, v in d.items():
                 self[k] = Node(v, new_allowed=new_allowed) if isinstance(v, dict) else v
 
+    # -- pickling (the training input's worker processes) -------------------
+    def __reduce__(self):
+        return (_rebuild_node, (dict(self),
+                                object.__getattribute__(self, "_new_allowed"),
+                                object.__getattribute__(self, "_frozen")))
+
     # -- attribute protocol -------------------------------------------------
     def __getattr__(self, name):
         try:
@@ -103,6 +109,14 @@ class Node(dict):
         return {k: (v.to_dict() if isinstance(v, Node) else v)
                 for k, v in self.items()}
 
+
+def _rebuild_node(items, new_allowed, frozen):
+    node = Node(new_allowed=new_allowed)
+    for k, v in items.items():
+        dict.__setitem__(node, k, v)
+    if frozen:
+        object.__setattr__(node, "_frozen", True)
+    return node
 
 
 def _coerce(value, current, path):

@@ -101,12 +101,16 @@ class JointsDataset:
         return center, scale
 
     def _read_image(self, path):
-        """The (H, W, 3) uint8 image at ``path``, RGB if ``COLOR_RGB``."""
+        """The (H, W, 3) uint8 image at ``path``, RGB if ``COLOR_RGB``; an
+        ``archive.zip@member`` path (``DATA_FORMAT zip``) reads the member
+        (:mod:`..utils.zipreader`)."""
         import cv2
         if self.data_format == "zip" or "@" in path:
-            raise NotImplementedError(
-                "zip-packed datasets are not ported yet; unpack the images")
-        img = cv2.imread(path, cv2.IMREAD_COLOR | cv2.IMREAD_IGNORE_ORIENTATION)
+            from ..utils import zipreader
+            img = zipreader.imread(path)
+        else:
+            img = cv2.imread(
+                path, cv2.IMREAD_COLOR | cv2.IMREAD_IGNORE_ORIENTATION)
         if img is None:
             raise ValueError(f"fail to read {path}")
         if self.color_rgb:

@@ -12,6 +12,8 @@ Attribute names give the reference state_dict keys (``conv1``, ``bn1``,
 ``layer1.N.*``, ``transition{t}.{i}.0/1`` or ``.{i}.{j}.0/1``,
 ``stage{s}.{m}.branches.{b}.{k}.*``, ``stage{s}.{m}.fuse_layers.{i}.{j}.*``,
 ``final_layer``), so a published ``.pth`` loads with ``strict=True``.
+``psa=True`` (pose_hrnet_psa) inserts ``PSA_s`` as ``deattn`` in every
+BasicBlock of the stages (pose_hrnet_psa.py:37,:49).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from torch import nn
 
 from .layers import (BasicBlock, BatchNorm2d, Bottleneck, ConvBN,
                      add_upsampled)
+from .psa import PSA_s
 
 BLOCKS = {"BASIC": BasicBlock, "BOTTLENECK": Bottleneck}
 
@@ -34,9 +37,10 @@ class HRModule(nn.Module):
     def __init__(self, num_branches: int, block: str,
                  num_blocks: Sequence[int], in_channels: Sequence[int],
                  num_channels: Sequence[int],
-                 multi_scale_output: bool = True):
+                 multi_scale_output: bool = True, psa: bool = False):
         super().__init__()
         block_cls = BLOCKS[block]
+        attn = PSA_s if (psa and block_cls is BasicBlock) else None
         exp = block_cls.expansion
         self.num_branches = num_branches
         self.multi_scale_output = multi_scale_output
@@ -47,7 +51,8 @@ class HRModule(nn.Module):
             for bi in range(num_blocks[i]):
                 need_down = bi == 0 and inplanes != num_channels[i] * exp
                 blocks.append(block_cls(inplanes, num_channels[i], 1,
-                                        downsample=need_down))
+                                        downsample=need_down,
+                                        attention=attn))
                 inplanes = num_channels[i] * exp
             branches.append(nn.Sequential(*blocks))
         self.branches = nn.ModuleList(branches)
@@ -113,13 +118,11 @@ class PoseHRNet(nn.Module):
                  target_type: str = "gaussian", final_conv_kernel: int = 1,
                  psa: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if psa:
-            raise NotImplementedError(
-                "pose_hrnet_psa is not ported yet; only plain pose_hrnet")
         #: compute dtype: models.build_model casts a serving model to it,
         #: the trainer autocasts to it over float32 weights
         self.dtype = dtype
         self.stages_cfg = tuple(stages_cfg)
+        self.psa = psa
         self.conv1 = nn.Conv2d(3, 64, 3, 2, 1, bias=False)
         self.bn1 = BatchNorm2d(64)
         self.conv2 = nn.Conv2d(64, 64, 3, 2, 1, bias=False)
@@ -152,7 +155,8 @@ class PoseHRNet(nn.Module):
             setattr(self, f"stage{si + 2}", nn.ModuleList([
                 HRModule(nb, block, num_blocks, width, num_channels,
                          multi_scale_output=not (last_stage
-                                                 and mi == num_modules - 1))
+                                                 and mi == num_modules - 1),
+                         psa=psa)
                 for mi in range(num_modules)]))
             prev_ch = width
         self.num_stages = len(stages_cfg)

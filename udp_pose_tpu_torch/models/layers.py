@@ -1,9 +1,11 @@
-"""Shared building blocks: conv/BN/ReLU and the residual blocks.
+"""Shared building blocks: conv/BN/ReLU, the residual blocks, the
+SimpleBaseline max-pool and deconvolution head.
 
 Port of ``udp_pose_tpu/models/layers.py`` in NCHW.  Attribute names are
 the reference torch ones (deep_hrnet/lib/models/pose_hrnet.py:29-101:
-``conv1``/``bn1``/.../``downsample.0``/``downsample.1``), so a published
-``.pth`` and the JAX package's bridged variables load with
+``conv1``/``bn1``/.../``downsample.0``/``downsample.1``, the PSA insert
+``deattn``; pose_resnet.py:168-193: ``deconv_layers.{i}``), so a
+published ``.pth`` and the JAX package's bridged variables load with
 ``strict=True``.
 
 BatchNorm (:class:`BatchNorm2d`): eps 1e-5, torch momentum 0.1 (flax's
@@ -71,13 +73,16 @@ def _conv_bn(in_ch, out_ch, kernel, stride):
 
 
 class BasicBlock(nn.Module):
-    """3x3-3x3 residual block (pose_hrnet.py:29-59)."""
+    """3x3-3x3 residual block (pose_hrnet.py:29-59); ``attention`` (a
+    module class taking ``planes``, e.g. ``PSA_s``) is inserted as
+    ``deattn`` between conv1 and conv2 (pose_hrnet_psa.py:37,:49)."""
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, attention=None):
         super().__init__()
         self.conv1, self.bn1 = _conv_bn(inplanes, planes, 3, stride)
+        self.deattn = None if attention is None else attention(planes)
         self.conv2, self.bn2 = _conv_bn(planes, planes, 3, 1)
         self.downsample = (ConvBN(inplanes, planes, 1, stride, relu=False)
                            if downsample else None)
@@ -85,19 +90,23 @@ class BasicBlock(nn.Module):
     def forward(self, x):
         residual = x if self.downsample is None else self.downsample(x)
         out = F.relu(self.bn1(self.conv1(x)))
+        if self.deattn is not None:
+            out = self.deattn(out)
         out = self.bn2(self.conv2(out))
         return F.relu(out + residual)
 
 
 class Bottleneck(nn.Module):
-    """1x1-3x3-1x1 residual block, expansion 4 (pose_hrnet.py:62-101)."""
+    """1x1-3x3-1x1 residual block, expansion 4 (pose_hrnet.py:62-101);
+    ``attention`` is inserted as ``attn`` between conv2 and conv3."""
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, attention=None):
         super().__init__()
         self.conv1, self.bn1 = _conv_bn(inplanes, planes, 1, 1)
         self.conv2, self.bn2 = _conv_bn(planes, planes, 3, stride)
+        self.attn = None if attention is None else attention(planes)
         self.conv3, self.bn3 = _conv_bn(planes, planes * 4, 1, 1)
         self.downsample = (ConvBN(inplanes, planes * 4, 1, stride, relu=False)
                            if downsample else None)
@@ -106,8 +115,41 @@ class Bottleneck(nn.Module):
         residual = x if self.downsample is None else self.downsample(x)
         out = F.relu(self.bn1(self.conv1(x)))
         out = F.relu(self.bn2(self.conv2(out)))
+        if self.attn is not None:
+            out = self.attn(out)
         out = self.bn3(self.conv3(out))
         return F.relu(out + residual)
+
+
+def max_pool_3x3_s2():
+    """torch ``MaxPool2d(3, 2, padding=1)``, the ResNet stem's pool."""
+    return nn.MaxPool2d(3, 2, 1)
+
+
+# ConvTranspose2d (padding, output_padding) by kernel size, each an exact
+# ×2 (pose_resnet.py:156-166).  The JAX package's flax head pads "SAME",
+# which is the same geometry for kernels 4 and 2, and for kernel 3 one
+# pixel later: its output is this one's shifted down and right by one.
+DECONV_PADDING = {4: (1, 0), 3: (1, 1), 2: (0, 0)}
+
+
+class DeconvHead(nn.Sequential):
+    """SimpleBaseline head: N × (ConvTranspose2d stride 2 + BatchNorm +
+    ReLU) as one ``Sequential``, i.e. the reference's
+    ``deconv_layers.{3i}`` / ``.{3i + 1}`` keys (pose_resnet.py:168-193)."""
+
+    def __init__(self, in_ch: int, num_filters, num_kernels,
+                 with_bias: bool = False):
+        layers = []
+        for f, k in zip(num_filters, num_kernels):
+            if k not in DECONV_PADDING:
+                raise ValueError(f"deconv kernel {k}: 4, 3 or 2")
+            pad, out_pad = DECONV_PADDING[k]
+            layers += [nn.ConvTranspose2d(in_ch, f, k, 2, pad, out_pad,
+                                          bias=with_bias),
+                       BatchNorm2d(f), nn.ReLU(inplace=True)]
+            in_ch = f
+        super().__init__(*layers)
 
 
 def upsample_nearest(x, factor: int):

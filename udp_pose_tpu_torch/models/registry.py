@@ -1,9 +1,9 @@
 """Model registry (port of ``udp_pose_tpu/models/registry.py``).
 
-Pose models by ``cfg.MODEL.NAME`` (only ``pose_hrnet`` is ported so
-far; any other name raises ``KeyError`` naming what is registered), and
-the YOLOv5 detectors by name (``yolov5n``, ``yolov5s``, ``yolov5m``,
-``yolov5l``).
+Pose models by ``cfg.MODEL.NAME``: ``pose_hrnet``, ``pose_hrnet_psa``,
+``pose_resnet`` and ``pose_resnet_psa`` so far (any other name raises
+``KeyError`` naming what is registered), and the YOLOv5 detectors by
+name (``yolov5n``, ``yolov5s``, ``yolov5m``, ``yolov5l``).
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from torch import nn
 
 from ..utils.platform import resolve_device
 from .hrnet import pose_hrnet_from_cfg
+from .resnet import pose_resnet_from_cfg
 from .yolov5 import VARIANTS, YOLOv5
 
 MODELS: Dict[str, Callable] = {}
@@ -32,21 +33,24 @@ def register_model(name: str):
 
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random init in the manner of flax's defaults, which the JAX
-    package's smoke mode uses: conv kernels normal with variance 1/fan_in
-    (flax truncates its lecun_normal; this does not), conv biases 0,
-    BatchNorm scale 1 / bias 0 / running mean 0 / running var 1.  Drawn on
-    the CPU from one ``torch.Generator``, so a seed gives the same weights
-    on every device."""
+    package's smoke mode uses: conv and transposed-conv kernels normal
+    with variance 1/fan_in, fan_in = kh·kw·in as flax counts it for both
+    (flax truncates its lecun_normal; this does not), their biases 0,
+    BatchNorm and LayerNorm scale 1 / bias 0, running mean 0 / running
+    var 1.  Drawn on the CPU from one ``torch.Generator``, so a seed gives
+    the same weights on every device."""
     gen = torch.Generator().manual_seed(int(seed))
     for m in model.modules():
-        if isinstance(m, nn.Conv2d):
-            fan_in = m.weight[0].numel()
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            # Conv2d (O, I, kh, kw); ConvTranspose2d (I, O, kh, kw)
+            fan_in = (m.weight[0].numel() if isinstance(m, nn.Conv2d)
+                      else m.weight[:, 0].numel())
             with torch.no_grad():
                 m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
                                / math.sqrt(fan_in))
                 if m.bias is not None:
                     m.bias.zero_()
-        elif isinstance(m, nn.BatchNorm2d):
+        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
             m.reset_parameters()
     return model
 
@@ -91,6 +95,21 @@ def _place(model, dev, train):
     return model
 
 
+@register_model("pose_resnet")
+def _pose_resnet(cfg):
+    return pose_resnet_from_cfg(cfg, psa=False)
+
+
+@register_model("pose_resnet_psa")
+def _pose_resnet_psa(cfg):
+    return pose_resnet_from_cfg(cfg, psa=True)
+
+
 @register_model("pose_hrnet")
 def _pose_hrnet(cfg):
     return pose_hrnet_from_cfg(cfg, psa=False)
+
+
+@register_model("pose_hrnet_psa")
+def _pose_hrnet_psa(cfg):
+    return pose_hrnet_from_cfg(cfg, psa=True)

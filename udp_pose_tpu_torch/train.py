@@ -1,5 +1,5 @@
 """Training entry point of the PyTorch port (port of ``tools/train.py``,
-the epoch-mode pose_hrnet path):
+its epoch mode, for every ported model and dataset):
 
     python -m udp_pose_tpu_torch.train --cfg <experiment.yaml> \
         [--device cpu] [KEY VALUE ...]
@@ -101,25 +101,28 @@ def main(argv=None):
 def run(cfg, model, train_ds, val_ds, out_dir, device="cuda"):
     """Train ``model`` (from ``build_model(cfg, train=True)``) for epochs
     ``TRAIN.BEGIN_EPOCH`` to ``TRAIN.END_EPOCH`` on ``train_ds``,
-    validating on ``val_ds`` after each.  Returns a record of the run:
-    per step the seconds spent building the batch on the host (``load_s``)
-    and the whole iteration (``iter_s``, host clock; no per-step
-    synchronise); per validation its seconds, crop count and AP; the
-    last ``name_values`` and the best AP."""
+    validating on ``val_ds`` after each.  With ``WORKERS`` > 0 the
+    batches come from that many worker processes
+    (:mod:`.data.worker_loader`, augmentation seeded per record) through
+    the pinned one-ahead upload of :mod:`.data.prefetch`; else, or with
+    ``ASPECT_RATIO_GROUPING``, they are built in this process.  Returns a
+    record of the run: per step the seconds spent waiting for the batch
+    (``load_s``) and the whole iteration (``iter_s``, host clock; no
+    per-step synchronise); per validation its seconds, crop count and AP;
+    the last ``name_values`` and the best AP."""
     from .core.accuracy import pck_accuracy
     from .core.loss import make_loss_fn
     from .core.train import create_train_state, make_train_step, upload_batch
     from .core.validate import serving_copy, validate
     from .data.base import aspect_ratio_group_ids, epoch_loader
+    from .data.prefetch import device_prefetch
+    from .data.worker_loader import worker_loader
     from .models import build_model
     from .utils.logging import AverageMeter, print_name_value
     from .utils.platform import resolve_device
 
     refuse_unported(cfg)
     device = resolve_device(device)
-    if cfg.WORKERS > 0:
-        logger.info("WORKERS %d: multiprocess loading is not ported yet; "
-                    "samples are built in this process", cfg.WORKERS)
     batch_size = cfg.TRAIN.BATCH_SIZE_PER_GPU
     steps_per_epoch = max(len(train_ds) // batch_size, 1)
     state = create_train_state(cfg, model, steps_per_epoch)
@@ -134,15 +137,29 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda"):
         logger.info("=> QAT int8: training through the fake-quant grid")
     group_ids = (aspect_ratio_group_ids(train_ds)
                  if cfg.DATASET.ASPECT_RATIO_GROUPING else None)
+    # WORKERS > 0: worker processes and the pinned prefetch, as the JAX
+    # package's grain loader; grouped batches keep the in-process loader
+    # (tools/train.py:285-299)
+    workers = cfg.WORKERS > 0 and group_ids is None
+    if cfg.WORKERS > 0 and not workers:
+        logger.warning("ASPECT_RATIO_GROUPING needs the in-process loader; "
+                       "ignoring WORKERS > 0 for grouping")
     record = {"steps": [], "validations": [], "best_perf": 0.0,
               "name_values": None}
     best_perf = 0.0
 
     for epoch in range(cfg.TRAIN.BEGIN_EPOCH, cfg.TRAIN.END_EPOCH):
-        train_ds.seed(epoch)
-        batches = epoch_loader(train_ds, batch_size,
-                               shuffle=cfg.TRAIN.SHUFFLE, seed=epoch,
-                               group_ids=group_ids)
+        if workers:
+            batches = device_prefetch(
+                worker_loader(train_ds, batch_size, seed=epoch,
+                              shuffle=cfg.TRAIN.SHUFFLE,
+                              num_workers=cfg.WORKERS),
+                device, keys=("image", "target", "target_weight"))
+        else:
+            train_ds.seed(epoch)
+            batches = epoch_loader(train_ds, batch_size,
+                                   shuffle=cfg.TRAIN.SHUFFLE, seed=epoch,
+                                   group_ids=group_ids)
         loss_sum, loss_cnt = None, 0
         acc_meter = AverageMeter()
         t_iter = time.perf_counter()
@@ -156,7 +173,7 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda"):
             if i % cfg.PRINT_FREQ == 0:
                 loss = float(step_loss)
                 hm = metrics["output"]
-                tgt = batch["target"]
+                tgt = torch.as_tensor(batch["target"]).cpu().numpy()
                 if cfg.MODEL.TARGET_TYPE == "offset":
                     hm, tgt = hm[:, ::3], tgt[:, ::3]
                 _, avg_acc, cnt, _ = pck_accuracy(hm.cpu().numpy(), tgt)

@@ -3,13 +3,16 @@ ultralytics YOLOv5 state dicts.
 
 The port's own copy of the reverse half of
 ``udp_pose_tpu/utils/torch_convert.py`` (``Converter(reverse=True)``, the
-HRNet mapping ``_map_pose_hrnet`` and the YOLOv5 mapping ``_map_yolov5``):
-it walks the JAX package's flax
-variables — nested dicts of numpy arrays under ``params`` and
-``batch_stats`` — and emits the reference torch state_dict, whose keys
-are the port's module names.  Layout rules: flax conv kernel
-(kh, kw, I, O) → torch (O, I, kh, kw); BatchNorm scale/bias → weight/bias,
-batch_stats mean/var → running_mean/running_var.
+HRNet and SimpleBaseline mappings ``_map_pose_hrnet`` and
+``_map_pose_resnet`` with their PSA inserts, and the YOLOv5 mapping
+``_map_yolov5``): it walks the JAX package's flax variables — nested
+dicts of numpy arrays under ``params`` and ``batch_stats`` — and emits
+the reference torch state_dict, whose keys are the port's module names.
+Layout rules: flax conv kernel (kh, kw, I, O) → torch Conv2d
+(O, I, kh, kw), or for a transposed conv the spatially flipped
+ConvTranspose2d (I, O, kh, kw); BatchNorm scale/bias → weight/bias,
+batch_stats mean/var → running_mean/running_var; LayerNorm scale/bias →
+weight/bias, (C, 1, 1) for the PSA LayerNorm([C, 1, 1]).
 """
 
 from __future__ import annotations
@@ -42,6 +45,12 @@ def conv_kernel_inv(k):
     return np.ascontiguousarray(np.transpose(k, (3, 2, 0, 1)))
 
 
+def convT_kernel_inv(k):
+    """flax (kh, kw, I, O) → torch ConvTranspose2d (I, O, kh, kw)."""
+    return np.ascontiguousarray(
+        np.transpose(k, (2, 3, 0, 1))[:, :, ::-1, ::-1])
+
+
 def _get(tree, path):
     node = tree
     for p in path:
@@ -71,9 +80,10 @@ class Converter:
         """Does the flax tree hold the module at ``fpath``?"""
         return _has(self.params, fpath)
 
-    def conv(self, tkey: str, *path):
-        self.sd[tkey + ".weight"] = conv_kernel_inv(
-            _get(self.params, (*path, "kernel")))
+    def conv(self, tkey: str, *path, transposed=False):
+        k = _get(self.params, (*path, "kernel"))
+        self.sd[tkey + ".weight"] = (convT_kernel_inv(k) if transposed
+                                     else conv_kernel_inv(k))
         if _has(self.params, (*path, "bias")):
             self.sd[tkey + ".bias"] = _get(self.params, (*path, "bias"))
 
@@ -84,12 +94,35 @@ class Converter:
         self.sd[f"{tkey}.running_var"] = _get(self.stats, (*path, "var"))
         self.sd[f"{tkey}.num_batches_tracked"] = np.array(0, np.int64)
 
+    def ln(self, tkey: str, *path, tshape=None):
+        """``tshape="c11"``: the torch LayerNorm([C, 1, 1]) of PSA
+        (PSA.py:164), whose weight and bias are (C, 1, 1)."""
+        w = _get(self.params, (*path, "scale"))
+        b = _get(self.params, (*path, "bias"))
+        if tshape == "c11":
+            w, b = w.reshape(-1, 1, 1), b.reshape(-1, 1, 1)
+        self.sd[tkey + ".weight"] = w
+        self.sd[tkey + ".bias"] = b
 
-def _convert_basic_block(cv, tprefix, fpath):
+
+def _convert_psa(cv, tprefix, *path):
+    """PSA_s weights (PSA.py:146-269)."""
+    for name in ("conv_q_right", "conv_v_right", "conv_q_left",
+                 "conv_v_left"):
+        cv.conv(f"{tprefix}.{name}", *path, name)
+    cv.conv(f"{tprefix}.conv_up.0", *path, "conv_up_fc1")
+    cv.ln(f"{tprefix}.conv_up.1", *path, "conv_up_ln", tshape="c11")
+    cv.conv(f"{tprefix}.conv_up.3", *path, "conv_up_fc2")
+
+
+def _convert_basic_block(cv, tprefix, fpath, psa=False):
     cv.conv(f"{tprefix}.conv1", *fpath, "cb1", "conv")
     cv.bn(f"{tprefix}.bn1", *fpath, "cb1", "bn")
     cv.conv(f"{tprefix}.conv2", *fpath, "cb2", "conv")
     cv.bn(f"{tprefix}.bn2", *fpath, "cb2", "bn")
+    if psa and cv.probe(f"{tprefix}.deattn.conv_q_right.weight",
+                        *fpath, "deattn"):
+        _convert_psa(cv, f"{tprefix}.deattn", *fpath, "deattn")
     if cv.probe(f"{tprefix}.downsample.0.weight", *fpath, "down"):
         cv.conv(f"{tprefix}.downsample.0", *fpath, "down", "conv")
         cv.bn(f"{tprefix}.downsample.1", *fpath, "down", "bn")
@@ -104,7 +137,33 @@ def _convert_bottleneck(cv, tprefix, fpath):
         cv.bn(f"{tprefix}.downsample.1", *fpath, "down", "bn")
 
 
-def _map_pose_hrnet(cv: Converter, stages_cfg):
+def _map_pose_resnet(cv: Converter, num_layers: int, psa: bool = False):
+    """The reference pose_resnet key layout (deep_hrnet/lib/models/
+    pose_resnet.py) against the JAX package's module names."""
+    from ..models.resnet import RESNET_SPEC
+    _, layers = RESNET_SPEC[num_layers]
+    bottleneck = num_layers >= 50
+    cv.conv("conv1", "backbone", "conv1")
+    cv.bn("bn1", "backbone", "bn1")
+    for li, blocks in enumerate(layers):
+        for bi in range(blocks):
+            tp = f"layer{li + 1}.{bi}"
+            fp = ("backbone", f"layer{li + 1}_{bi}")
+            if bottleneck:
+                _convert_bottleneck(cv, tp, fp)
+            else:
+                _convert_basic_block(cv, tp, fp, psa=psa)
+    i = di = 0
+    while cv.probe(f"deconv_layers.{i}.weight", "deconv", f"deconv{di}"):
+        cv.conv(f"deconv_layers.{i}", "deconv", f"deconv{di}",
+                transposed=True)
+        cv.bn(f"deconv_layers.{i + 1}", "deconv", f"bn{di}")
+        i += 3
+        di += 1
+    cv.conv("final_layer", "final_layer")
+
+
+def _map_pose_hrnet(cv: Converter, stages_cfg, psa: bool = False):
     """The reference pose_hrnet key layout (deep_hrnet/lib/models/
     pose_hrnet.py) against the JAX package's module names."""
     cv.conv("conv1", "stem1", "conv")
@@ -130,15 +189,17 @@ def _map_pose_hrnet(cv: Converter, stages_cfg):
                     cv.bn(f"transition{t}.{i}.{j}.1",
                           f"transition{t}_{i}_{j}", "bn")
                     j += 1
-        convert_block = (_convert_basic_block if block == "BASIC"
-                         else _convert_bottleneck)
         for mi in range(num_modules):
             tmod = f"stage{si + 2}.{mi}"
             fmod = f"stage{si + 2}_{mi}"
             for br in range(nb):
                 for bi in range(num_blocks[br]):
-                    convert_block(cv, f"{tmod}.branches.{br}.{bi}",
-                                  (fmod, f"branch{br}_{bi}"))
+                    tp = f"{tmod}.branches.{br}.{bi}"
+                    fp = (fmod, f"branch{br}_{bi}")
+                    if block == "BASIC":
+                        _convert_basic_block(cv, tp, fp, psa=psa)
+                    else:
+                        _convert_bottleneck(cv, tp, fp)
             for i in range(nb):
                 for j in range(nb):
                     base = f"{tmod}.fuse_layers.{i}.{j}"
@@ -173,29 +234,38 @@ class _SiteRecorder(Converter):
     def probe(self, tkey: str, *fpath) -> bool:
         return tkey in self.keys
 
-    def conv(self, tkey: str, *path):
-        self.sites[tkey] = "/".join(path)
+    def conv(self, tkey: str, *path, transposed=False):
+        # a transposed conv is no int8 site in either package
+        if not transposed:
+            self.sites[tkey] = "/".join(path)
 
     def bn(self, tkey: str, *path):
         pass
 
+    def ln(self, tkey: str, *path, tshape=None):
+        pass
+
 
 def conv_sites(model) -> Dict[str, str]:
-    """{port conv module name: flax path} of a ported model (HRNet or
-    YOLOv5), e.g. ``stage2.0.branches.0.0.conv1`` →
-    ``stage2_0/branch0_0/cb1/conv`` and ``model.24.m.0`` → ``detect0``:
-    the names under which a calibration table keys its conv sites, in
-    either package."""
+    """{port conv module name: flax path} of a ported model (HRNet,
+    SimpleBaseline, either with PSA, or YOLOv5), e.g.
+    ``stage2.0.branches.0.0.conv1`` → ``stage2_0/branch0_0/cb1/conv``,
+    ``layer1.0.conv1`` → ``backbone/layer1_0/cb1/conv`` and
+    ``model.24.m.0`` → ``detect0``: the names under which a calibration
+    table keys its conv sites, in either package."""
     from ..models.hrnet import PoseHRNet
+    from ..models.resnet import PoseResNet
     from ..models.yolov5 import YOLOv5
     rec = _SiteRecorder(model)
     if isinstance(model, PoseHRNet):
-        _map_pose_hrnet(rec, model.stages_cfg)
+        _map_pose_hrnet(rec, model.stages_cfg, model.psa)
+    elif isinstance(model, PoseResNet):
+        _map_pose_resnet(rec, model.num_layers, model.psa)
     elif isinstance(model, YOLOv5):
         _map_yolov5(rec)
     else:
         raise KeyError(f"no conv-site map for {type(model).__name__}; "
-                       "mapped: PoseHRNet, YOLOv5")
+                       "mapped: PoseHRNet, PoseResNet, YOLOv5")
     return rec.sites
 
 
@@ -203,11 +273,17 @@ def variables_to_state_dict(variables, cfg) -> Dict[str, np.ndarray]:
     """JAX-package variables of ``cfg``'s model → the port's state_dict
     (numpy values; ``model.load_state_dict(strict=True)`` accepts it)."""
     from ..models.hrnet import stages_from_cfg
-    if cfg.MODEL.NAME != "pose_hrnet":
-        raise KeyError(f"no weight mapping for model {cfg.MODEL.NAME!r}; "
-                       "ported: ['pose_hrnet']")
+    name = cfg.MODEL.NAME
     cv = Converter(variables)
-    _map_pose_hrnet(cv, stages_from_cfg(cfg))
+    if name in ("pose_hrnet", "pose_hrnet_psa"):
+        _map_pose_hrnet(cv, stages_from_cfg(cfg), psa=name.endswith("_psa"))
+    elif name in ("pose_resnet", "pose_resnet_psa"):
+        _map_pose_resnet(cv, cfg.MODEL.EXTRA.NUM_LAYERS,
+                         psa=name.endswith("_psa"))
+    else:
+        raise KeyError(f"no weight mapping for model {name!r}; ported: "
+                       "['pose_hrnet', 'pose_hrnet_psa', 'pose_resnet', "
+                       "'pose_resnet_psa']")
     return cv.sd
 
 
