@@ -47,14 +47,25 @@ layout the path ran against the three-step card path and timed over one
 forward's shapes); MPII HRNet-w32 256x256 (10d: one epoch of
 ``train.run`` on a seeded synthetic MPII in memory with WORKERS 4,
 PCKh, a ``/v1/pose`` request with 16 joints, and the fused decode at
-(128, 48, 64, 64) against its plain version and its bound).  The
-kernels' launches count phases 6, 7 and 8, each path
-in one window, and the two int8 paths (9b-9c, 9d) in windows around
-each of their own calls: the bf16 engines timed in turns with them and
-the card-vs-CPU checks run outside; phase 10's paths likewise.  Any
-failed check exits nonzero before the last line, which is
-``{"ok": true, "device": {...}}``.  Without a CUDA card it exits 1.
-Imports nothing of JAX or of the JAX package.
+(128, 48, 64, 64) against its plain version and its bound).  Phase 11,
+RSN at full width (right after phase 10): ``rsn18_256x192`` served in
+bf16 at B=128 with the flip folded, fp32 card vs CPU heatmaps and
+keypoints (11a); ``4xrsn50_384x288`` through ``test.run`` on a
+synthetic mini-COCO val (11b); ``4xrsn18_256x192`` trained in iteration
+mode through ``train.run`` with WORKERS 4 (MAX_ITER, CHECKPOINT_PERIOD
+and WARMUP_ITERS cut; first its float64 forward and loss card vs CPU
+and one float64 step of its first two stages card vs CPU), its
+checkpoints and LR checked (11c); int8 ``rsn18`` through ``test.run``
+with ``TPU.QUANTIZE int8``, the fused int8 conv at every input layout
+that path ran (channel slices of the residual steps included) against
+the three-step card path, timed over one fold forward's shapes (11d).
+No RSN path launches the fused decode.  The kernels' launches count
+phases 6, 7 and 8, each path in one window, and the two int8 paths
+(9b-9c, 9d) in windows around each of their own calls: the bf16 engines
+timed in turns with them and the card-vs-CPU checks run outside; phases
+10 and 11's paths likewise.  Any failed check exits nonzero before the
+last line, which is ``{"ok": true, "device": {...}}``.  Without a CUDA
+card it exits 1.  Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -897,15 +908,16 @@ def synthetic_coco(root, image_set, n_images, rng):
     return frames
 
 
-def in_memory_coco(cfg, frames, is_train):
-    """The package's ``COCODataset`` with two seams replaced: images come
-    from ``frames`` instead of files, and crops from the port's native
-    float warp rounded to u8 instead of OpenCV.  Everything else (json,
-    db, augmentation, targets) is the package's."""
+def in_memory_coco(cfg, frames, is_train, dataset_cls=None):
+    """The package's ``COCODataset`` (or ``dataset_cls``, RSN's) with two
+    seams replaced: images come from ``frames`` instead of files, and
+    crops from the port's native float warp rounded to u8 instead of
+    OpenCV.  Everything else (json, db, augmentation, targets) is the
+    package's."""
     from udp_pose_tpu_torch.data.coco import COCODataset
     from udp_pose_tpu_torch.native import warp_affine_batch
 
-    class InMemoryCOCO(COCODataset):
+    class InMemoryCOCO(dataset_cls or COCODataset):
         def _read_image(self, path):
             return frames[int(os.path.basename(path)[-16:-4])]
 
@@ -2125,7 +2137,7 @@ def int8_shape_run(conv, shape, dtype, device, seed):
                                   **fast),
          "dequant_epilogue": graph_ms(lambda: ic.dequant_epilogue(
              acc, layer.scale, layer.bias, dtype, M, O), [()], **fast),
-         "int_mm": graph_ms(lambda: torch._int_mm(a, layer.w_gemm.t()),
+         "int_mm": graph_ms(lambda: ic.int8_gemm(a, layer.w_gemm),
                             [()], **fast),
          "cudnn_bf16": graph_ms(lambda: F.conv2d(
              x_bf, w_bf, None, conv.stride, conv.padding), [()], **fast),
@@ -3102,6 +3114,564 @@ def phase_zoo(tmp, device="cuda"):
     return paths, decode, int8_kernel, rates, profiles
 
 
+# --------------------------------------------------------------- phase 11
+RSN18_YAML = os.path.join(REPO, "configs/coco/rsn18_256x192.yaml")
+RSN4X18_YAML = os.path.join(REPO, "configs/coco/4xrsn18_256x192.yaml")
+RSN4X50_YAML = os.path.join(REPO, "configs/coco/4xrsn50_384x288.yaml")
+INT8_SITES_RSN18 = 111           # rsn18's 115 convs less the 4 res_conv2
+RSN_KP_ATOL = 1e-3               # px: fp32 card vs CPU keypoints (11a)
+RSN_TRAIN_IMAGES, RSN_VAL_IMAGES = 400, 16   # synthetic frames, 2 people
+RSN_EVAL_IMAGES = 160            # 11b: 320 crops, 10 batches of 32
+RSN_BIAS_TOL = 1e-6              # x the conv weight's max |g| (11c)
+RSN_GRAD_TOL64 = 1e-7            # x each gradient's max |g|: 2-stage step
+RSN_LOSS_RTOL64 = 1e-6           # 4xrsn18 float64 loss, card vs CPU (11c)
+RSN_STAGE0_RTOL64 = 1e-9         # its first stage's outputs, float64
+
+
+def in_memory_rsn(cfg, frames, is_train):
+    from udp_pose_tpu_torch.data.rsn import RSNCOCODataset
+    return in_memory_coco(cfg, frames, is_train, RSNCOCODataset)
+
+
+def rsn_data_cfg(path, dtype, root, out_dir):
+    """``path``'s config on the synthetic mini-COCO at ``root`` (its gt
+    boxes at test time), writing under ``out_dir``."""
+    cfg = yaml_cfg(path, dtype)
+    cfg.DATASET.ROOT = root
+    cfg.TEST.USE_GT_BBOX = True
+    cfg.OUTPUT_DIR = out_dir
+    os.makedirs(out_dir, exist_ok=True)
+    return cfg
+
+
+def rsn_serving_fn(cfg, device, seed=0):
+    from udp_pose_tpu_torch.core.infer import COCO_FLIP_PAIRS
+    from udp_pose_tpu_torch.core.rsn import make_rsn_infer_fn_from_cfg
+    from udp_pose_tpu_torch.models import build_model
+    return make_rsn_infer_fn_from_cfg(
+        build_model(cfg, device=device, seed=seed), cfg, COCO_FLIP_PAIRS)
+
+
+def rsn_card_vs_cpu(cfg, n, seed, device="cuda"):
+    """fp32, TF32 off: the serving graph of ``cfg`` on ``n`` crops on the
+    card and on the CPU; (max |hm| difference, max |hm|, max keypoint
+    difference in px)."""
+    set_tf32(False)
+    cfg32 = cfg.clone()
+    cfg32.TPU.DTYPE = "float32"
+    crops, center, scale = random_crops(n, cfg32, seed=seed)
+    out = {dev: [t.float().cpu() for t in rsn_serving_fn(cfg32, dev)(
+        crops, center, scale)] for dev in (device, "cpu")}
+    set_tf32(True)
+    (p_d, _, hm_d), (p_c, _, hm_c) = out[device], out["cpu"]
+    return (float((hm_d - hm_c).abs().max()), float(hm_c.abs().max()),
+            float((p_d - p_c).abs().max()))
+
+
+def rsn_serving(card, device="cuda", yaml=RSN18_YAML, batch=SERVE_BATCH,
+                iters=10, n_check=8):
+    """11a: ``rsn18_256x192`` uncut, bf16, B = ``batch``, the yaml's flip
+    test folded into one forward (``make_rsn_infer_fn``, the protocol of
+    ``bench.py``'s ``crops_per_sec_rsn18_256x192``): fp32 card vs CPU on
+    ``n_check`` crops (heatmaps and keypoints), then crops/s, each batch
+    in a window of the path's launches, which must hold no fused decode.
+    Returns (crops/s, launches, a function that profiles the batches)."""
+    cfg = yaml_cfg(yaml, "bfloat16")
+    err, ref_max, kp_err = rsn_card_vs_cpu(cfg, n_check, 30, device)
+    log(f"[rsn] 11a rsn18 fp32 B={n_check} flip, TF32 off, card vs CPU: "
+        f"heatmaps max abs err {err:.3g} of max |hm| {ref_max:.3g} (limit "
+        f"{HEATMAP_REL_TOL:g} x max); keypoints max abs err {kp_err:.3g} px "
+        f"(limit {RSN_KP_ATOL:g})")
+    check(err <= HEATMAP_REL_TOL * ref_max, "11a: card heatmaps != CPU")
+    check(kp_err <= RSN_KP_ATOL, "11a: card keypoints != CPU keypoints")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    infer = rsn_serving_fn(cfg, device)
+    crops, center, scale = random_crops(batch, cfg, seed=31)
+    path = PathLaunches("rsn18_serving")
+    ms = [path.run(host_ms, lambda: infer(crops, center, scale), iters)
+          for _ in range(3)]
+    check(path.counts == path.want, f"rsn18_serving: launches "
+          f"{path.counts}: RSN decodes without the fused kernel")
+    preds = infer(crops, center, scale)[0]
+    check(bool(torch.isfinite(preds).all()), "rsn18: non-finite preds")
+    rate = batch / np.median(ms) * 1e3
+    log(f"[rsn] 11a rsn18 256x192 bf16 B={batch} flip fold (blur k=5, "
+        f"shift 0.25): {rate:.1f} crops/s (median of 3 runs of {iters} "
+        f"batches: {', '.join(f'{m:.2f}' for m in ms)} ms/batch); launches "
+        f"{path.counts} (no fused decode on the RSN path) | {card}")
+
+    def profile():
+        wall, busy, top, kernels = profile_device(
+            lambda: infer(crops, center, scale))
+        if busy > 0:
+            log(f"[rsn] 11a rsn18 profile: 3 batches {wall:.2f} ms wall, "
+                f"card busy {busy:.2f} ms (idle share {1 - busy / wall:.3f})"
+                f", {kernels:.0f} device kernels and copies a batch; top "
+                f"kernels (ms): " + "; ".join(f"{k[:60]} {t:.2f}"
+                                              for k, t in top)
+                + f" | {card}")
+        else:
+            log("[rsn] 11a rsn18 profile: the profiler saw no device time; "
+                "idle share not measured")
+
+    return rate, path.counts, profile
+
+
+def logged_rates(fn, *args):
+    """``fn(*args)`` and, for each validation it ran, the numbers
+    :func:`udp_pose_tpu_torch.core.validate.validate` logs: {"crops",
+    "crops_s" (the whole loop), "warm_crops_s" (after its first batch),
+    "build_share" (of that time, the share spent building samples on the
+    host)}."""
+    import logging
+    import re
+    rates = []
+    pattern = re.compile(
+        r"validate: (\d+) crops, ([\d.]+) crops/s; after the first batch "
+        r"([\d.na]+) crops/s, ([\d.na]+) of it building samples")
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            m = pattern.match(record.getMessage())
+            if m:
+                rates.append(dict(zip(
+                    ("crops", "crops_s", "warm_crops_s", "build_share"),
+                    (float(v) for v in m.groups()))))
+
+    lg = logging.getLogger("udp_pose_tpu_torch.core.validate")
+    grab, level = Grab(), lg.level
+    lg.addHandler(grab)
+    lg.setLevel(logging.INFO)
+    try:
+        return fn(*args), rates
+    finally:
+        lg.removeHandler(grab)
+        lg.setLevel(level)
+
+
+def rsn_best_model(tmp, card, device="cuda", yaml=RSN4X50_YAML,
+                   n_images=RSN_EVAL_IMAGES, n_check=2):
+    """11b: ``4xrsn50_384x288`` at full width (4 stages) through
+    ``test.run`` on a seeded synthetic mini-COCO val in memory (``2 x
+    n_images`` crops, 10 batches), with the yaml's flip and B=32, in bf16
+    (seeded random weights): crops/s of the validation after its first
+    batch and the share of that time spent building samples on the host,
+    no fused decode; then the fp32 card-vs-CPU heatmap difference on
+    ``n_check`` crops.  Returns (the launches, the warm crops/s)."""
+    from udp_pose_tpu_torch import test as test_cli
+    from udp_pose_tpu_torch.models import MODELS
+    root = os.path.join(tmp, "coco_rsn_best")
+    frames = synthetic_coco(root, "val2017", n_images,
+                            np.random.default_rng(32))
+    cfg = rsn_data_cfg(yaml, "bfloat16", root, os.path.join(tmp, "best"))
+    check(cfg.MODEL.EXTRA.STAGE_NUM == 4 and cfg.TEST.FLIP_TEST
+          and cfg.TEST.BATCH_SIZE_PER_GPU == 32, "4xrsn50 yaml")
+    with torch.device("meta"):
+        n_params = sum(p.numel() for p in MODELS["rsn"](cfg).parameters())
+    val_ds = in_memory_rsn(cfg, frames, False)
+    path = PathLaunches("rsn_4x50_eval")
+    t0 = time.perf_counter()
+    (nv, perf), rates = logged_rates(path.run, test_cli.run, cfg, None,
+                                     val_ds, cfg.OUTPUT_DIR, device)
+    secs = time.perf_counter() - t0
+    check(path.counts == path.want, f"rsn_4x50_eval: launches "
+          f"{path.counts}")
+    batches = -(-len(val_ds) // cfg.TEST.BATCH_SIZE_PER_GPU)
+    check(len(rates) == 1 and batches >= 10 and np.isfinite(nv["AP"])
+          and np.isfinite(rates[0]["warm_crops_s"]), f"4xrsn50 test.run "
+          f"on {len(val_ds)} crops: {nv}, rates {rates}")
+    v = rates[0]
+    err, ref_max, kp_err = rsn_card_vs_cpu(cfg, n_check, 33, device)
+    check(err <= HEATMAP_REL_TOL * ref_max, "11b: card heatmaps != CPU")
+    log(f"[rsn] 11b 4xrsn50 384x288 (4 stages, {n_params / 1e6:.1f} M "
+        f"parameters) bf16 test.run on {len(val_ds)} synthetic crops in "
+        f"{batches} batches, flip fold, B=32: validation "
+        f"{v['warm_crops_s']:.1f} crops/s after the first batch, of which "
+        f"{v['build_share']:.3f} of the time building samples on the host "
+        f"(the whole loop, first batch included, {v['crops_s']:.1f}), AP "
+        f"{perf:.4f} (random weights), test.run {secs:.1f} s with the "
+        f"model's build; launches {path.counts}; fp32 B={n_check} flip, "
+        f"TF32 off, card vs CPU: heatmaps max abs err {err:.3g} of max "
+        f"|hm| {ref_max:.3g} (limit {HEATMAP_REL_TOL:g} x max), keypoints "
+        f"{kp_err:.3g} px | {card}")
+    return path.counts, v["warm_crops_s"]
+
+
+def rsn_step_on(cfg, device, batch, seed=0):
+    """One float64 RSN train step of a model seeded ``seed`` on
+    ``device``: (loss, {name: gradient}, {name: running stat}) on the
+    CPU."""
+    from udp_pose_tpu_torch.core.infer import (RSN_BGR_MEAN, RSN_BGR_STD,
+                                               normalize_images)
+    from udp_pose_tpu_torch.core.rsn import (create_rsn_train_state,
+                                             make_rsn_train_step)
+    from udp_pose_tpu_torch.models import build_model
+    model = build_model(cfg, device=device, seed=seed,
+                        train=True).double()
+    state = create_rsn_train_state(cfg, model, cfg.TRAIN.LR, 10, 2)
+    images = normalize_images(torch.as_tensor(batch["image"]), RSN_BGR_MEAN,
+                              RSN_BGR_STD).double()
+    metrics = make_rsn_train_step(
+        cfg.MODEL.EXTRA.STAGE_NUM, ohkm=cfg.LOSS.USE_OHKM,
+        topk=cfg.LOSS.TOPK)(state, {
+            "image": images.to(device),
+            "labels": torch.as_tensor(batch["labels"]).to(device,
+                                                          torch.float64),
+            "valid": torch.as_tensor(batch["valid"]).to(device,
+                                                        torch.float64)})
+    grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    stats = {k: v.cpu() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    return float(metrics["loss"]), grads, stats
+
+
+def rsn_step_errors(got, want):
+    """A float64 step (:func:`rsn_step_on`) against another: (loss rel
+    error, worst BN running stat x its max, {name: gradient error x its
+    max |g|}, the conv biases' gradients x their weight's max |g| in
+    ``got`` and in ``want``).  A conv bias that feeds a train-mode
+    BatchNorm has no gradient (the BN takes the mean out): its values are
+    rounding noise on either side, so it is apart."""
+    (loss_d, g_d, bn_d), (loss_c, g_c, bn_c) = got, want
+    biases = [k for k in g_c if k.endswith("conv.bias")]
+
+    def bias_share(grads):
+        return max(float(grads[k].abs().max()
+                         / g_c[k[:-4] + "weight"].abs().max())
+                   for k in biases)
+
+    grads = rel_errors({k: g_d[k] for k in g_c if k not in biases},
+                       {k: v for k, v in g_c.items() if k not in biases})
+    return (abs(loss_d - loss_c) / abs(loss_c),
+            max(rel_errors(bn_d, bn_c).values()), grads,
+            bias_share(g_d), bias_share(g_c))
+
+
+def rsn_check_step(cfg, train_ds, card, device="cuda", stages=2):
+    """11c: one float64 train step of ``cfg``'s RSN cut to its first
+    ``stages`` stages, B=2, TF32 off, on the card and on the CPU from the
+    same seeded weights and batch, as phase 7's (a): the loss to
+    ``RSN_LOSS_RTOL64``, the BN running stats to ``STEP_BN_TOL`` and each
+    gradient tensor to ``RSN_GRAD_TOL64`` x its max |g|, so the gradient
+    that flows back from one stage into the one before, the intermediate
+    losses divided by 4 and the last stage's coarse-to-fine labels are
+    held on the card; conv biases before a BN to ``RSN_BIAS_TOL``."""
+    from udp_pose_tpu_torch.data.base import collate
+    cfg = cfg.clone()
+    cfg.MODEL.EXTRA.STAGE_NUM = stages
+    set_tf32(False)
+    train_ds.seed(0)
+    batch = collate([train_ds[0], train_ds[1]])
+    t0 = time.perf_counter()
+    rel, worst_bn, errs, b_d, b_c = rsn_step_errors(
+        rsn_step_on(cfg, device, batch), rsn_step_on(cfg, "cpu", batch))
+    worst = max(errs, key=errs.get)
+    log(f"[rsn] 11c {stages}-stage float64 step B=2, TF32 off, card vs "
+        f"CPU: loss rel {rel:.3g} (limit {RSN_LOSS_RTOL64:g}); worst BN "
+        f"running stat {worst_bn:.3g} x its max (limit {STEP_BN_TOL:g}); "
+        f"worst gradient {errs[worst]:.3g} x its tensor's max |g| ({worst}"
+        f"; limit {RSN_GRAD_TOL64:g}), median tensor "
+        f"{float(np.median(list(errs.values()))):.3g}; conv biases before "
+        f"a BN {b_d:.3g} / {b_c:.3g} x their weight's max |g| (limit "
+        f"{RSN_BIAS_TOL:g}); two steps in {time.perf_counter() - t0:.1f} s "
+        f"| {card}")
+    check(rel <= RSN_LOSS_RTOL64, f"11c float64 step loss card vs CPU rel "
+          f"{rel:.3g}")
+    check(worst_bn <= STEP_BN_TOL, f"11c float64 step BN running stats: "
+          f"card vs CPU {worst_bn:.3g} x max")
+    bad = {k: e for k, e in errs.items() if e > RSN_GRAD_TOL64}
+    check(not bad, f"11c float64 gradients card vs CPU: {bad}")
+    check(max(b_d, b_c) <= RSN_BIAS_TOL, f"11c float64 conv-bias gradients "
+          f"{b_d:.3g} (card), {b_c:.3g} (CPU) x max |g|")
+    torch.cuda.empty_cache()
+    set_tf32(True)
+
+
+def rsn_stage_growth(cfg, train_ds, card, device="cuda"):
+    """11c: the multi-stage forward of ``cfg`` in train mode, float64, on
+    the card and on the CPU from the same seeded weights and batch: the
+    loss to ``RSN_LOSS_RTOL64`` and the first stage's outputs to
+    ``RSN_STAGE0_RTOL64``; the difference of each later stage's outputs,
+    which each stage multiplies (a seeded random multi-stage RSN at B=2
+    amplifies rounding; so its gradients are held on two stages,
+    :func:`rsn_check_step`), is printed."""
+    from udp_pose_tpu_torch.core.infer import (RSN_BGR_MEAN, RSN_BGR_STD,
+                                               normalize_images)
+    from udp_pose_tpu_torch.core.loss import rsn_multi_stage_loss
+    from udp_pose_tpu_torch.data.base import collate
+    from udp_pose_tpu_torch.models import build_model
+    train_ds.seed(0)
+    batch = collate([train_ds[0], train_ds[1]])
+    images = normalize_images(torch.as_tensor(batch["image"]), RSN_BGR_MEAN,
+                              RSN_BGR_STD).double()
+    S = cfg.MODEL.EXTRA.STAGE_NUM
+    runs = {}
+    with torch.no_grad():
+        for dev in (device, "cpu"):
+            model = build_model(cfg, device=dev, train=True).double()
+            out = model(images.to(dev).permute(0, 3, 1, 2))
+            loss = rsn_multi_stage_loss(
+                out, torch.as_tensor(batch["valid"]).to(dev, torch.float64),
+                torch.as_tensor(batch["labels"]).to(dev, torch.float64), S,
+                ohkm=cfg.LOSS.USE_OHKM, topk=cfg.LOSS.TOPK)
+            runs[dev] = (float(loss), [[o.cpu() for o in st] for st in out])
+            del model, out
+    (loss_d, out_d), (loss_c, out_c) = runs[device], runs["cpu"]
+    rel = abs(loss_d - loss_c) / abs(loss_c)
+    by_stage = [max(float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(sd, sc)) for sd, sc in zip(out_d, out_c)]
+    log(f"[rsn] 11c {S}-stage forward in train mode, float64, B=2, card vs "
+        f"CPU: loss {loss_d:.12g} vs {loss_c:.12g} (rel {rel:.3g}, limit "
+        f"{RSN_LOSS_RTOL64:g}); worst output of each stage, x its max: "
+        + ", ".join(f"{e:.3g}" for e in by_stage)
+        + f" (stage 0 limit {RSN_STAGE0_RTOL64:g}) | {card}")
+    check(rel <= RSN_LOSS_RTOL64, f"11c float64 loss card {loss_d} vs CPU "
+          f"{loss_c}")
+    check(by_stage[0] <= RSN_STAGE0_RTOL64, f"11c float64 stage-0 outputs "
+          f"card vs CPU {by_stage[0]:.3g} x max")
+    torch.cuda.empty_cache()
+
+
+def rsn_iteration_training(tmp, card, device="cuda", yaml=RSN4X18_YAML,
+                           n_train=RSN_TRAIN_IMAGES, n_val=RSN_VAL_IMAGES,
+                           max_iter=4, period=2, warmup=16):
+    """11c: ``4xrsn18_256x192`` at full width (bf16, B=32, WORKERS 4)
+    through ``train.run`` in iteration mode on a seeded synthetic
+    mini-COCO in memory, with only ``MAX_ITER``, ``CHECKPOINT_PERIOD``
+    and ``WARMUP_ITERS`` cut: the count scaled x8, the checkpoints at each
+    period and ``iter-last.pth`` loading, the LR of the schedule, one
+    validation, ``final_state.pth`` loading ``strict=True``; samples/s,
+    the wait for the batch and peak memory.  First the float64 forward
+    card vs CPU (:func:`rsn_stage_growth`) and one float64 step of its
+    first two stages card vs CPU (:func:`rsn_check_step`).  Returns the
+    launches."""
+    from udp_pose_tpu_torch import train as train_cli
+    from udp_pose_tpu_torch.core.rsn import warmup_linear_decay
+    from udp_pose_tpu_torch.models import build_model
+    rng = np.random.default_rng(34)
+    root = os.path.join(tmp, "coco_rsn_train")
+    frames = {"train2017": synthetic_coco(root, "train2017", n_train, rng),
+              "val2017": synthetic_coco(root, "val2017", n_val, rng)}
+    cfg = rsn_data_cfg(yaml, "bfloat16", root, os.path.join(tmp, "rsn_run"))
+    B = cfg.TRAIN.BATCH_SIZE_PER_GPU
+    check(cfg.TRAIN.MAX_ITER == 96000 and cfg.WORKERS == 4 and B == 32
+          and cfg.MODEL.EXTRA.STAGE_NUM == 4, "4xrsn18 yaml")
+    cfg.TRAIN.MAX_ITER = max_iter
+    cfg.TRAIN.CHECKPOINT_PERIOD = period
+    cfg.TRAIN.WARMUP_ITERS = warmup
+    train_ds = in_memory_rsn(cfg, frames["train2017"], True)
+    val_ds = in_memory_rsn(cfg, frames["val2017"], False)
+    cfg32 = cfg.clone()
+    cfg32.TPU.DTYPE = "float32"
+    set_tf32(False)
+    rsn_stage_growth(cfg32, train_ds, card, device)
+    rsn_check_step(cfg32, train_ds, card, device)
+
+    # the trainer's cuDNN switches (train.main's), for this run only: the
+    # phases after this one compare results of repeated calls
+    flags = (torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.enabled)
+    train_cli.set_cudnn(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    path = PathLaunches("rsn_training")
+    t0 = time.perf_counter()
+    try:
+        record = path.run(train_cli.run, cfg, build_model(
+            cfg, device=device, train=True), train_ds, val_ds,
+            cfg.OUTPUT_DIR, device)
+    finally:
+        (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.enabled) = flags
+    secs = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(path.counts == path.want, f"rsn_training: launches {path.counts}")
+    sched = train_cli.rsn_schedule(cfg, len(train_ds) // B)
+    steps = record["steps"]
+    losses = [s["loss"] for s in steps]
+    check(sched.max_iters == 8 * max_iter and len(steps) == sched.max_iters
+          and all(np.isfinite(losses)), f"{len(steps)} iterations for "
+          f"MAX_ITER {max_iter}; losses {losses}")
+    want = [f"iter-{k * period * 8 - 1}.pth"
+            for k in range(1, max_iter // period + 1)]
+    got = sorted({os.path.basename(p) for p in record["checkpoints"]},
+                 key=lambda n: int(n[5:-4]))
+    check(got == want and os.readlink(os.path.join(
+        cfg.OUTPUT_DIR, "iter-last.pth")) == want[-1],
+          f"iteration checkpoints {got}, want {want} and iter-last.pth")
+    net = build_model(cfg, device=device, train=True)
+    for name in want + ["iter-last.pth"]:
+        ckpt = torch.load(os.path.join(cfg.OUTPUT_DIR, name),
+                          map_location=device)
+        net.load_state_dict(ckpt["state_dict"], strict=True)
+        check(ckpt["step"] == ckpt["iteration"] + 1, f"{name}: step "
+              f"{ckpt['step']}, iteration {ckpt['iteration']}")
+    final = torch.load(os.path.join(cfg.OUTPUT_DIR, "final_state.pth"),
+                       map_location=device)
+    build_model(cfg, device=device).load_state_dict(final, strict=True)
+    lr = warmup_linear_decay(sched.base_lr, sched.warmup_iters,
+                             sched.max_iters)
+    picks = (0, sched.warmup_iters, sched.max_iters - 1)
+    check(all(abs(steps[i]["lr"] - lr(i)) <= 1e-12 * lr(i) for i in picks),
+          f"LR at iterations {picks}: {[steps[i]['lr'] for i in picks]}, "
+          f"the schedule's {[lr(i) for i in picks]}")
+    check(len(record["validations"]) == 1
+          and np.isfinite(record["name_values"]["AP"]),
+          f"validations {record['validations']}")
+    epochs = sorted({s["epoch"] for s in steps})
+    warm = [s for s in steps if s["step"] >= WARM_STEPS] or steps
+    iter_ms = np.median([s["iter_s"] for s in warm]) * 1e3
+    load_ms = np.median([s["load_s"] for s in warm]) * 1e3
+    v = record["validations"][0]
+    picked = ", ".join(f"{steps[i]['lr']:.6g}" for i in picks)
+    log(f"[rsn] 11c 4xrsn18 256x192 bf16 B={B} iteration mode, "
+        f"train.run with WORKERS {cfg.WORKERS}: MAX_ITER {max_iter} -> "
+        f"{sched.max_iters} iterations (x8 on one card) over epochs "
+        f"{epochs[0]}-{epochs[-1]} of {len(train_ds)} samples, lr "
+        f"{sched.base_lr:g}, warmup {sched.warmup_iters}; LR at iterations "
+        f"{picks}: {picked} = warmup_linear_decay's; checkpoints "
+        f"{', '.join(want)} and "
+        f"iter-last.pth -> {want[-1]} loaded strict=True; final_state.pth "
+        f"loaded strict=True; losses {losses[0]:.5g} ... {losses[-1]:.5g}; "
+        f"{B / iter_ms * 1e3:.1f} samples/s (median iteration "
+        f"{iter_ms:.2f} ms after {WARM_STEPS} warm-up steps in each epoch, "
+        f"of which waiting for the batch {load_ms:.2f} ms); validation of "
+        f"{v['crops']} crops in {v['seconds']:.2f} s (AP {v['perf']:.4f}, "
+        f"random weights); train.run {secs:.1f} s; peak "
+        f"max_memory_allocated {peak_gb:.2f} GB; launches {path.counts} | "
+        f"{card}")
+    del net, final
+    torch.cuda.empty_cache()
+    return path.counts, B / iter_ms * 1e3
+
+
+def rsn_int8(tmp, card, device="cuda", yaml=RSN18_YAML,
+             n_images=RSN_VAL_IMAGES, batch=SERVE_BATCH, iters=10):
+    """11d: ``rsn18_256x192`` through ``test.run`` with ``TPU.QUANTIZE
+    int8`` (self-calibrating, the yaml's flip, bf16) on a synthetic
+    mini-COCO val: one fused int8 conv launch a site and served batch;
+    int8 against bf16 crops/s at B = ``batch`` with the flip folded, in
+    turns; the fused kernel at every input layout the path launched it
+    at (the residual steps' channel slices and their sums included)
+    against the three-step card path, bit for bit; its time over one
+    fold forward's shapes against its bound and the bf16 cuDNN convs.
+    Returns (launches, the kernel's numbers, crops/s)."""
+    import types
+
+    from udp_pose_tpu_torch import test as test_cli
+    from udp_pose_tpu_torch.core.infer import COCO_FLIP_PAIRS
+    from udp_pose_tpu_torch.core.rsn import make_rsn_infer_fn_from_cfg
+    from udp_pose_tpu_torch.models import build_model
+    from udp_pose_tpu_torch.models import quantize as mq
+    root = os.path.join(tmp, "coco_rsn_int8")
+    frames = synthetic_coco(root, "val2017", n_images,
+                            np.random.default_rng(35))
+    cfg = rsn_data_cfg(yaml, "bfloat16", root, os.path.join(tmp, "int8"))
+    cfg.TPU.QUANTIZE = "int8"
+    val_ds = in_memory_rsn(cfg, frames, False)
+    made, quantize_for_eval = [], mq.quantize_for_eval
+
+    def keep(*args, **kw):          # test.run's int8 model, for 9g below
+        made.append(quantize_for_eval(*args, **kw))
+        return made[-1]
+
+    path = PathLaunches("int8_rsn18")
+    mq.quantize_for_eval = keep
+    try:
+        nv, perf = path.run(test_cli.run, cfg, None, val_ds,
+                            cfg.OUTPUT_DIR, device)
+    finally:
+        mq.quantize_for_eval = quantize_for_eval
+    qm = made[0]
+    val_batches = -(-len(val_ds) // cfg.TEST.BATCH_SIZE_PER_GPU)
+    check(len(qm.engaged) == INT8_SITES_RSN18 and not any(
+        "res_conv2" in p for p in qm.engaged), f"rsn18 int8: "
+        f"{len(qm.engaged)} engaged sites")
+    path.served(0, INT8_SITES_RSN18 * val_batches)
+    check(path.counts == path.want, f"int8_rsn18 test.run: launches "
+          f"{path.counts}, want {path.want}")
+    log(f"[rsn] 11d python -m udp_pose_tpu_torch.test's run, TPU.QUANTIZE "
+        f"int8: calibrated {len(qm.act_scales)} sites ({INT8_SITES_RSN18} "
+        f"engaged, the 4 res_conv2 heads in bf16), {len(val_ds)} crops in "
+        f"{val_batches} batches, AP {perf:.4f} (random weights); "
+        f"int8_conv_fused launches "
+        f"{path.counts['int8_conv_fused']} = {INT8_SITES_RSN18} sites x "
+        f"{val_batches} batches | {card}")
+
+    crops, center, scale = random_crops(batch, cfg, seed=36)
+    int8_fn = make_rsn_infer_fn_from_cfg(qm, cfg, COCO_FLIP_PAIRS)
+    bf16_fn = rsn_serving_fn(cfg, device)
+
+    def int8_batch():
+        out = int8_fn(crops, center, scale)
+        path.served(0, INT8_SITES_RSN18)
+        return out
+
+    crops_s = {"bf16": [], "int8": []}
+    for kind in ("bf16", "int8", "int8", "bf16"):
+        if kind == "int8":
+            ms = [path.run(host_ms, int8_batch, iters) for _ in range(3)]
+        else:
+            ms = [host_ms(lambda: bf16_fn(crops, center, scale), iters)
+                  for _ in range(3)]
+        crops_s[kind].append(batch / np.median(ms) * 1e3)
+    path.check()
+    kp_q = int8_fn(crops, center, scale)[0]      # outside the windows
+    kp_b = bf16_fn(crops, center, scale)[0]
+    log(f"[rsn] 11d int8 rsn18 256x192 B={batch} flip fold: crops/s int8 "
+        f"{', '.join(f'{r:.1f}' for r in crops_s['int8'])} against bf16 "
+        f"{', '.join(f'{r:.1f}' for r in crops_s['bf16'])} (in turns bf16, "
+        f"int8, int8, bf16, each the median of 3 x {iters} batches); int8 "
+        f"vs bf16 keypoints (random weights: a number only) median "
+        f"{float((kp_q - kp_b).abs().median()):.3g} px; launches "
+        f"{path.counts} | {card}")
+    path.keep_layouts(types.SimpleNamespace(qmodel=qm))
+    del made, qm, int8_fn, bf16_fn
+    torch.cuda.empty_cache()
+    layouts = check_path_layouts(path, card, device)
+    w, h = cfg.MODEL.IMAGE_SIZE
+    sites = int8_sites(build_model(cfg, device=device),
+                       torch.zeros(1, 3, h, w, dtype=torch.bfloat16,
+                                   device=device))
+    check(len(sites) == INT8_SITES_RSN18, f"rsn18: {len(sites)} int8 sites")
+    sums, errs, n_shapes = int8_forward_times("rsn18", sites, 2 * batch,
+                                              card, device)
+    kernel = {"ms": sums["int8_conv_fused"],
+              "bound_ms": sums["bound_int8_conv_fused"],
+              "bound_by": ("bytes" if sums["bound_by_bytes"]
+                           >= sums["bound_by_ops"] else "operations"),
+              "plain_ms": sums["plain_int8_conv_fused"],
+              "cudnn_bf16_conv_ms": sums["cudnn_bf16"],
+              "three_step_ms": sums["three_step"],
+              "max_abs_err": errs["int8_conv_fused"], "shapes": n_shapes,
+              "layouts_checked": layouts,
+              "per": f"one rsn18 fold forward, B={2 * batch}, "
+                     f"{INT8_SITES_RSN18} launches"}
+    return path.counts, kernel, {k: float(np.median(v))
+                                 for k, v in crops_s.items()}
+
+
+def phase_rsn(tmp, device="cuda"):
+    """Phase 11: RSN at full width: serving rsn18 (11a), the 4xRSN-50
+    evaluation (11b), iteration-mode training of 4xRSN-18 (11c) and int8
+    rsn18 (11d).  Returns (launches by path, the int8 kernel's numbers on
+    rsn18, rates, the function that profiles 11a's batches)."""
+    card = card_line()
+    t_phase = time.perf_counter()
+    paths, rates = {}, {}
+    rates["rsn18_bf16"], paths["rsn18_serving"], profile = rsn_serving(
+        card, device)
+    paths["rsn_4x50_eval"], rates["rsn_4x50_eval"] = rsn_best_model(
+        tmp, card, device)
+    paths["rsn_training"], rates["rsn_training"] = rsn_iteration_training(
+        tmp, card, device)
+    paths["int8_rsn18"], kernel, int8_rates = rsn_int8(tmp, card, device)
+    rates.update({f"rsn18_int8_{k}": v for k, v in int8_rates.items()})
+    log(f"[rsn] phase 11 {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{paths}")
+    return paths, kernel, rates, profile
+
+
 # ------------------------------------------------------------------ main
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3130,13 +3700,15 @@ def main(argv=None):
         with tempfile.TemporaryDirectory() as tmp:
             zoo_paths, decode_64, resnet_int8, _, profile_zoo = phase_zoo(
                 tmp)
+        with tempfile.TemporaryDirectory() as tmp:
+            rsn_paths, rsn_int8_kernel, _, profile_rsn = phase_rsn(tmp)
         # 3b's one-launch check reads the profiler's kernel list, which
         # has missed the ctypes-launched kernel in a process's later
         # profiler sessions: 3b holds the first one
         fused = phase_fused()
         profile_model()
         profile_detect()
-        for profile in profile_zoo:
+        for profile in profile_zoo + [profile_rsn]:
             profile()
         phase_blur()
         paths["pose_serving"] = phase_server(w32_cfg("bfloat16"))
@@ -3144,6 +3716,7 @@ def main(argv=None):
             paths["training"] = phase_train(tmp)
         paths.update(int8_paths)
         paths.update(zoo_paths)
+        paths.update(rsn_paths)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3165,6 +3738,7 @@ def main(argv=None):
                 "launches_by_path": by_path}
 
     int8_kernels["int8_conv_fused"]["pose_resnet50"] = resnet_int8
+    int8_kernels["int8_conv_fused"]["rsn18"] = rsn_int8_kernel
     print(card_line())
     print(json.dumps({"kernels": [
         {"name": "udp_offset_decode_fused", **decode,

@@ -123,7 +123,7 @@ def test_w32_parameter_count():
 
 def test_registry_refuses_unported_models():
     cfg = reduced_cfg(default_config)
-    for name in ("rsn", "pose_shufflenetv2_plus"):
+    for name in ("pose_shufflenetv2_plus", "pose_mobilenetv3"):
         cfg.MODEL.NAME = name
         with pytest.raises(KeyError, match="pose_hrnet"):
             build_model(cfg, device="cpu")

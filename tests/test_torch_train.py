@@ -368,7 +368,7 @@ def test_train_and_test_entry_points_on_cpu(coco_root, tmp_path,
             "keypoints_val2017_results_0.json").exists()
 
 
-def test_entry_points_refuse_what_is_not_ported(tmp_path):
+def test_entry_points_refuse_what_is_not_ported(tmp_path, coco_root):
     from udp_pose_tpu_torch import train as train_cli
     cfg = reduced_cfg(default_config)
     path = tmp_path / "c.yaml"
@@ -381,7 +381,8 @@ def test_entry_points_refuse_what_is_not_ported(tmp_path):
     cfg.DATASET.DATASET = "crowdpose"
     with pytest.raises(KeyError, match="coco"):
         build_dataset(cfg)
-    cfg.DATASET.DATASET = "coco"
+    # RSN's datasets are ported: ``rsn`` gets RSN's COCO dataset
+    from udp_pose_tpu_torch.data.rsn import RSNCOCODataset
+    cfg = _data_cfg(default_config, coco_root)
     cfg.MODEL.NAME = "rsn"
-    with pytest.raises(KeyError, match="RSN"):
-        build_dataset(cfg)
+    assert type(build_dataset(cfg)) is RSNCOCODataset

@@ -408,11 +408,12 @@ YAMLS = sorted(str(p.relative_to(REPO)) for p in REPO.glob("configs/*/*.yaml"))
 
 
 def test_yaml_census():
-    """28 yamls: 18 of the ported families, 10 of RSN and the mobile
-    families."""
+    """28 yamls: 23 of the ported families (5 of them RSN), 5 of the
+    mobile families."""
     names = [load_config(REPO / y).MODEL.NAME for y in YAMLS]
     assert len(YAMLS) == 28
-    assert sum(n in MODELS for n in names) == 18
+    assert sum(n in MODELS for n in names) == 23
+    assert names.count("rsn") == 5
 
 
 @pytest.mark.parametrize("yaml", YAMLS)
@@ -431,7 +432,12 @@ def test_every_yaml_builds_or_names_the_registry(yaml):
         model = MODELS[name](cfg)
     J = cfg.MODEL.NUM_JOINTS * (3 if cfg.MODEL.TARGET_TYPE == "offset"
                                 else 1)
-    assert model.final_layer.out_channels == J
+    if name == "rsn":           # the heads: each upsample unit's res_conv2
+        last = cfg.MODEL.EXTRA.get("STAGE_NUM", 1) - 1
+        head = model.get_submodule(f"stage{last}.upsample.up4.res_conv2")
+        assert head.conv.out_channels == J
+    else:
+        assert model.final_layer.out_channels == J
     assert conv_sites(model)
 
 

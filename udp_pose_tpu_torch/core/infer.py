@@ -22,6 +22,11 @@ from ..ops.flip import flip_back, flip_back_offset
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
+# RSN normalises its BGR images with BGR-ordered constants
+# (RSN/exps/RSN18.coco/config.py INPUT.MEANS/STDS "# bgr")
+RSN_BGR_MEAN = (0.406, 0.456, 0.485)
+RSN_BGR_STD = (0.225, 0.224, 0.229)
+
 # COCO flip pairs (deep_hrnet/lib/dataset/coco.py:91-92)
 COCO_FLIP_PAIRS = ((1, 2), (3, 4), (5, 6), (7, 8), (9, 10), (11, 12),
                    (13, 14), (15, 16))
@@ -39,6 +44,16 @@ def normalize_images(images, mean=IMAGENET_MEAN, std=IMAGENET_STD):
     return (x - mean) / std
 
 
+def serving_normalizer(cfg):
+    """(mean, std) that serving applies to ``cfg``'s raw u8 crops: RSN's
+    BGR constants for ``rsn``, the ImageNet ones otherwise (the JAX
+    package's ``serving_normalizer``).  int8 calibration measures its
+    amax on the inputs normalised with these."""
+    if cfg.MODEL.NAME == "rsn":
+        return RSN_BGR_MEAN, RSN_BGR_STD
+    return IMAGENET_MEAN, IMAGENET_STD
+
+
 def cast_to_compute_dtype(model, x):
     """Cast normalised inputs to the model's compute dtype (bf16 models;
     a no-op for fp32 ones).  The first conv would cast anyway; casting
@@ -51,22 +66,26 @@ def make_infer_fn(model, *, target_type: str = "gaussian",
                   flip_test: bool = True, post_process: bool = True,
                   kpd: float = 4.0, flip_pairs: Sequence = COCO_FLIP_PAIRS,
                   normalize: bool = True, flip_mode: str = "fold",
-                  return_heatmaps: bool = True):
+                  return_heatmaps: bool = True, mean=IMAGENET_MEAN,
+                  std=IMAGENET_STD, decode=None):
     """Build ``infer(images, center, scale) -> (preds, maxvals, hm|None)``.
 
-    ``images``: (B, H, W, 3) RGB crops (numpy or torch) — raw [0, 255] if
-    ``normalize`` else already normalised; ``center``/``scale`` (B, 2).
-    Inputs move to the model's device; outputs are tensors there, with
-    coords in source-image space.  ``flip_mode``: ``"fold"`` runs one
-    forward on the 2B concat of the crops and their mirror images,
-    ``"two_pass"`` two B-sized forwards; the sample-wise math is the same.
+    ``images``: (B, H, W, 3) crops (numpy or torch) — raw [0, 255] if
+    ``normalize`` (with ``mean`` and ``std``) else already normalised;
+    ``center``/``scale`` (B, 2).  Inputs move to the model's device;
+    outputs are tensors there, with coords in source-image space.
+    ``flip_mode``: ``"fold"`` runs one forward on the 2B concat of the
+    crops and their mirror images, ``"two_pass"`` two B-sized forwards;
+    the sample-wise math is the same.  ``decode(hm, center, scale) ->
+    (preds, maxvals)`` replaces :func:`..ops.decode.get_final_preds`
+    (RSN's decode, :mod:`.rsn`).
     """
     pairs = tuple(tuple(p) for p in flip_pairs)
     if flip_mode not in ("two_pass", "fold"):
         raise ValueError(f"flip_mode {flip_mode!r}: 'two_pass' or 'fold'")
     device = next(model.parameters()).device
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device)
+    mean = torch.tensor(mean, dtype=torch.float32, device=device)
+    std = torch.tensor(std, dtype=torch.float32, device=device)
 
     def forward(x_nhwc):
         # NHWC → NCHW view: channels-last strides, which the model keeps
@@ -94,9 +113,12 @@ def make_infer_fn(model, *, target_type: str = "gaussian",
             else:
                 hm_f = flip_back(hm_f, pairs)
             hm = (hm + hm_f) * 0.5
-        preds, maxvals, _ = get_final_preds(
-            hm, center, scale, target_type=target_type,
-            post_process=post_process, kpd=kpd)
+        if decode is None:
+            preds, maxvals, _ = get_final_preds(
+                hm, center, scale, target_type=target_type,
+                post_process=post_process, kpd=kpd)
+        else:
+            preds, maxvals = decode(hm, center, scale)
         return preds, maxvals, (hm if return_heatmaps else None)
 
     return infer

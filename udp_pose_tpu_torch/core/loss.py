@@ -1,5 +1,6 @@
 """Pose losses (port of ``udp_pose_tpu/core/loss.py``; parity:
-deep_hrnet/lib/core/loss.py).
+deep_hrnet/lib/core/loss.py, and RSN/lib/utils/loss.py for RSN's
+multi-stage L2 loss).
 
 Each reference loss is a masked MSE whose per-joint mean equals a global
 mean, so each is one reduction here.  All take NCHW outputs (B, C, H, W),
@@ -86,6 +87,50 @@ def joints_ohkm_mse_loss(output, target, target_weight, topk=8,
     per_joint = 0.5 * torch.mean((p - g) ** 2, dim=2)       # (B, J)
     top_vals = torch.topk(per_joint, topk, dim=1).values
     return torch.mean(torch.sum(top_vals, dim=1) / topk)
+
+
+def joints_l2_loss(output, valid, label, has_ohkm=False, topk=8,
+                   thresh1=1.0, thresh2=0.0):
+    """RSN JointsL2Loss (RSN/lib/utils/loss.py:9-47): output and label
+    (B, J, H, W) 255-scale heatmaps, valid (B, J) or (B, J, 1)
+    visibility values, computed in float32 (float64 inputs in float64).
+    Without OHKM the *label* is masked by ``valid > thresh1`` and the
+    loss is the global mean; with OHKM the per-joint
+    mean losses are gated by ``valid > thresh2`` and the ``topk``
+    hardest joints averaged."""
+    B, J = output.shape[0], output.shape[1]
+    dtype = torch.promote_types(output.dtype, torch.float32)
+    p = output.reshape(B, J, -1).to(dtype)
+    g = label.reshape(B, J, -1).to(dtype)
+    v = _weight(valid).to(p.device)
+    if not has_ohkm:
+        g = g * (v > thresh1)[..., None]
+        return torch.mean((p - g) ** 2)
+    per_joint = torch.mean((p - g) ** 2, dim=2) * (v > thresh2)   # (B, J)
+    top_vals = torch.topk(per_joint, topk, dim=1).values
+    return torch.mean(torch.mean(top_vals, dim=1))
+
+
+def rsn_multi_stage_loss(outputs, valids, labels, stage_num, ohkm=True,
+                         topk=8, coarse_to_fine=True):
+    """RSN._calculate_loss (RSN/exps/RSN18.coco/network.py:373-398).
+
+    outputs: per stage the 4 NCHW heatmaps, coarse unit first; labels
+    (B, 5, J, H, W), the multi-kernel pyramid; valids (B, J, 1).  OHKM on
+    the finest output only; the other three losses divided by 4; the
+    last stage reads the labels shifted by one (coarse to fine)."""
+    loss = 0.0
+    for i in range(stage_num):
+        for j in range(4):
+            ind = j + 1 if (i == stage_num - 1 and coarse_to_fine) else j
+            lbl = labels[:, ind]
+            if j == 3 and ohkm:
+                l = joints_l2_loss(outputs[i][j], valids, lbl,
+                                   has_ohkm=True, topk=topk)
+            else:
+                l = joints_l2_loss(outputs[i][j], valids, lbl)
+            loss = loss + (l / 4.0 if j < 3 else l)
+    return loss
 
 
 def make_loss_fn(cfg):

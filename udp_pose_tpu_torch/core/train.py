@@ -19,7 +19,7 @@ from typing import Any, Dict
 import torch
 from torch.profiler import record_function
 
-from .infer import normalize_images
+from .infer import IMAGENET_MEAN, IMAGENET_STD, normalize_images
 
 
 def multistep_lr(optimizer, lr_step_epochs, lr_factor, steps_per_epoch):
@@ -62,32 +62,40 @@ class TrainState:
     step: int = 0
 
 
-def create_train_state(cfg, model, steps_per_epoch: int) -> TrainState:
-    """``model`` from ``models.build_model(cfg, train=True)``.  With
-    ``TPU.QAT int8`` the state trains a
+def trained_model(cfg, model):
+    """What a train state of ``model`` (from ``models.build_model(cfg,
+    train=True)``) trains: with ``TPU.QAT int8`` a
     :class:`..models.quantize.FakeQuantModel` over ``model``'s own
     parameters and buffers (quantisation-aware training), so ``model``'s
-    state dict is the trained one."""
+    state dict is the trained one; else ``model``."""
     if cfg.TPU.QAT == "int8":
         from ..models.quantize import FakeQuantModel
-        model = FakeQuantModel(model)
-    elif cfg.TPU.QAT:
+        return FakeQuantModel(model)
+    if cfg.TPU.QAT:
         raise ValueError(f"unknown TPU.QAT mode {cfg.TPU.QAT!r}")
+    return model
+
+
+def create_train_state(cfg, model, steps_per_epoch: int) -> TrainState:
+    """The train state of :func:`trained_model` with ``cfg.TRAIN``'s
+    optimizer and schedule."""
+    model = trained_model(cfg, model)
     opt, sched = make_optimizer(cfg, model.parameters(), steps_per_epoch)
     return TrainState(model=model, optimizer=opt, scheduler=sched)
 
 
-def upload_batch(batch, device) -> Dict[str, torch.Tensor]:
+def upload_batch(batch, device, keys=("target", "target_weight"),
+                 mean=IMAGENET_MEAN, std=IMAGENET_STD
+                 ) -> Dict[str, torch.Tensor]:
     """A host batch of :func:`..data.base.collate` → the tensors the train
     step takes: uint8 images uploaded (a quarter of float32's bytes) and
-    normalised on the device, targets and weights (profiler range
-    ``train/upload``)."""
+    normalised on the device with ``mean`` and ``std``, and the arrays
+    named in ``keys`` (targets and weights; RSN's ``labels`` and
+    ``valid``), in the profiler range ``train/upload``."""
     with record_function("train/upload"):
         image = torch.as_tensor(batch["image"]).to(device)
-        return {"image": normalize_images(image),
-                "target": torch.as_tensor(batch["target"]).to(device),
-                "target_weight": torch.as_tensor(batch["target_weight"]).to(
-                    device)}
+        return {"image": normalize_images(image, mean, std),
+                **{k: torch.as_tensor(batch[k]).to(device) for k in keys}}
 
 
 def make_train_step(loss_fn, with_output: bool = False):

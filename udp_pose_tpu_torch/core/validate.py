@@ -2,9 +2,10 @@
 
 Port of the single-process path of ``udp_pose_tpu/core/validate.py``
 (parity: deep_hrnet/lib/core/function.py:114-274).  Each batch runs the
-serving graph of :func:`.infer.make_infer_fn_from_cfg`: forward, flip,
-un-flip, average and the decode, whose UDP offset decode is one launch of
-the fused CUDA kernel on the card.  The host gathers the small decoded
+serving graph of :func:`.infer.make_infer_fn_from_cfg` (for RSN
+:func:`.rsn.make_rsn_infer_fn_from_cfg`): forward, flip, un-flip,
+average and the decode, whose UDP offset decode is one launch of the
+fused CUDA kernel on the card.  The host gathers the small decoded
 arrays and runs the OKS-NMS + AP evaluation.  The last batch is not
 padded: the port compiles nothing per shape.
 """
@@ -37,7 +38,11 @@ def validate(cfg, dataset, model, output_dir="", batch_size=None,
         raise NotImplementedError("DEBUG.DEBUG (debug images) is not ported "
                                   "yet")
     pairs = tuple(map(tuple, dataset.flip_pairs))
-    if infer_fn is None:
+    if infer_fn is None and cfg.MODEL.NAME == "rsn":
+        # RSN's flip test and decode (udp_pose_tpu/core/validate.py:43-53)
+        from .rsn import make_rsn_infer_fn_from_cfg
+        infer_fn = make_rsn_infer_fn_from_cfg(model, cfg, pairs)
+    elif infer_fn is None:
         infer_fn = make_infer_fn_from_cfg(model, cfg, flip_pairs=pairs)
     batch_size = batch_size or cfg.TEST.BATCH_SIZE_PER_GPU
 
@@ -48,18 +53,29 @@ def validate(cfg, dataset, model, output_dir="", batch_size=None,
     image_paths = []
     idx = 0
     accs, t0 = [], time.perf_counter()
+    # the rate after the first batch (cuDNN's autotune and first calls
+    # left out), and how much of it building samples on the host takes
+    warm_t0, warm_idx, build_s = None, 0, 0.0
+    batches = iter(epoch_loader(dataset, batch_size, shuffle=False,
+                                drop_last=False))
 
-    for batch in epoch_loader(dataset, batch_size, shuffle=False,
-                              drop_last=False):
+    while True:
+        t_build = time.perf_counter()
+        batch = next(batches, None)
+        if batch is None:
+            break
+        if warm_t0 is not None:
+            build_s += time.perf_counter() - t_build
         bs = batch["image"].shape[0]
         preds, maxvals, hm = infer_fn(batch["image"], batch["center"],
                                       batch["scale"])
-        if cfg.MODEL.TARGET_TYPE == "offset":
-            hm, tgt = hm[:, ::3], batch["target"][:, ::3]
-        else:
-            tgt = batch["target"]
-        _, avg_acc, cnt, _ = pck_accuracy(hm.cpu().numpy(), tgt)
-        accs.append((avg_acc, cnt))
+        if "target" in batch:          # RSN's val samples have none
+            if cfg.MODEL.TARGET_TYPE == "offset":
+                hm, tgt = hm[:, ::3], batch["target"][:, ::3]
+            else:
+                tgt = batch["target"]
+            _, avg_acc, cnt, _ = pck_accuracy(hm.cpu().numpy(), tgt)
+            accs.append((avg_acc, cnt))
 
         all_preds[idx:idx + bs, :, 0:2] = preds.cpu().numpy()
         all_preds[idx:idx + bs, :, 2:3] = maxvals.cpu().numpy()
@@ -69,11 +85,20 @@ def validate(cfg, dataset, model, output_dir="", batch_size=None,
         all_boxes[idx:idx + bs, 5] = batch["score"]
         image_paths.extend(batch["image_path"])
         idx += bs
+        if warm_t0 is None:
+            warm_t0, warm_idx = time.perf_counter(), idx
 
-    crops_per_sec = idx / max(time.perf_counter() - t0, 1e-9)
+    t_end = time.perf_counter()
+    crops_per_sec = idx / max(t_end - t0, 1e-9)
+    if idx > warm_idx:
+        warm_s = t_end - warm_t0
+        warm_rate, build_share = (idx - warm_idx) / warm_s, build_s / warm_s
+    else:                               # one batch: no rate after it
+        warm_rate = build_share = float("nan")
     mean_acc = (sum(a * c for a, c in accs) / max(sum(c for _, c in accs), 1))
-    logger.info("validate: %d crops, %.1f crops/s, PCK@0.5 %.3f",
-                idx, crops_per_sec, mean_acc)
+    logger.info("validate: %d crops, %.1f crops/s; after the first batch "
+                "%.1f crops/s, %.3f of it building samples; PCK@0.5 %.3f",
+                idx, crops_per_sec, warm_rate, build_share, mean_acc)
     return dataset.evaluate(cfg, all_preds, output_dir, all_boxes,
                             image_paths)
 

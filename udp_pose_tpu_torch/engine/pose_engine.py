@@ -57,6 +57,14 @@ class UdpPosePipeline:
         self.device = resolve_device(device)
         if not isinstance(cfg, Node):
             cfg = load_config(cfg)
+        if cfg.MODEL.NAME == "rsn":
+            # RSN reads BGR crops with its own constants and decodes by
+            # blur and shifted argmax (core.rsn.make_rsn_infer_fn), none of
+            # which this pipeline's graph or the detect-then-pose graph has
+            raise NotImplementedError(
+                "serving RSN (MODEL.NAME rsn) through UdpPosePipeline is "
+                "not ported to udp_pose_tpu_torch yet: evaluate it with "
+                "python -m udp_pose_tpu_torch.test")
         self.cfg = cfg
         self.input_wh = tuple(cfg.MODEL.IMAGE_SIZE)
         self.num_joints = cfg.MODEL.NUM_JOINTS

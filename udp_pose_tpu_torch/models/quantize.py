@@ -401,20 +401,24 @@ class FakeQuantModel(_SiteWrapper):
 
 def quantize_for_eval(cfg, model, dataset):
     """``TPU.QUANTIZE int8`` for the eval CLI: amax-calibrate on the first
-    ``TPU.QUANTIZE_CALIB_BATCHES`` val batches, normalised and cast to the
-    compute dtype exactly as serving feeds the stem, then serve w8a8.
+    ``TPU.QUANTIZE_CALIB_BATCHES`` val batches, normalised
+    (:func:`..core.infer.serving_normalizer`) and cast to the compute
+    dtype exactly as serving feeds the stem, then serve w8a8.
     Returns the :class:`QuantizedModel`, or ``model`` unless the cfg asks
     for int8."""
     if cfg.TPU.QUANTIZE != "int8":
         return model
-    from ..core.infer import cast_to_compute_dtype, normalize_images
+    from ..core.infer import (cast_to_compute_dtype, normalize_images,
+                              serving_normalizer)
     from ..data.base import epoch_loader
 
     device = next(model.parameters()).device
+    mean, std = serving_normalizer(cfg)
     n_calib = max(1, cfg.TPU.QUANTIZE_CALIB_BATCHES)
     batches = (
         cast_to_compute_dtype(model, normalize_images(
-            torch.as_tensor(b["image"], device=device))).permute(0, 3, 1, 2)
+            torch.as_tensor(b["image"], device=device), mean, std)
+        ).permute(0, 3, 1, 2)
         for b in itertools.islice(
             epoch_loader(dataset, cfg.TEST.BATCH_SIZE_PER_GPU,
                          shuffle=False, drop_last=False), n_calib))

@@ -1,7 +1,7 @@
 """Model registry (port of ``udp_pose_tpu/models/registry.py``).
 
 Pose models by ``cfg.MODEL.NAME``: ``pose_hrnet``, ``pose_hrnet_psa``,
-``pose_resnet`` and ``pose_resnet_psa`` so far (any other name raises
+``pose_resnet``, ``pose_resnet_psa`` and ``rsn`` so far (any other name raises
 ``KeyError`` naming what is registered), and the YOLOv5 detectors by
 name (``yolov5n``, ``yolov5s``, ``yolov5m``, ``yolov5l``).
 """
@@ -17,6 +17,7 @@ from torch import nn
 from ..utils.platform import resolve_device
 from .hrnet import pose_hrnet_from_cfg
 from .resnet import pose_resnet_from_cfg
+from .rsn import rsn_from_cfg
 from .yolov5 import VARIANTS, YOLOv5
 
 MODELS: Dict[str, Callable] = {}
@@ -113,3 +114,8 @@ def _pose_hrnet(cfg):
 @register_model("pose_hrnet_psa")
 def _pose_hrnet_psa(cfg):
     return pose_hrnet_from_cfg(cfg, psa=True)
+
+
+@register_model("rsn")
+def _rsn(cfg):
+    return rsn_from_cfg(cfg)

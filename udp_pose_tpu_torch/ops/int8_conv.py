@@ -51,6 +51,7 @@ from . import _build
 
 GEMM_ALIGN = 8         # _int_mm: K and N multiples of 8
 GEMM_MIN_ROWS = 17     # _int_mm: more than 16 rows
+GEMM_N_ALIGN = 32      # int8_gemm's weight rows, which cuBLASLt takes
 K_TILE = 32            # the fused kernel's K tile (bytes of int8)
 # the launcher's ``route``: scalar gather, 16-byte loads, shifted taps
 ROUTES = ("gather", "vec", "shift")
@@ -174,11 +175,17 @@ def int8_gemm_reference(a, w_gemm):
 def int8_gemm(a, w_gemm):
     """(rows, K_pad) int8 patches × (N_pad, K_pad) int8 weight →
     (rows, N_pad) int32.  ``torch._int_mm`` on the card, whose second
-    operand is the column-major view ``w_gemm.t()``; on the CPU
+    operand is the column-major view ``w_gemm.t()``, with the weight's
+    rows padded with zeros to a multiple of ``GEMM_N_ALIGN`` (cuBLASLt
+    refuses some row counts, RSN's 104 at 786432 rows among them) and the
+    product's first N_pad columns kept, a row-major view; on the CPU
     :func:`int8_gemm_reference`."""
-    if a.device.type == "cuda":
-        return torch._int_mm(a, w_gemm.t())
-    return int8_gemm_reference(a, w_gemm)
+    if a.device.type != "cuda":
+        return int8_gemm_reference(a, w_gemm)
+    n = w_gemm.shape[0]
+    if n % GEMM_N_ALIGN:
+        w_gemm = F.pad(w_gemm, (0, 0, 0, -n % GEMM_N_ALIGN))
+    return torch._int_mm(a, w_gemm.t())[:, :n]
 
 
 def dequant_epilogue_reference(acc, scale, bias, out_dtype, rows, cols):

@@ -178,3 +178,35 @@ def gaussian_targets_np(joints, joints_vis, heatmap_size, image_size, sigma):
             gy = np.exp(-(ys - mu_ay) ** 2 / (2 * sigma ** 2))
             target[j][np.ix_(ys, xs)] = gy[:, None] * gx[None, :]
     return target, weight
+
+
+# RSN kernel size → sigma (RSN/dataset/JointsDataset.py:19-25)
+RSN_KERNEL_SIGMA = {15: 2.6, 11: 2.0, 9: 1.7, 7: 1.4105, 5: 1.1105}
+RSN_DEFAULT_KERNELS = (15, 11, 9, 7, 5)
+
+
+def rsn_targets_np(joints, valid, heatmap_size, image_size,
+                   kernels=RSN_DEFAULT_KERNELS):
+    """RSN's multi-kernel 255-amplitude label pyramid
+    (RSN/dataset/JointsDataset.py:214-220, :276-291): for each kernel
+    size a full-map Gaussian of its sigma a joint (no window), at the
+    unbiased stride ``(in-1)/(out-1)``, peak 255; joints with valid < 1
+    give all-zero maps.  joints (J, 2+) crop-space xy, valid (J,) or
+    (J, 1) → (len(kernels), J, H, W) float32."""
+    W, H = int(heatmap_size[0]), int(heatmap_size[1])
+    J = joints.shape[0]
+    v = np.asarray(valid, np.float32)
+    if v.ndim == 2:
+        v = v[:, 0]
+    fx, fy = np.meshgrid(np.arange(W), np.arange(H))
+    out = np.zeros((len(kernels), J, H, W), np.float32)
+    for ki, k in enumerate(kernels):
+        sigma = RSN_KERNEL_SIGMA[k]
+        for j in range(J):
+            if v[j] < 1:
+                continue
+            tx = joints[j][0] * (W - 1.0) / (image_size[0] - 1.0)
+            ty = joints[j][1] * (H - 1.0) / (image_size[1] - 1.0)
+            d2 = (fx - tx) ** 2 + (fy - ty) ** 2
+            out[ki, j] = 255.0 * np.exp(-d2 / (2.0 * sigma ** 2))
+    return out

@@ -4,15 +4,17 @@ ultralytics YOLOv5 state dicts.
 The port's own copy of the reverse half of
 ``udp_pose_tpu/utils/torch_convert.py`` (``Converter(reverse=True)``, the
 HRNet and SimpleBaseline mappings ``_map_pose_hrnet`` and
-``_map_pose_resnet`` with their PSA inserts, and the YOLOv5 mapping
-``_map_yolov5``): it walks the JAX package's flax variables — nested
-dicts of numpy arrays under ``params`` and ``batch_stats`` — and emits
+``_map_pose_resnet`` with their PSA inserts, the RSN mapping
+``_map_rsn`` and the YOLOv5 mapping ``_map_yolov5``): it walks the JAX
+package's flax variables — nested dicts of numpy arrays under
+``params`` and ``batch_stats`` — and emits
 the reference torch state_dict, whose keys are the port's module names.
 Layout rules: flax conv kernel (kh, kw, I, O) → torch Conv2d
 (O, I, kh, kw), or for a transposed conv the spatially flipped
 ConvTranspose2d (I, O, kh, kw); BatchNorm scale/bias → weight/bias,
 batch_stats mean/var → running_mean/running_var; LayerNorm scale/bias →
-weight/bias, (C, 1, 1) for the PSA LayerNorm([C, 1, 1]).
+weight/bias, (C, 1, 1) for the PSA LayerNorm([C, 1, 1]); flax Dense
+kernel (I, O) → torch Linear (O, I).
 """
 
 from __future__ import annotations
@@ -93,6 +95,13 @@ class Converter:
         self.sd[f"{tkey}.running_mean"] = _get(self.stats, (*path, "mean"))
         self.sd[f"{tkey}.running_var"] = _get(self.stats, (*path, "var"))
         self.sd[f"{tkey}.num_batches_tracked"] = np.array(0, np.int64)
+
+    def dense(self, tkey: str, *path):
+        """flax Dense kernel (I, O) → torch Linear weight (O, I)."""
+        self.sd[tkey + ".weight"] = np.ascontiguousarray(
+            _get(self.params, (*path, "kernel")).T)
+        if _has(self.params, (*path, "bias")):
+            self.sd[tkey + ".bias"] = _get(self.params, (*path, "bias"))
 
     def ln(self, tkey: str, *path, tshape=None):
         """``tshape="c11"``: the torch LayerNorm([C, 1, 1]) of PSA
@@ -222,6 +231,81 @@ def _map_pose_hrnet(cv: Converter, stages_cfg, psa: bool = False):
     cv.conv("final_layer", "final_layer")
 
 
+def _convert_cbr(cv, tprefix, *path):
+    """RSN conv_bn_relu: the conv (with bias) and its BatchNorm."""
+    cv.conv(f"{tprefix}.conv", *path, "conv")
+    cv.bn(f"{tprefix}.bn", *path, "bn")
+
+
+_RSN_STEPS = ("cbr2_1_1", "cbr2_2_1", "cbr2_2_2", "cbr2_3_1", "cbr2_3_2",
+              "cbr2_3_3", "cbr2_4_1", "cbr2_4_2", "cbr2_4_3", "cbr2_4_4")
+_PRM_NAMES = {"conv_bn_relu_prm_1": "prm1", "conv_bn_relu_prm_2_1": "prm2_1",
+              "conv_bn_relu_prm_2_2": "prm2_2",
+              "conv_bn_relu_prm_3_1": "prm3_1",
+              "conv_bn_relu_prm_3_2": "prm3_2"}
+
+
+def _map_rsn(cv: Converter, stage_num: int, layers=(2, 2, 2, 2),
+             plain=False, se=False, prm=False):
+    """The reference RSN key layout (RSN/exps/*/network.py) against the
+    JAX package's module names."""
+    if cv.probe("top.conv.0.conv.weight", "top_conv0"):
+        # the SE/PRM experiment's 3-conv stem (its network.py:188-202)
+        for i in range(3):
+            _convert_cbr(cv, f"top.conv.{i}", f"top_conv{i}")
+    else:
+        _convert_cbr(cv, "top.conv", "top")
+    for si in range(stage_num):
+        td, fd = f"stage{si}.downsample", f"stage{si}_down"
+        for li, blocks in enumerate(layers):
+            for bi in range(blocks):
+                tb = f"{td}.layer{li + 1}.{bi}"
+                fb = (fd, f"layer{li + 1}_{bi}")
+                if plain:
+                    for i in (1, 2, 3):
+                        _convert_cbr(cv, f"{tb}.conv_bn_relu{i}", *fb,
+                                     f"cbr{i}")
+                else:
+                    _convert_cbr(cv, f"{tb}.conv_bn_relu1", *fb, "cbr1")
+                    for s in _RSN_STEPS:
+                        tname = s.replace("cbr", "conv_bn_relu")
+                        _convert_cbr(cv, f"{tb}.{tname}", *fb, s)
+                    _convert_cbr(cv, f"{tb}.conv_bn_relu3", *fb, "cbr3")
+                if cv.probe(f"{tb}.downsample.conv.weight", *fb, "down"):
+                    _convert_cbr(cv, f"{tb}.downsample", *fb, "down")
+                if se and cv.probe(f"{tb}.se.fc.0.weight", *fb, "se"):
+                    cv.dense(f"{tb}.se.fc.0", *fb, "se", "fc1")
+                    cv.dense(f"{tb}.se.fc.2", *fb, "se", "fc2")
+        tu, fu = f"stage{si}.upsample", f"stage{si}_up"
+        for ui in range(1, 5):
+            tup, fup = f"{tu}.up{ui}", (fu, f"up{ui}")
+            _convert_cbr(cv, f"{tup}.u_skip", *fup, "u_skip")
+            if ui > 1:
+                _convert_cbr(cv, f"{tup}.up_conv", *fup, "up_conv")
+            _convert_cbr(cv, f"{tup}.res_conv1", *fup, "res_conv1")
+            _convert_cbr(cv, f"{tup}.res_conv2", *fup, "res_conv2")
+            if cv.probe(f"{tup}.skip1.conv.weight", *fup, "skip1"):
+                _convert_cbr(cv, f"{tup}.skip1", *fup, "skip1")
+                _convert_cbr(cv, f"{tup}.skip2", *fup, "skip2")
+            if cv.probe(f"{tup}.cross_conv.conv.weight", *fup, "cross_conv"):
+                _convert_cbr(cv, f"{tup}.cross_conv", *fup, "cross_conv")
+            if prm and cv.probe(f"{tup}.prm.conv_bn_relu_prm_1.conv.weight",
+                                *fup, "prm"):
+                for tn, fn in _PRM_NAMES.items():
+                    _convert_cbr(cv, f"{tup}.prm.{tn}", *fup, "prm", fn)
+
+
+def rsn_family(cfg):
+    """The family arguments of :func:`_map_rsn` from a config
+    (``torch_convert.py:459-464`` there)."""
+    extra = cfg.MODEL.EXTRA
+    return dict(stage_num=extra.get("STAGE_NUM", 1),
+                layers=tuple(extra.get("LAYERS", (2, 2, 2, 2))),
+                plain=extra.get("PLAIN_BOTTLENECK", False),
+                se=extra.get("USE_SE", False),
+                prm=extra.get("USE_PRM", False))
+
+
 class _SiteRecorder(Converter):
     """Walks a family mapping over a port model's own state-dict keys and
     records, for each conv, its module name → the flax module path the
@@ -242,30 +326,38 @@ class _SiteRecorder(Converter):
     def bn(self, tkey: str, *path):
         pass
 
+    def dense(self, tkey: str, *path):
+        pass
+
     def ln(self, tkey: str, *path, tshape=None):
         pass
 
 
 def conv_sites(model) -> Dict[str, str]:
     """{port conv module name: flax path} of a ported model (HRNet,
-    SimpleBaseline, either with PSA, or YOLOv5), e.g.
+    SimpleBaseline, either with PSA, RSN or YOLOv5), e.g.
     ``stage2.0.branches.0.0.conv1`` → ``stage2_0/branch0_0/cb1/conv``,
-    ``layer1.0.conv1`` → ``backbone/layer1_0/cb1/conv`` and
-    ``model.24.m.0`` → ``detect0``: the names under which a calibration
-    table keys its conv sites, in either package."""
+    ``layer1.0.conv1`` → ``backbone/layer1_0/cb1/conv``,
+    ``stage0.upsample.up1.u_skip.conv`` → ``stage0_up/up1/u_skip/conv``
+    and ``model.24.m.0`` → ``detect0``: the names under which a
+    calibration table keys its conv sites, in either package."""
     from ..models.hrnet import PoseHRNet
     from ..models.resnet import PoseResNet
+    from ..models.rsn import RSN
     from ..models.yolov5 import YOLOv5
     rec = _SiteRecorder(model)
     if isinstance(model, PoseHRNet):
         _map_pose_hrnet(rec, model.stages_cfg, model.psa)
     elif isinstance(model, PoseResNet):
         _map_pose_resnet(rec, model.num_layers, model.psa)
+    elif isinstance(model, RSN):
+        _map_rsn(rec, model.stage_num, model.layers, model.plain, model.se,
+                 model.use_prm)
     elif isinstance(model, YOLOv5):
         _map_yolov5(rec)
     else:
         raise KeyError(f"no conv-site map for {type(model).__name__}; "
-                       "mapped: PoseHRNet, PoseResNet, YOLOv5")
+                       "mapped: PoseHRNet, PoseResNet, RSN, YOLOv5")
     return rec.sites
 
 
@@ -280,10 +372,12 @@ def variables_to_state_dict(variables, cfg) -> Dict[str, np.ndarray]:
     elif name in ("pose_resnet", "pose_resnet_psa"):
         _map_pose_resnet(cv, cfg.MODEL.EXTRA.NUM_LAYERS,
                          psa=name.endswith("_psa"))
+    elif name == "rsn":
+        _map_rsn(cv, **rsn_family(cfg))
     else:
         raise KeyError(f"no weight mapping for model {name!r}; ported: "
                        "['pose_hrnet', 'pose_hrnet_psa', 'pose_resnet', "
-                       "'pose_resnet_psa']")
+                       "'pose_resnet_psa', 'rsn']")
     return cv.sd
 
 
