@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--peak-before OLD/peak_offset.cu]
 
-Builds the port's CUDA sources ``udp_pose_tpu_torch/csrc/peak_offset.cu``
-and ``csrc/int8_conv.cu`` (one nvcc each, started together) and holds
+Builds the port's CUDA sources ``udp_pose_tpu_torch/csrc/peak_offset.cu``,
+``csrc/int8_conv.cu`` and ``csrc/int8_dwconv.cu`` (one nvcc each, started
+together) and holds
 both kernels of the first bit for bit against their plain PyTorch
 versions on the card: the peak-only mode on six map families (phase 3;
 with ``--peak-before``, also an earlier revision of the source, timed in
@@ -59,13 +60,27 @@ checkpoints and LR checked (11c); int8 ``rsn18`` through ``test.run``
 with ``TPU.QUANTIZE int8``, the fused int8 conv at every input layout
 that path ran (channel slices of the residual steps included) against
 the three-step card path, timed over one fold forward's shapes (11d).
-No RSN path launches the fused decode.  The kernels' launches count
-phases 6, 7 and 8, each path in one window, and the two int8 paths
-(9b-9c, 9d) in windows around each of their own calls: the bf16 engines
-timed in turns with them and the card-vs-CPU checks run outside; phases
-10 and 11's paths likewise.  Any failed check exits nonzero before the
-last line, which is ``{"ok": true, "device": {...}}``.  Without a CUDA
-card it exits 1.  Imports nothing of JAX or of the JAX package.
+No RSN path launches the fused decode.  Phase 12, the mobile zoo at
+full width (right after phase 11): the five mobile yamls
+(MobileNetV3-Small, MobileViT-s, MobileViTv2-0.5, ShuffleNetV2 1.0x,
+ShuffleNetV2+ Small) fp32 card vs CPU and served in bf16 at B=128 with
+the flip folded, and ``shufflenetv2_test``'s offset head through the
+fused decode (12a); each in int8 through the self-calibrating pipeline,
+the int8 depthwise kernel (``csrc/int8_dwconv.cu``) and the fused int8
+conv at every input layout they ran against their plain version and
+the three-step card path, the depthwise kernel timed at each depthwise
+shape of a fold forward beside its bound and cuDNN's bf16 depthwise
+conv, and RSN with ``USE_PRM`` through its 9×9 depthwise site (12b);
+``mobilevitv2_05`` trained one epoch through ``train.run`` with WORKERS
+4, evaluated in int8 through ``test.run`` and served over ``/v1/pose``,
+and QAT steps of ``mobilenetv3_small`` (12c).  The kernels' launches
+count phases 6, 7 and 8, each path in one window, and the two int8
+paths (9b-9c, 9d) in windows around each of their own calls: the bf16
+engines timed in turns with them and the card-vs-CPU checks run
+outside; phases 10, 11 and 12's paths likewise.  Any failed check exits
+nonzero before the last line, which is ``{"ok": true, "device":
+{...}}``.  Without a CUDA card it exits 1.  Imports nothing of JAX or of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -279,11 +294,11 @@ def set_tf32(enabled):
 
 # ---------------------------------------------------------------- phase 2
 def phase_build():
-    """Both CUDA sources, one nvcc each, started together."""
+    """The three CUDA sources, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from udp_pose_tpu_torch.ops import _build
-    names = ("peak_offset", "int8_conv")
+    names = ("peak_offset", "int8_conv", "int8_dwconv")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(_build.build, names)))
@@ -295,7 +310,7 @@ def phase_build():
             + (f" in {_build.build_logs[name][0]:.2f} s; nvcc: "
                + _build.build_logs[name][1].strip()
                if name in _build.build_logs else " (built before)"))
-    log(f"[build] both sources in {secs:.2f} s")
+    log(f"[build] all {len(names)} sources in {secs:.2f} s")
     return secs
 
 
@@ -1969,12 +1984,14 @@ def kernel_wrappers():
     """Every kernel wrapper of the port, by the name the kernels line
     gives it."""
     from udp_pose_tpu_torch.ops import int8_conv as ic
+    from udp_pose_tpu_torch.ops import int8_dwconv as dw
     from udp_pose_tpu_torch.ops import peak_offset as po
     return {"udp_offset_decode_fused": po.udp_offset_decode_fused,
             "fused_peak_offset": po.fused_peak_offset,
             "int8_conv_fused": ic.int8_conv_fused,
             "quant_im2col": ic.quant_im2col,
-            "dequant_epilogue": ic.dequant_epilogue}
+            "dequant_epilogue": ic.dequant_epilogue,
+            "int8_dwconv": dw.int8_dwconv}
 
 
 def zero_launches():
@@ -1997,6 +2014,7 @@ class PathLaunches:
         self.counts = dict.fromkeys(kernel_wrappers(), 0)
         self.want = dict.fromkeys(kernel_wrappers(), 0)
         self.layouts = {}
+        self.dw_layouts = {}
 
     def run(self, fn, *args):
         zero_launches()
@@ -2006,26 +2024,30 @@ class PathLaunches:
             for name, n in read_launches().items():
                 self.counts[name] += n
 
-    def served(self, decodes, int8_sites):
-        """Batches served: ``decodes`` decode launches and ``int8_sites``
-        launches of the fused int8 conv (and none of the three-step
-        kernels)."""
+    def served(self, decodes, int8_sites, dw_sites=0):
+        """Batches served: ``decodes`` decode launches, ``int8_sites``
+        launches of the fused int8 conv and ``dw_sites`` of the int8
+        depthwise conv (and none of the three-step kernels)."""
         self.want["udp_offset_decode_fused"] += decodes
         self.want["int8_conv_fused"] += int8_sites
+        self.want["int8_dwconv"] += dw_sites
 
     def keep_layouts(self, *engines):
         """Note every input layout at which the int8 models of
         ``engines`` (``SelfCalibrating`` states) launched the fused kernel
         (the plans in each ``Int8Conv2d.launch_plans``), one site for each
         layout and conv geometry, for :func:`check_path_layouts`."""
-        from udp_pose_tpu_torch.models.quantize import Int8Conv2d
+        from udp_pose_tpu_torch.models.quantize import (Int8Conv2d,
+                                                        Int8DepthwiseConv2d)
         for engine in engines:
             if engine.qmodel is None:
                 continue
             for m in engine.qmodel.modules():
-                if isinstance(m, Int8Conv2d):
+                if isinstance(m, (Int8Conv2d, Int8DepthwiseConv2d)):
+                    into = (self.layouts if isinstance(m, Int8Conv2d)
+                            else self.dw_layouts)
                     for shape, stride, dtype, _, aligned, *_ in m.launch_plans:
-                        self.layouts.setdefault(
+                        into.setdefault(
                             (shape, stride, dtype, aligned, m.out_channels,
                              m.kernel_size, m.stride, m.padding,
                              m.bias is not None), m)
@@ -2773,10 +2795,36 @@ def yaml_cfg(path, dtype):
     return cfg
 
 
-def float_path(name, cfg, card, device="cuda", batch=SERVE_BATCH, iters=10):
-    """10a / 10b: the yaml's serving graph (its own flip test and decode)
-    at full width with seeded random weights.  fp32 with TF32 off, card
-    heatmaps against the CPU's on 4 crops; then bf16 crops/s at B =
+def decisive_maps(hm, tol):
+    """(B, J) mask of the heatmaps whose decode no difference of ``tol``
+    in the values can change: the top two values apart by more than
+    ``tol``, and at the peak the differences of the two horizontal and of
+    the two vertical neighbours (the quarter-pixel shift's signs) larger
+    than ``tol`` where those neighbours exist.  Seeded random nets give
+    flat maps whose near ties decide a keypoint by the last bits."""
+    B, J, H, W = hm.shape
+    flat = hm.flatten(2)
+    top2 = flat.topk(2, dim=2).values
+    idx = flat.argmax(2)
+    py, px = idx // W, idx % W
+    pad = torch.nn.functional.pad(hm, (1, 1, 1, 1))
+    b, j = torch.meshgrid(torch.arange(B), torch.arange(J), indexing="ij")
+    dx = pad[b, j, py + 1, px + 2] - pad[b, j, py + 1, px]
+    dy = pad[b, j, py + 2, px + 1] - pad[b, j, py, px + 1]
+    inner_x = (px > 0) & (px < W - 1)
+    inner_y = (py > 0) & (py < H - 1)
+    return ((top2[..., 0] - top2[..., 1] > tol)
+            & (~inner_x | (dx.abs() > tol)) & (~inner_y | (dy.abs() > tol)))
+
+
+def float_path(name, cfg, card, device="cuda", batch=SERVE_BATCH, iters=10,
+               tag="[zoo] 10", kp_atol=None):
+    """10a / 10b (and 12a, ``tag``): the yaml's serving graph (its own
+    flip test and decode) at full width with seeded random weights.  fp32
+    with TF32 off, card heatmaps against the CPU's on 4 crops (and, where
+    ``kp_atol`` is given, the peak keypoints within ``kp_atol`` px on the
+    maps that no near tie decides, at least half of them; the DARK
+    keypoints are reported); then bf16 crops/s at B =
     ``batch`` from host u8 crops, each batch in a window of the path's
     launches, which must be one fused decode a batch for the offset
     head and none for the Gaussian one.  Returns (crops/s, launches, a
@@ -2792,15 +2840,38 @@ def float_path(name, cfg, card, device="cuda", batch=SERVE_BATCH, iters=10):
     cfg32 = cfg.clone()
     cfg32.TPU.DTYPE = "float32"
     crops, center, scale = random_crops(4, cfg32, seed=5)
-    hm = {dev: serving(cfg32, dev)(crops, center, scale)[2].float().cpu()
-          for dev in (device, "cpu")}
+    out = {dev: [t.float().cpu() for t in serving(cfg32, dev)(
+        crops, center, scale)] for dev in (device, "cpu")}
+    hm = {dev: o[2] for dev, o in out.items()}
     ref_max = float(hm["cpu"].abs().max())
     err = float((hm[device] - hm["cpu"]).abs().max())
-    log(f"[zoo] 10 {name} fp32 B=4 heatmaps {tuple(hm['cpu'].shape)}: card "
+    kp_err = float((out[device][0] - out["cpu"][0]).abs().max())
+    log(f"{tag} {name} fp32 B=4 heatmaps {tuple(hm['cpu'].shape)}: card "
         f"vs CPU max abs err {err:.3g}, max |hm| {ref_max:.3g} (limit "
-        f"{HEATMAP_REL_TOL:g} x max |hm|)")
+        f"{HEATMAP_REL_TOL:g} x max |hm|); keypoints max abs err "
+        f"{kp_err:.3g} px")
     check(err <= HEATMAP_REL_TOL * ref_max,
           f"{name}: card heatmaps != CPU heatmaps")
+    if kp_atol is not None:
+        # the peaks of both devices' maps, in source space: DARK's Taylor
+        # step (the keypoints above) divides by the curvature of the log of
+        # the blurred map, which on a seeded net's flat maps turns the
+        # last bits into tenths of a pixel
+        from udp_pose_tpu_torch.ops.decode import get_final_preds
+        peaks = {dev: get_final_preds(
+            h, torch.from_numpy(center), torch.from_numpy(scale),
+            cfg32.MODEL.TARGET_TYPE, False, cfg32.LOSS.KPD)[0].cpu()
+            for dev, h in hm.items()}
+        clear = decisive_maps(hm["cpu"], 2 * HEATMAP_REL_TOL * ref_max)
+        peak_err = float((peaks[device] - peaks["cpu"]).abs()[clear].max()) \
+            if bool(clear.any()) else 0.0
+        log(f"{tag} {name} peak keypoints (no DARK) card vs CPU: max abs "
+            f"err {peak_err:.3g} px on the {int(clear.sum())} of "
+            f"{clear.numel()} maps whose top two values and the neighbours "
+            f"at the peak no rounding within the limit can reorder (limit "
+            f"{kp_atol:g})")
+        check(clear.float().mean() >= 0.5 and peak_err <= kp_atol,
+              f"{name}: card peaks != CPU peaks")
     set_tf32(True)
     torch.backends.cuda.matmul.allow_tf32 = False
     infer = serving(cfg, device)
@@ -2817,7 +2888,7 @@ def float_path(name, cfg, card, device="cuda", batch=SERVE_BATCH, iters=10):
     rate = batch / np.median(ms) * 1e3
     flip = (f"flip {cfg.TEST.get('FLIP_MODE', 'fold')}"
             if cfg.TEST.FLIP_TEST else "no flip")
-    log(f"[zoo] 10 {name} {cfg.MODEL.NAME} {cfg.MODEL.IMAGE_SIZE[1]}x"
+    log(f"{tag} {name} {cfg.MODEL.NAME} {cfg.MODEL.IMAGE_SIZE[1]}x"
         f"{cfg.MODEL.IMAGE_SIZE[0]} {cfg.MODEL.TARGET_TYPE} bf16 B={batch} "
         f"{flip}: {rate:.1f} crops/s (median of 3 runs of {iters} batches: "
         f"{', '.join(f'{m:.2f}' for m in ms)} ms/batch); fused decode "
@@ -2830,14 +2901,14 @@ def float_path(name, cfg, card, device="cuda", batch=SERVE_BATCH, iters=10):
         wall, busy, top, kernels = profile_device(
             lambda: infer(crops, center, scale))
         if busy > 0:
-            log(f"[zoo] 10 {name} profile: 3 batches {wall:.2f} ms wall, "
+            log(f"{tag} {name} profile: 3 batches {wall:.2f} ms wall, "
                 f"card busy {busy:.2f} ms (idle share {1 - busy / wall:.3f})"
                 f", {kernels:.0f} device kernels and copies a batch; top "
                 f"kernels (ms): " + "; ".join(f"{k[:60]} {t:.2f}"
                                               for k, t in top)
                 + f" | {card}")
         else:
-            log(f"[zoo] 10 {name} profile: the profiler saw no device "
+            log(f"{tag} {name} profile: the profiler saw no device "
                 "time; idle share not measured")
 
     return rate, path.counts, profile
@@ -3672,6 +3743,475 @@ def phase_rsn(tmp, device="cuda"):
     return paths, kernel, rates, profile
 
 
+# --------------------------------------------------------------- phase 12
+MOBILE_YAMLS = {name: os.path.join(REPO, "configs/coco", f"{stem}.yaml")
+                for name, stem in (
+                    ("mobilenetv3_small", "mobilenetv3_small_256x192"),
+                    ("mobilevit_s", "mobilevit_s_256x192_pixel_shuffle"),
+                    ("mobilevitv2_05",
+                     "mobilevitv2_05_256x192_pixel_shuffle"),
+                    ("shufflenetv2_10x",
+                     "shufflenetv2_10x_256x192_pixel_shuffle"),
+                    ("shufflenetv2_plus_small",
+                     "shufflenetv2_plus_small_256x192"))}
+# the depthwise convs of each net (every grouped conv of the zoo is one)
+MOBILE_DW_SITES = {"mobilenetv3_small": 11, "mobilevit_s": 7,
+                   "mobilevitv2_05": 9, "shufflenetv2_10x": 19,
+                   "shufflenetv2_plus_small": 28}
+MOBILE_KP_ATOL = 1e-3            # px: card vs CPU peak keypoints (12a)
+
+
+def mobile_sites(cfg, device="cuda"):
+    """(dense, depthwise) int8 sites of one forward of ``cfg``'s net, from
+    the conv modules its forward calls (:func:`int8_sites`)."""
+    from udp_pose_tpu_torch.models import build_model
+    from udp_pose_tpu_torch.models.quantize import is_depthwise
+    w, h = cfg.MODEL.IMAGE_SIZE
+    sites = int8_sites(build_model(cfg, device=device),
+                       torch.zeros(1, 3, h, w, dtype=torch.bfloat16,
+                                   device=device))
+    dw = [site for site in sites if is_depthwise(site[0])]
+    return [site for site in sites if not is_depthwise(site[0])], dw
+
+
+def mobile_serving(card, device="cuda"):
+    """12a: each mobile yaml at full width with seeded random weights
+    through :func:`float_path` (fp32 card vs CPU heatmaps and keypoints,
+    bf16 B=128 with the yaml's flip folded: crops/s and no decode launch),
+    and ``shufflenetv2_test`` with its offset head at B=128: one fused
+    decode a batch, and the fused decode of its card output bit-equal to
+    the plain version.  Returns (crops/s, launches, profiles)."""
+    from udp_pose_tpu_torch.core.infer import make_infer_fn_from_cfg
+    from udp_pose_tpu_torch.models import build_model
+    from udp_pose_tpu_torch.ops import peak_offset as po
+    rates, paths, profiles = {}, {}, []
+    for name, path in MOBILE_YAMLS.items():
+        rates[name], paths[f"{name}_serving"], profile = float_path(
+            name, yaml_cfg(path, "bfloat16"), card, device,
+            tag="[mobile] 12a", kp_atol=MOBILE_KP_ATOL)
+        profiles.append(profile)
+    cfg = yaml_cfg(MOBILE_YAMLS["shufflenetv2_10x"], "bfloat16")
+    cfg.MODEL.NAME = "shufflenetv2_test"
+    cfg.MODEL.TARGET_TYPE = "offset"
+    name = "shufflenetv2_test"
+    rates[name], paths[f"{name}_serving"], profile = float_path(
+        name, cfg, card, device, tag="[mobile] 12a")
+    profiles.append(profile)
+    infer = make_infer_fn_from_cfg(build_model(cfg, device=device), cfg)
+    crops, center, scale = random_crops(SERVE_BATCH, cfg, seed=120)
+    _, _, hm = infer(crops, center, scale)
+    check(same_bits(po.udp_offset_decode_fused(hm, cfg.LOSS.KPD),
+                    po.udp_offset_decode_reference(hm, cfg.LOSS.KPD)),
+          "shufflenetv2_test: fused decode != its plain version")
+    log(f"[mobile] 12a shufflenetv2_test B={SERVE_BATCH} heatmaps "
+        f"{tuple(hm.shape)} ({layout_of(hm)}): fused decode bit-equal to "
+        f"its plain version | {card}")
+    del infer, hm
+    torch.cuda.empty_cache()
+    return rates, paths, profiles
+
+
+def check_dw_layouts(path, card, device="cuda"):
+    """12b: the depthwise kernel at every input layout at which ``path``
+    launched it, with that site's weights on a seeded activation of that
+    layout that spans the quantiser's range, against its plain version
+    on the card, bit for bit.  Returns (layouts, |card - plain| max)."""
+    from udp_pose_tpu_torch.ops import int8_dwconv as dw
+    check(path.dw_layouts, f"{path.name}: no depthwise int8 launch recorded")
+    routes, err = {}, 0.0
+    for i, (key, layer) in enumerate(sorted(path.dw_layouts.items(),
+                                            key=lambda kv: str(kv[0]))):
+        shape, stride, dtype, aligned = key[:4]
+        x = layout_tensor(shape, stride, dtype, aligned,
+                          64.0 / layer.inv_s_a, 200 + i, device)
+        got = dw.int8_dwconv(x, layer)
+        want = dw.int8_dwconv_reference(x, layer)
+        route = dw.dw_loads(x)
+        routes[route] = routes.get(route, 0) + 1
+        err = max(err, float((got.double() - want.double()).abs().max()))
+        check(torch.equal(got, want), f"12b {path.name}: int8_dwconv != its "
+              f"plain version at x {shape} strides {stride} {dtype}, kernel "
+              f"{layer.kernel_size}, stride {layer.stride} ({route})")
+        del x, got, want
+    torch.cuda.empty_cache()
+    log(f"[mobile] 12b {path.name}: int8_dwconv bit-equal to its plain "
+        f"version at all {len(path.dw_layouts)} input layouts the path "
+        f"launched it at (by route: {routes}) | {card}")
+    return len(path.dw_layouts), err
+
+
+def dw_shape_run(conv, shape, dtype, device, seed):
+    """One depthwise shape: the kernel against its plain version, bit for
+    bit; times (graph replay) of the kernel and of cuDNN's bf16 depthwise
+    conv of the same shape (the yardstick: no PyTorch call computes the
+    int8 function), the plain version's (eager, once); the byte bound
+    (the activation read once, the output written once, the int8 weight,
+    scale and bias) against the operation bound (2 int8 operations a
+    multiply-add at the int8 rate)."""
+    import torch.nn.functional as F
+
+    from udp_pose_tpu_torch.models.quantize import Int8DepthwiseConv2d
+    from udp_pose_tpu_torch.ops import int8_dwconv as dw
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=device).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    layer = Int8DepthwiseConv2d(conv, float(x.float().abs().amax()) * 0.9)
+    got = dw.int8_dwconv(x, layer)
+    want = dw.int8_dwconv_reference(x, layer)
+    err = float((got.double() - want.double()).abs().max())
+    check(torch.equal(got, want), f"int8_dwconv != its plain version at "
+          f"{tuple(shape)} k{conv.kernel_size[0]} s{conv.stride[0]}")
+    w_bf = conv.weight.detach().to(torch.bfloat16)
+    x_bf = x.to(torch.bfloat16)
+    fast = dict(iters=5, repeats=3, warm_s=0.02)
+    t = {"int8_dwconv": graph_ms(lambda: dw.int8_dwconv(x, layer), [()],
+                                 **fast),
+         "cudnn_bf16": graph_ms(lambda: F.conv2d(
+             x_bf, w_bf, None, conv.stride, conv.padding, 1, conv.groups),
+             [()], **fast),
+         "plain": cuda_ms(lambda: dw.int8_dwconv_reference(x, layer), [()],
+                          iters=1, repeats=1, warm_s=0.0)}
+    N, C = shape[:2]
+    Ho, Wo = got.shape[2:]
+    elt = x.element_size()
+    k2 = conv.kernel_size[0] * conv.kernel_size[1]
+    t["bytes"] = x.numel() * elt + N * C * Ho * Wo * elt + k2 * C + 8 * C
+    t["ops"] = 2 * k2 * N * C * Ho * Wo
+    bound = bound_of(t["bytes"], t["ops"], INT8_OPS_PER_S)
+    route = dw.dw_loads(x)
+    del x, x_bf, got, want
+    return t, bound, err, route
+
+
+def dw_forward_times(net, sites, batch, card, device="cuda"):
+    """12b for one net: :func:`dw_shape_run` at each distinct depthwise
+    shape of ``sites`` at batch ``batch`` (one fold forward), logged;
+    returns the numbers summed over the forward (each shape times its
+    sites) and the largest |card - plain|."""
+    shapes = {}
+    for conv, shape, dtype in sites:
+        key = ((batch,) + shape[1:], dtype, conv.kernel_size, conv.stride)
+        shapes.setdefault(key, [conv, 0])[1] += 1
+    sums = dict.fromkeys(("int8_dwconv", "cudnn_bf16", "plain", "bound",
+                          "bound_bytes", "bound_ops", "bytes", "ops",
+                          "scalar_route"), 0.0)
+    err = 0.0
+    for i, (key, (conv, count)) in enumerate(sorted(
+            shapes.items(), key=lambda kv: str(kv[0]))):
+        t, (b_ms, by), e, route = dw_shape_run(conv, key[0], key[1], device,
+                                               seed=300 + i)
+        err = max(err, e)
+        for k in ("int8_dwconv", "cudnn_bf16", "plain", "bytes", "ops"):
+            sums[k] += count * t[k]
+        if route == "scalar":
+            sums["scalar_route"] += count * t["int8_dwconv"]
+        sums["bound"] += count * b_ms
+        sums["bound_bytes" if by == "bytes" else "bound_ops"] += count * b_ms
+        log(f"[mobile] 12b {net} dw {key[0]} k{key[2][0]} s{key[3][0]} "
+            f"{str(key[1])[6:]} x{count} ({route}): bit-equal; int8_dwconv "
+            f"{t['int8_dwconv'] * 1e3:.1f} us (bound {b_ms * 1e3:.1f}, {by}; "
+            f"plain {t['plain'] * 1e3:.1f}); bf16 cuDNN depthwise conv "
+            f"{t['cudnn_bf16'] * 1e3:.1f} us")
+        torch.cuda.empty_cache()
+    log(f"[mobile] 12b {net}, one fold forward (B={batch}, {len(sites)} "
+        f"depthwise sites, {len(shapes)} shapes, ms): int8_dwconv "
+        f"{sums['int8_dwconv']:.4f} (bound {sums['bound']:.4f}, of which "
+        f"bytes {sums['bound_bytes']:.4f}: {sums['bytes'] / 1e9:.3f} GB, "
+        f"{sums['ops'] / 1e12:.3f} T int8 operations; one-channel route "
+        f"{sums['scalar_route']:.4f}; plain {sums['plain']:.3f}) against "
+        f"the bf16 cuDNN depthwise convs {sums['cudnn_bf16']:.4f} | {card}")
+    return sums, err, len(shapes)
+
+
+def mobile_int8(name, card, device="cuda", batch=SERVE_BATCH, iters=10):
+    """12b for one mobile yaml: the pipeline calibrates itself on two
+    batches of B = ``batch`` and serves w8a8 (``final_layer`` and the
+    transposed convs in bf16): int8 and bf16 crops/s in turns, one launch
+    a site and batch of the fused int8 conv (dense sites) and of the
+    depthwise kernel (depthwise sites), both kernels at every input layout
+    they ran against the three-step card path and the plain version; the
+    depthwise kernel timed over one fold forward's shapes.  Returns
+    (launches, the depthwise numbers, crops/s, layouts checked)."""
+    from udp_pose_tpu_torch.engine.pose_engine import UdpPosePipeline
+    cfg = yaml_cfg(MOBILE_YAMLS[name], "bfloat16")
+    dense, dw = mobile_sites(cfg, device)
+    check(len(dw) == MOBILE_DW_SITES[name], f"{name}: {len(dw)} depthwise "
+          f"int8 sites, want {MOBILE_DW_SITES[name]}")
+    path = PathLaunches(f"int8_{name}")
+    q = UdpPosePipeline(cfg, device=device, seed=0, quantize="int8",
+                        calib_batches=2)
+    bf16 = UdpPosePipeline(cfg, device=device, seed=0)
+
+    def served(*args):
+        def call():
+            calibrating = q.int8.calibrating
+            out = q.infer_crops(*args)
+            if not calibrating:
+                path.served(0, len(dense), len(dw))
+            return out
+        return call
+
+    for seed in (110, 111):
+        path.run(served(*random_crops(batch, cfg, seed)))
+    check(q.int8.table is not None, f"{name}: not calibrated")
+    crops, center, scale = random_crops(batch, cfg, seed=112)
+    rates = {"bf16": [], "int8": []}
+    for kind in ("bf16", "int8", "int8", "bf16"):
+        if kind == "int8":
+            ms = [path.run(host_ms, served(crops, center, scale), iters)
+                  for _ in range(3)]
+        else:
+            ms = [host_ms(lambda: bf16.infer_crops(crops, center, scale),
+                          iters) for _ in range(3)]
+        rates[kind].append(batch / np.median(ms) * 1e3)
+    engaged = q.int8.qmodel.engaged
+    check(len(engaged) == len(dense) + len(dw), f"{name}: {len(engaged)} "
+          f"engaged sites, want {len(dense)} + {len(dw)}")
+    path.check()
+    log(f"[mobile] 12b int8 {name} 256x192 B={batch} flip fold: "
+        f"self-calibrated ({len(q.int8.table)} sites in the table, "
+        f"{len(dense)} dense and {len(dw)} depthwise engaged); crops/s int8 "
+        f"{', '.join(f'{r:.1f}' for r in rates['int8'])} against bf16 "
+        f"{', '.join(f'{r:.1f}' for r in rates['bf16'])} (in turns bf16, "
+        f"int8, int8, bf16, each the median of 3 x {iters} batches); "
+        f"int8/bf16 {np.median(rates['int8']) / np.median(rates['bf16']):.3f}"
+        f"; launches {path.counts} | {card}")
+    path.keep_layouts(q.int8)
+    del q, bf16
+    torch.cuda.empty_cache()
+    layouts = (check_path_layouts(path, card, device),
+               check_dw_layouts(path, card, device))
+    sums, err, n_shapes = dw_forward_times(name, dw, 2 * batch, card,
+                                           device)
+    sums["shapes"], sums["sites"] = n_shapes, len(dw)
+    return path.counts, sums, max(err, layouts[1][1]), {
+        k: float(np.median(v)) for k, v in rates.items()}, (
+        layouts[0], layouts[1][0])
+
+
+def rsn_prm_int8(card, device="cuda", batch=16):
+    """12b: ``rsn18_256x192`` with ``USE_PRM`` (no shipped yaml sets it),
+    int8 through its 9×9 depthwise site: calibrated on one batch, one
+    flip-folded batch of B = ``batch`` through RSN's serving graph in a
+    window of the launches (one launch a site), and the 9×9 layout
+    against the plain version.  Returns the launches."""
+    import types
+
+    from udp_pose_tpu_torch.core.infer import (COCO_FLIP_PAIRS,
+                                               normalize_images,
+                                               serving_normalizer)
+    from udp_pose_tpu_torch.core.rsn import make_rsn_infer_fn_from_cfg
+    from udp_pose_tpu_torch.models import build_model
+    from udp_pose_tpu_torch.models import quantize as mq
+    cfg = yaml_cfg(RSN18_YAML, "bfloat16")
+    cfg.MODEL.EXTRA.USE_PRM = True
+    dense, dw = mobile_sites(cfg, device)
+    check(len(dw) == 1 and dw[0][0].kernel_size == (9, 9),
+          f"rsn18 PRM: depthwise sites {[s[0].kernel_size for s in dw]}")
+    model = build_model(cfg, device=device)
+    crops, center, scale = random_crops(batch, cfg, seed=130)
+    mean, std = serving_normalizer(cfg)
+    x = normalize_images(torch.as_tensor(crops, device=device), mean,
+                         std).to(torch.bfloat16).permute(0, 3, 1, 2)
+    qm = mq.QuantizedModel(model, mq.calibrate(model, [x]))
+    infer = make_rsn_infer_fn_from_cfg(qm, cfg, COCO_FLIP_PAIRS)
+    path = PathLaunches("int8_rsn18_prm")
+    preds = path.run(lambda: infer(crops, center, scale))[0]
+    path.served(0, len(dense), len(dw))
+    path.check()
+    check(bool(torch.isfinite(preds).all()), "rsn18 PRM int8: non-finite")
+    path.keep_layouts(types.SimpleNamespace(qmodel=qm))
+    n, err = check_dw_layouts(path, card, device)
+    log(f"[mobile] 12b int8 rsn18 with USE_PRM B={batch} flip fold: "
+        f"{len(dense)} dense sites and the 9x9 depthwise one in int8, "
+        f"launches {path.counts}; the 9x9 site at its {n} layout(s) "
+        f"bit-equal to the plain version | {card}")
+    return path.counts, err
+
+
+def mobile_training(tmp, card, device="cuda"):
+    """12c: ``mobilevitv2_05`` (attention, ``LayerNorm2D``, the
+    align-corners resize) trained one epoch through ``train.run`` at B=32
+    with the yaml's WORKERS 4 on phase 7's synthetic mini-COCO, validated
+    (no fused decode: Gaussian targets); ``test.run`` with ``TPU.QUANTIZE
+    int8`` on the weights it wrote (self-calibrating: one launch a site
+    and batch of both int8 kernels); one ``/v1/pose`` request to a server
+    on them; a few ``TPU.QAT int8`` steps of ``mobilenetv3_small``
+    (grouped fake-quant).  Returns (launches by path, samples/s)."""
+    from udp_pose_tpu_torch import test as test_cli
+    from udp_pose_tpu_torch import train as train_cli
+    from udp_pose_tpu_torch.engine.server import PoseServer, PoseService
+    from udp_pose_tpu_torch.models import build_model
+    from udp_pose_tpu_torch.ops.targets import gaussian_targets_np
+    rng = np.random.default_rng(140)
+    root = os.path.join(tmp, "coco_mobile")
+    frames = {"train2017": synthetic_coco(root, "train2017", TRAIN_IMAGES,
+                                          rng),
+              "val2017": synthetic_coco(root, "val2017", VAL_IMAGES, rng)}
+    cfg = yaml_cfg(MOBILE_YAMLS["mobilevitv2_05"], "bfloat16")
+    cfg.DATASET.ROOT = root
+    cfg.OUTPUT_DIR = os.path.join(tmp, "mobile_run")
+    cfg.TRAIN.END_EPOCH = 1
+    os.makedirs(cfg.OUTPUT_DIR)
+    B = cfg.TRAIN.BATCH_SIZE_PER_GPU
+    check(cfg.WORKERS == 4 and B == 32, f"WORKERS {cfg.WORKERS}, B {B}")
+    train_ds = in_memory_coco(cfg, frames["train2017"], True)
+    val_ds = in_memory_coco(cfg, frames["val2017"], False)
+    paths = {}
+    training = PathLaunches("mobilevitv2_training")
+    # the trainer's cuDNN switches for this run only, as in 11c
+    flags = (torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.enabled)
+    train_cli.set_cudnn(cfg)
+    t0 = time.perf_counter()
+    try:
+        record = training.run(train_cli.run, cfg,
+                              build_model(cfg, device=device, train=True),
+                              train_ds, val_ds, cfg.OUTPUT_DIR, device)
+    finally:
+        (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.enabled) = flags
+    secs = time.perf_counter() - t0
+    check(training.counts == training.want, f"mobilevitv2_training: "
+          f"launches {training.counts}")
+    paths["mobilevitv2_training"] = training.counts
+    steps = record["steps"]
+    losses = [st["loss"] for st in steps]
+    check(len(steps) == len(train_ds) // B and all(np.isfinite(losses)),
+          f"mobilevitv2 losses {losses}")
+    warm = [st for st in steps if st["step"] >= WARM_STEPS] or steps
+    iter_ms = np.median([st["iter_s"] for st in warm]) * 1e3
+    load_ms = np.median([st["load_s"] for st in warm]) * 1e3
+    rate = B / iter_ms * 1e3
+    iters = ", ".join(f"{st['iter_s'] * 1e3:.1f}" for st in steps)
+    log(f"[mobile] 12c train.run mobilevitv2_05 bf16 B={B} WORKERS "
+        f"{cfg.WORKERS}, one epoch of {len(train_ds)} samples: losses "
+        f"{', '.join(f'{v:.5g}' for v in losses)}; iteration {iters} ms; "
+        f"{rate:.1f} samples/s (median iteration {iter_ms:.2f} ms after "
+        f"{WARM_STEPS} warm-up steps, waiting for the batch {load_ms:.2f} "
+        f"ms); validation AP {record['validations'][-1]['perf']:.4f} "
+        f"(random weights); train.run {secs:.1f} s | {card}")
+
+    weights = os.path.join(cfg.OUTPUT_DIR, "final_state.pth")
+    cfg8 = cfg.clone()
+    cfg8.TPU.QUANTIZE = "int8"
+    dense, dw = mobile_sites(cfg8, device)
+    tested = PathLaunches("int8_mobilevitv2_test")
+    _, perf = tested.run(test_cli.run, cfg8, weights, val_ds,
+                         cfg.OUTPUT_DIR, device)
+    val_batches = -(-len(val_ds) // cfg.TEST.BATCH_SIZE_PER_GPU)
+    tested.served(0, len(dense) * val_batches, len(dw) * val_batches)
+    tested.check()
+    paths["int8_mobilevitv2_test"] = tested.counts
+    log(f"[mobile] 12c test.run TPU.QUANTIZE int8 on final_state.pth: "
+        f"{len(val_ds)} crops in {val_batches} batches, AP {perf:.4f}; "
+        f"launches {tested.counts} = ({len(dense)} dense, {len(dw)} "
+        f"depthwise sites) x {val_batches} batches | {card}")
+
+    serving = PathLaunches("mobilevitv2_serving")
+    service = PoseService(cfg, weights=weights, device=device, window_ms=1.0)
+    server = PoseServer(service, host="127.0.0.1", port=0)
+    thread = server.serve_in_thread()
+    try:
+        frame, boxes = requests_for(1, (480, 640), seed=141)[0]
+        status, body, rsecs = serving.run(post_pose, server.port, frame,
+                                          boxes)
+    finally:
+        server.shutdown()
+        thread.join(timeout=30)
+    kp = np.asarray(body.get("keypoints", []), np.float32)
+    check(status == 200 and kp.shape == (len(boxes), 17, 2)
+          and np.isfinite(kp).all(), f"mobile /v1/pose: {status} {kp.shape}")
+    check(serving.counts == serving.want, f"mobilevitv2_serving: launches "
+          f"{serving.counts}")
+    paths["mobilevitv2_serving"] = serving.counts
+    log(f"[mobile] 12c /v1/pose to a mobilevitv2_05 server on "
+        f"final_state.pth: 200, {len(boxes)} persons x 17 joints in "
+        f"{rsecs * 1e3:.1f} ms | {card}")
+
+    qcfg = yaml_cfg(MOBILE_YAMLS["mobilenetv3_small"], "bfloat16")
+    qcfg.TPU.QAT = "int8"
+    w, h = qcfg.MODEL.IMAGE_SIZE
+    tgts, wts = [], []
+    for _ in range(B):
+        joints = np.concatenate([rng.uniform(0, w - 1, (17, 1)),
+                                 rng.uniform(0, h - 1, (17, 1)),
+                                 np.zeros((17, 1))], 1)
+        t, wt = gaussian_targets_np(joints, np.ones((17, 3)),
+                                    qcfg.MODEL.HEATMAP_SIZE,
+                                    qcfg.MODEL.IMAGE_SIZE, qcfg.MODEL.SIGMA)
+        tgts.append(t)
+        wts.append(wt)
+    data = {"image": rng.integers(0, 256, (B, h, w, 3), dtype=np.uint8),
+            "target": np.stack(tgts).astype(np.float32),
+            "target_weight": np.stack(wts).astype(np.float32)}
+    qat = repeated_batch_steps(qcfg, data, card, n_steps=6, device=device,
+                               label="[mobile] 12c QAT int8 "
+                                     "mobilenetv3_small (fake-quant "
+                                     "convs, depthwise included)")
+    return paths, {"mobilevitv2_training": rate,
+                   "mobilenetv3_qat": B / np.median(qat[WARM_STEPS:])}
+
+
+def phase_mobile(tmp, device="cuda"):
+    """Phase 12: the mobile zoo at full width: serving (12a), int8 with
+    the depthwise kernel (12b) and training (12c).  Returns (launches by
+    path, the depthwise kernel's entry of the kernels line, rates, the
+    functions that profile 12a's batches)."""
+    card = card_line()
+    t_phase = time.perf_counter()
+    rates, paths, profiles = mobile_serving(card, device)
+    kernel = {"by_net": {}, "max_abs_err": 0.0}
+    totals = dict.fromkeys(("int8_dwconv", "cudnn_bf16", "plain", "bound",
+                            "bound_bytes", "bound_ops", "bytes", "ops",
+                            "scalar_route", "shapes", "sites"), 0.0)
+    layouts = {}
+    for name in MOBILE_YAMLS:
+        paths[f"int8_{name}"], sums, err, int8_rates, n_layouts = \
+            mobile_int8(name, card, device)
+        rates.update({f"{name}_{k}": v for k, v in int8_rates.items()})
+        kernel["max_abs_err"] = max(kernel["max_abs_err"], err)
+        kernel["by_net"][name] = {
+            "ms": sums["int8_dwconv"], "bound_ms": sums["bound"],
+            "plain_ms": sums["plain"],
+            "cudnn_bf16_dwconv_ms": sums["cudnn_bf16"],
+            "one_channel_route_ms": sums["scalar_route"],
+            "sites": int(sums["sites"]), "shapes": int(sums["shapes"])}
+        layouts[f"int8_{name}"] = n_layouts
+        for k in totals:
+            totals[k] += sums[k]
+    paths["int8_rsn18_prm"], err = rsn_prm_int8(card, device)
+    kernel["max_abs_err"] = max(kernel["max_abs_err"], err)
+    train_paths, train_rates = mobile_training(tmp, card, device)
+    paths.update(train_paths)
+    rates.update(train_rates)
+    kernel.update(
+        ms=totals["int8_dwconv"], plain_ms=totals["plain"],
+        bound_ms=totals["bound"],
+        bound_by=("bytes" if totals["bound_bytes"] >= totals["bound_ops"]
+                  else "operations"),
+        library_ms=None, cudnn_bf16_dwconv_ms=totals["cudnn_bf16"],
+        one_channel_route_ms=totals["scalar_route"],
+        bound_gb=totals["bytes"] / 1e9, tera_ops=totals["ops"] / 1e12,
+        per=f"one fold forward (B={2 * SERVE_BATCH}) of each of the "
+            f"{len(MOBILE_YAMLS)} mobile yamls: {int(totals['sites'])} "
+            f"depthwise sites, {int(totals['shapes'])} shapes",
+        layouts_checked_by_path=layouts)
+    log(f"[mobile] 12b int8_dwconv over the {int(totals['sites'])} "
+        f"depthwise sites of the five fold forwards: "
+        f"{totals['int8_dwconv']:.4f} ms, "
+        f"{totals['int8_dwconv'] / totals['bound']:.2f}x its bound "
+        f"{totals['bound']:.4f} ({totals['bytes'] / 1e9:.3f} GB, "
+        f"{totals['ops'] / 1e12:.3f} T int8 operations), one-channel route "
+        f"{totals['scalar_route']:.4f} ms; plain {totals['plain']:.3f}; "
+        f"{totals['int8_dwconv'] / totals['cudnn_bf16']:.2f}x the bf16 "
+        f"cuDNN depthwise convs {totals['cudnn_bf16']:.4f} ms | {card}")
+    log(f"[mobile] phase 12 {time.perf_counter() - t_phase:.1f} s; "
+        f"launches {paths}")
+    return paths, kernel, rates, profiles
+
+
 # ------------------------------------------------------------------ main
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3702,13 +4242,15 @@ def main(argv=None):
                 tmp)
         with tempfile.TemporaryDirectory() as tmp:
             rsn_paths, rsn_int8_kernel, _, profile_rsn = phase_rsn(tmp)
+        with tempfile.TemporaryDirectory() as tmp:
+            mobile_paths, dw_kernel, _, profile_mobile = phase_mobile(tmp)
         # 3b's one-launch check reads the profiler's kernel list, which
         # has missed the ctypes-launched kernel in a process's later
         # profiler sessions: 3b holds the first one
         fused = phase_fused()
         profile_model()
         profile_detect()
-        for profile in profile_zoo + [profile_rsn]:
+        for profile in profile_zoo + [profile_rsn] + profile_mobile:
             profile()
         phase_blur()
         paths["pose_serving"] = phase_server(w32_cfg("bfloat16"))
@@ -3717,6 +4259,7 @@ def main(argv=None):
         paths.update(int8_paths)
         paths.update(zoo_paths)
         paths.update(rsn_paths)
+        paths.update(mobile_paths)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3748,7 +4291,11 @@ def main(argv=None):
         {"name": "fused_peak_offset", **decode,
          **launches("fused_peak_offset"), "on_main_path": False, **peak},
     ] + [{"name": name, **int8, "replaces": replaces[name], **launches(name),
-          **int8_kernels[name]} for name in INT8_KERNELS]}))
+          **int8_kernels[name]} for name in INT8_KERNELS] + [
+        {"name": "int8_dwconv", "route": "cuda",
+         "source": "udp_pose_tpu_torch/csrc/int8_dwconv.cu",
+         "replaces": "udp_pose_tpu/models/quantize.py:206-213",
+         "matched": True, **launches("int8_dwconv"), **dw_kernel}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

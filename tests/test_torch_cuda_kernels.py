@@ -202,3 +202,58 @@ def test_int_mm_shape_rules(cuda):
     for m, k, n in ((16, 32, 8), (24, 27, 8), (24, 32, 12)):
         with pytest.raises(RuntimeError):
             mm(m, k, n)
+
+
+@pytest.mark.parametrize("case", [
+    # (N, C, H, W, kernel, stride, bias, dtype, view)
+    (4, 16, 128, 96, 3, 2, False, torch.bfloat16, "channels_last"),
+    (4, 576, 8, 6, 5, 1, False, torch.bfloat16, "channels_last"),
+    (4, 96, 32, 24, 5, 2, False, torch.float32, "channels_last"),
+    (3, 18, 17, 13, 3, 1, False, torch.bfloat16, "channels_last"),
+    (3, 58, 16, 12, 3, 2, False, torch.bfloat16, "odd_channels"),
+    (2, 52, 10, 9, 7, 1, True, torch.float32, "channel_slice"),
+    (2, 104, 12, 9, 7, 2, False, torch.bfloat16, "nchw"),
+    (2, 32, 16, 12, 9, 1, True, torch.bfloat16, "channels_last"),
+    (1, 40, 3, 2, 9, 2, True, torch.float32, "channels_last"),
+    (2, 36, 64, 48, 5, 2, False, torch.bfloat16, "odd_channels"),
+    (2, 72, 19, 21, 3, 1, True, torch.bfloat16, "channels_last"),
+])
+def test_int8_dwconv_kernel_equals_plain_version(cuda, case):
+    """The int8 depthwise kernel, which ``Int8DepthwiseConv2d`` launches
+    on the card, against its plain version on the card and on the CPU,
+    bit for bit: the mobile nets' shapes (k 3/5/7, strides 1 and 2, C
+    from 16 to 576, many not multiples of 8), ShuffleNet's channel-split
+    views, a channel slice, NCHW input, RSN's PRM 9×9 with a bias, an
+    output smaller than the kernel and maps that are no multiple of the
+    8×8 tile; blocks of 8, 16 and 32 channels, and both load routes
+    (16-byte chunks where the layout allows, one channel a thread
+    otherwise)."""
+    from udp_pose_tpu_torch.models.quantize import Int8DepthwiseConv2d
+    from udp_pose_tpu_torch.ops import int8_dwconv as dw
+    N, C, H, W, k, s, bias, dtype, view = case
+    g = torch.Generator().manual_seed(sum(case[:6]))
+    wide = (torch.randn(N, 2 * C, H, W, generator=g) * 3).to(dtype)
+    wide = wide.contiguous(memory_format=torch.channels_last)
+
+    def view_of(t):
+        return {"channels_last": t[:, :C].contiguous(
+                    memory_format=torch.channels_last),
+                "odd_channels": t[:, 1::2], "channel_slice": t[:, 5:5 + C],
+                "nchw": t[:, :C].contiguous()}[view]
+
+    x, xc = view_of(wide), view_of(wide.to(cuda))
+    assert xc.stride() == x.stride()
+    conv = torch.nn.Conv2d(C, C, k, s, (k - 1) // 2, groups=C, bias=bias)
+    layer = Int8DepthwiseConv2d(conv, float(x.float().abs().amax()) * 0.8)
+    want = dw.int8_dwconv_reference(x, layer)
+    layer = layer.to(cuda)
+    before = dw.int8_dwconv.launches
+    out = layer(xc)
+    torch.cuda.synchronize()
+    assert dw.int8_dwconv.launches == before + 1
+    assert dw.dw_loads(xc) == ("vec" if view == "channels_last"
+                               and C % 8 == 0 else "scalar")
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    assert out.dtype == dtype
+    assert torch.equal(out.cpu(), want)
+    assert torch.equal(dw.int8_dwconv_reference(xc, layer).cpu(), want)

@@ -324,7 +324,14 @@ def test_int8_sites_equal_jax(nets):
     int8 site, fed the input it gets inside the JAX ``QuantizedModel``
     (channel slices and their sums at the residual steps included),
     gives the JAX output bit for bit."""
-    jmodel, v, model, _ = nets["base"]
+    _int8_sites_equal_jax(nets["base"])
+
+
+def _int8_sites_equal_jax(net, only=""):
+    """The int8 sites of ``net`` against the JAX ``QuantizedModel``'s:
+    engaged sets equal, and each site whose path holds ``only`` bit for
+    bit on the input it gets there."""
+    jmodel, v, model, _ = net
     x = _x(7)
     table = jq.calibrate(jmodel, v, [jnp.asarray(x)])
     jqm = jq.QuantizedModel(jmodel, table)
@@ -369,7 +376,10 @@ def test_int8_sites_equal_jax(nets):
     assert qm.engaged == jqm.engaged == set(seen)
     assert len(floats) == 4 and qm.engaged == set(sites.values()) - floats
     names = {p: n for n, p in sites.items()}
-    for path, site_in in seen.items():
+    checked = [p for p in seen if only in p]
+    assert checked
+    for path in checked:
+        site_in = seen[path]
         conv = model.get_submodule(names[path])
         params = v["params"]
         for part in path.split("/"):
@@ -382,24 +392,34 @@ def test_int8_sites_equal_jax(nets):
                                         conv.padding)
         flax_conv = fnn.Conv(conv.out_channels, (kh, kw), strides=(sh, sw),
                              padding=((ph, ph), (pw, pw)), use_bias=True,
+                             feature_group_count=conv.groups,
                              dtype=jnp.float32).bind({"params": params})
         leaf = quant
         for part in path.split("/"):
             leaf = leaf[part]
         want = np.asarray(jq._quantized_conv(flax_conv, jnp.asarray(site_in),
                                              table[path], leaf))
+        site = qm.net.get_submodule(names[path])
+        assert isinstance(site, tq.Int8DepthwiseConv2d) == (conv.groups > 1)
         with torch.inference_mode():
-            got = qm.net.get_submodule(names[path])(_nchw(site_in))
+            got = site(_nchw(site_in))
         np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(),
                                       want, err_msg=path)
+    return checked
 
 
 def test_int8_refuses_prm_depthwise_conv(nets):
-    """PRM's 9×9 depthwise conv has no int8 kernel yet."""
-    _, _, model, _ = nets["prm"]
-    table = {p: 1.0 for p in conv_sites(model).values()}
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tq.QuantizedModel(model, table)
+    """int8 PTQ of the PRM net (kept under its old name, from when PRM's
+    9×9 depthwise conv had no int8 kernel): the engaged sites are the JAX
+    ``QuantizedModel``'s, the 9×9 spatial gate among them, and every PRM
+    site, fed the input it gets inside the JAX ``QuantizedModel``, gives
+    the JAX output bit for bit; the 9×9 one serves through the
+    depthwise int8 conv."""
+    checked = _int8_sites_equal_jax(nets["prm"], only="/prm/")
+    assert len(checked) == 5
+    model = nets["prm"][2]
+    assert model.stage0.upsample.up4.prm.conv_bn_relu_prm_3_2.conv.groups \
+        == 32 and any(p.endswith("prm3_2/conv") for p in checked)
 
 
 def test_conv_sites_name_the_jax_paths(nets):

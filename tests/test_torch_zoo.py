@@ -408,26 +408,29 @@ YAMLS = sorted(str(p.relative_to(REPO)) for p in REPO.glob("configs/*/*.yaml"))
 
 
 def test_yaml_census():
-    """28 yamls: 23 of the ported families (5 of them RSN), 5 of the
+    """28 yamls, every one of a ported family: 5 of them RSN, 5 of the
     mobile families."""
     names = [load_config(REPO / y).MODEL.NAME for y in YAMLS]
     assert len(YAMLS) == 28
-    assert sum(n in MODELS for n in names) == 23
+    assert sum(n in MODELS for n in names) == 28
     assert names.count("rsn") == 5
+    assert sum(n.startswith(("pose_shufflenetv2", "pose_mobile"))
+               for n in names) == 5
 
 
 @pytest.mark.parametrize("yaml", YAMLS)
 def test_every_yaml_builds_or_names_the_registry(yaml):
-    """Each yaml of ``configs/`` through ``build_model``: a registered
-    family builds on the CPU (output channels per its head), another
-    raises ``KeyError`` listing what is registered.  Full width, so the
-    models are built on the meta device (no weights drawn)."""
+    """Each yaml of ``configs/`` through the registry: every one builds
+    (output channels per its head) and has conv sites.  Full width, so
+    the models are built on the meta device (no weights drawn).  A name
+    that is not registered raises ``KeyError`` listing what is."""
     cfg = load_config(REPO / yaml)
     name = cfg.MODEL.NAME
-    if name not in MODELS:
-        with pytest.raises(KeyError, match="pose_resnet_psa"):
-            build_model(cfg, device="cpu")
-        return
+    assert name in MODELS
+    unknown = cfg.clone()
+    unknown.MODEL.NAME = "pose_" + name + "_unregistered"
+    with pytest.raises(KeyError, match="pose_mobilevitv2_pixel_shuffle"):
+        build_model(unknown, device="cpu")
     with torch.device("meta"):
         model = MODELS[name](cfg)
     J = cfg.MODEL.NUM_JOINTS * (3 if cfg.MODEL.TARGET_TYPE == "offset"

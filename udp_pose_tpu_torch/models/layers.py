@@ -1,10 +1,13 @@
 """Shared building blocks: conv/BN/ReLU, the residual blocks, the
-SimpleBaseline max-pool and deconvolution head.
+SimpleBaseline max-pool and deconvolution head, and the pixel-shuffle
+decoder of the mobile nets.
 
 Port of ``udp_pose_tpu/models/layers.py`` in NCHW.  Attribute names are
 the reference torch ones (deep_hrnet/lib/models/pose_hrnet.py:29-101:
 ``conv1``/``bn1``/.../``downsample.0``/``downsample.1``, the PSA insert
-``deattn``; pose_resnet.py:168-193: ``deconv_layers.{i}``), so a
+``deattn``; pose_resnet.py:168-193: ``deconv_layers.{i}``;
+decoders/pixelshuffle.py: ``conv_compress``/``duc.{i}.conv``/
+``duc.{i}.bn``), so a
 published ``.pth`` and the JAX package's bridged variables load with
 ``strict=True``.
 
@@ -165,3 +168,44 @@ def add_upsampled(acc, y, factor: int):
     if factor == 1:
         return acc + y
     return acc + upsample_nearest(y, factor)
+
+
+def pixel_shuffle(x, factor: int):
+    """torch ``nn.PixelShuffle``: (B, C·r², H, W) → (B, C, H·r, W·r) with
+    channel-major blocks, which is the channel order of the JAX package's
+    NHWC ``pixel_shuffle``."""
+    return F.pixel_shuffle(x, factor)
+
+
+class DUC(nn.Module):
+    """Dense Upsampling Conv (decoders/DUC.py:9-28): 3×3 conv (no bias),
+    BatchNorm, ReLU, then a ×``upscale`` pixel shuffle; ``planes`` is the
+    width before the shuffle."""
+
+    def __init__(self, in_ch: int, planes: int, upscale: int = 2):
+        super().__init__()
+        self.conv, self.bn = _conv_bn(in_ch, planes, 3, 1)
+        self.upscale = upscale
+
+    def forward(self, x):
+        return pixel_shuffle(F.relu(self.bn(self.conv(x))), self.upscale)
+
+
+class PixelShuffleDecoder(nn.Module):
+    """Bias-free 1×1 compress to ``start_channels``, then one :class:`DUC`
+    a width of ``architecture`` (decoders/pixelshuffle.py:7-31): the
+    default (512, 256, 128) upsamples ×8 to 32 channels."""
+
+    def __init__(self, in_ch: int, start_channels: int = 256,
+                 architecture=(512, 256, 128)):
+        super().__init__()
+        self.conv_compress = nn.Conv2d(in_ch, start_channels, 1, bias=False)
+        ducs, c = [], start_channels
+        for planes in architecture:
+            ducs.append(DUC(c, planes))
+            c = planes // 4
+        self.duc = nn.Sequential(*ducs)
+        self.out_channels = c
+
+    def forward(self, x):
+        return self.duc(self.conv_compress(x))

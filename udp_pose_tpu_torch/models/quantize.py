@@ -21,7 +21,11 @@ other module of the copy is the original's code on the original's
 tensors.  The int8 conv itself is :func:`..ops.int8_conv.int8_conv2d`:
 on the card one launch of the hand-written implicit-GEMM kernel that
 quantises on load, multiplies on the s8 tensor cores and applies the
-dequant epilogue in registers.
+dequant epilogue in registers.  A depthwise conv (groups = Cin = Cout,
+the mobile nets' and RSN's PRM) serves as an
+:class:`Int8DepthwiseConv2d` through :func:`..ops.int8_dwconv.int8_dwconv`,
+the hand-written depthwise kernel; QAT fake-quantises grouped convs in
+plain torch, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.int8_conv import gemm_pad, int8_conv2d, k_tile_pad
+from ..ops.int8_dwconv import int8_dwconv
 from ..utils.convert import conv_sites
 
 # the output heads stay in float (quantize.py:36-44 there): the pose
@@ -221,10 +226,16 @@ def act_scale(amax) -> float:
     return max(float(amax), 1e-12) / 127.0
 
 
+def is_depthwise(conv) -> bool:
+    """groups = Cin = Cout > 1: the grouped convs the zoo has."""
+    return (conv.groups > 1 and conv.groups == conv.in_channels
+            == conv.out_channels)
+
+
 def _check_plain(conv):
-    if conv.groups != 1:
-        raise NotImplementedError("grouped int8 convs (groups > 1) are not "
-                                  "ported yet")
+    if conv.groups != 1 and not is_depthwise(conv):
+        raise NotImplementedError("grouped int8 convs other than depthwise "
+                                  "(groups = Cin = Cout) are not ported yet")
     if (conv.dilation != (1, 1) or conv.padding_mode != "zeros"
             or isinstance(conv.padding, str)):
         raise NotImplementedError("int8 convs with dilation, non-zero "
@@ -232,16 +243,15 @@ def _check_plain(conv):
                                   "not ported yet")
 
 
-class Int8Conv2d(nn.Module):
-    """The w8a8 replacement of one ``nn.Conv2d`` (``_quantized_conv``),
-    prepared once: the int8 weight in the GEMM layout (N_pad, K_pad) with
-    K in (kh, kw, cin) order and zero columns up to the fused kernel's K
-    tile, the epilogue scale ``f32(s_a) · s_w``, the
-    float32 bias, and the activation's ``1/s_a`` as a float32 value.  The
-    forward takes no host sync."""
+class _Int8Site(nn.Module):
+    """What both int8 conv modules keep of ``conv``, prepared once: its
+    geometry, the activation's ``s_a`` and ``1/s_a`` as a float32 value,
+    the epilogue scale ``f32(s_a) · s_w`` and the float32 bias (buffers),
+    and the card's launch arguments per input layout (``launch_plans``).
+    :meth:`_prepare` returns the int8 weight for the subclass to lay out.
+    The forward takes no host sync."""
 
-    def __init__(self, conv: nn.Conv2d, amax: float):
-        super().__init__()
+    def _prepare(self, conv: nn.Conv2d, amax: float):
         _check_plain(conv)
         self.kernel_size, self.stride = conv.kernel_size, conv.stride
         self.padding = conv.padding
@@ -251,6 +261,25 @@ class Int8Conv2d(nn.Module):
         # x_f * (1.0 / s_a): the float32 rounding of the double 1/s_a
         self.inv_s_a = float(np.float32(1.0 / self.s_a))
         w_i8, s_w = quantize_kernel(conv.weight)
+        self.register_buffer(
+            "scale", s_w * torch.tensor(np.float32(self.s_a)),
+            persistent=False)
+        self.register_buffer(
+            "bias", None if conv.bias is None else conv.bias.detach().float(),
+            persistent=False)
+        self.launch_plans = {}
+        return w_i8
+
+
+class Int8Conv2d(_Int8Site):
+    """The w8a8 replacement of one ``nn.Conv2d`` (``_quantized_conv``):
+    the int8 weight in the GEMM layout (N_pad, K_pad) with K in (kh, kw,
+    cin) order and zero columns up to the fused kernel's K tile, run by
+    :func:`..ops.int8_conv.int8_conv2d`."""
+
+    def __init__(self, conv: nn.Conv2d, amax: float):
+        super().__init__()
+        w_i8 = self._prepare(conv, amax)
         O = self.out_channels
         K = w_i8[0].numel()
         self.k_pad = k_tile_pad(K)
@@ -258,17 +287,32 @@ class Int8Conv2d(nn.Module):
                         device=w_i8.device)
         w[:O, :K] = w_i8.permute(0, 2, 3, 1).reshape(O, K)
         self.register_buffer("w_gemm", w, persistent=False)
-        self.register_buffer(
-            "scale", s_w * torch.tensor(np.float32(self.s_a)),
-            persistent=False)
-        self.register_buffer(
-            "bias", None if conv.bias is None else conv.bias.detach().float(),
-            persistent=False)
-        # the card's launch arguments per input layout (ops.int8_conv)
-        self.launch_plans = {}
 
     def forward(self, x):
         return int8_conv2d(x, self)
+
+
+class Int8DepthwiseConv2d(_Int8Site):
+    """The w8a8 replacement of one depthwise ``nn.Conv2d`` (groups = C):
+    the int8 weight as (kh·kw, C), tap-major with the channels contiguous
+    (the kernel's layout), run by :func:`..ops.int8_dwconv.int8_dwconv`."""
+
+    def __init__(self, conv: nn.Conv2d, amax: float):
+        super().__init__()
+        w_i8 = self._prepare(conv, amax)
+        self.register_buffer("w_taps", w_i8.reshape(
+            self.in_channels, -1).t().contiguous(), persistent=False)
+
+    def forward(self, x):
+        return int8_dwconv(x, self)
+
+
+def int8_conv_for(conv: nn.Conv2d, amax: float) -> nn.Module:
+    """The int8 serving module of ``conv``: :class:`Int8DepthwiseConv2d`
+    for a depthwise conv, :class:`Int8Conv2d` otherwise."""
+    if is_depthwise(conv):
+        return Int8DepthwiseConv2d(conv, amax)
+    return Int8Conv2d(conv, amax)
 
 
 def _ste(real, quantized):
@@ -355,7 +399,8 @@ class _SiteWrapper(nn.Module):
 class QuantizedModel(_SiteWrapper):
     """``model`` with every calibrated conv in int8: a site present in
     ``act_scales``, matched by no ``skip`` pattern and with at least
-    ``min_in_channels`` input channels runs as an :class:`Int8Conv2d`;
+    ``min_in_channels`` input channels runs as an :class:`Int8Conv2d`
+    (an :class:`Int8DepthwiseConv2d` where it is depthwise);
     everything else is the original module on the original tensors."""
 
     def __init__(self, model, act_scales: Mapping[str, float],
@@ -370,7 +415,7 @@ class QuantizedModel(_SiteWrapper):
             lambda path, conv: (path in self.act_scales
                                 and not _matches(path, self.skip)
                                 and conv.in_channels >= self.min_in_channels),
-            lambda conv, path: Int8Conv2d(conv, self.act_scales[path]))
+            lambda conv, path: int8_conv_for(conv, self.act_scales[path]))
 
 
 class FakeQuantModel(_SiteWrapper):

@@ -1,9 +1,10 @@
 """Model registry (port of ``udp_pose_tpu/models/registry.py``).
 
 Pose models by ``cfg.MODEL.NAME``: ``pose_hrnet``, ``pose_hrnet_psa``,
-``pose_resnet``, ``pose_resnet_psa`` and ``rsn`` so far (any other name raises
-``KeyError`` naming what is registered), and the YOLOv5 detectors by
-name (``yolov5n``, ``yolov5s``, ``yolov5m``, ``yolov5l``).
+``pose_resnet``, ``pose_resnet_psa``, ``rsn`` and the nine mobile names
+of :mod:`.pose_mobile` (any other name raises ``KeyError`` naming what
+is registered), and the YOLOv5 detectors by name (``yolov5n``,
+``yolov5s``, ``yolov5m``, ``yolov5l``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 from torch import nn
 
 from ..utils.platform import resolve_device
+from . import pose_mobile
 from .hrnet import pose_hrnet_from_cfg
 from .resnet import pose_resnet_from_cfg
 from .rsn import rsn_from_cfg
@@ -34,24 +36,27 @@ def register_model(name: str):
 
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random init in the manner of flax's defaults, which the JAX
-    package's smoke mode uses: conv and transposed-conv kernels normal
-    with variance 1/fan_in, fan_in = kh·kw·in as flax counts it for both
-    (flax truncates its lecun_normal; this does not), their biases 0,
-    BatchNorm and LayerNorm scale 1 / bias 0, running mean 0 / running
-    var 1.  Drawn on the CPU from one ``torch.Generator``, so a seed gives
-    the same weights on every device."""
+    package's smoke mode uses: conv, transposed-conv and linear kernels
+    normal with variance 1/fan_in, fan_in = kh·kw·in as flax counts it for
+    the convs (flax truncates its lecun_normal; this does not), their
+    biases 0, BatchNorm, LayerNorm and GroupNorm scale 1 / bias 0, running
+    mean 0 / running var 1.  Drawn on the CPU from one
+    ``torch.Generator``, so a seed gives the same weights on every
+    device."""
     gen = torch.Generator().manual_seed(int(seed))
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-            # Conv2d (O, I, kh, kw); ConvTranspose2d (I, O, kh, kw)
-            fan_in = (m.weight[0].numel() if isinstance(m, nn.Conv2d)
-                      else m.weight[:, 0].numel())
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            # Conv2d (O, I, kh, kw); ConvTranspose2d (I, O, kh, kw);
+            # Linear (O, I)
+            fan_in = (m.weight[:, 0].numel()
+                      if isinstance(m, nn.ConvTranspose2d)
+                      else m.weight[0].numel())
             with torch.no_grad():
                 m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
                                / math.sqrt(fan_in))
                 if m.bias is not None:
                     m.bias.zero_()
-        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
+        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm, nn.GroupNorm)):
             m.reset_parameters()
     return model
 
@@ -119,3 +124,16 @@ def _pose_hrnet_psa(cfg):
 @register_model("rsn")
 def _rsn(cfg):
     return rsn_from_cfg(cfg)
+
+
+for _name, _head in (("", "deconv"), ("_pixel_shuffle", "pixel_shuffle")):
+    register_model(f"pose_shufflenetv2_plus{_name}")(
+        lambda cfg, h=_head: pose_mobile.shufflenetv2_plus(cfg, h))
+    register_model(f"pose_shufflenetv2_10x{_name}")(
+        lambda cfg, h=_head: pose_mobile.shufflenetv2_10x(cfg, h))
+    register_model(f"pose_mobilenetv3_small{_name}")(
+        lambda cfg, h=_head: pose_mobile.mobilenetv3_small(cfg, h))
+register_model("shufflenetv2_test")(pose_mobile.shufflenetv2_test)
+register_model("pose_mobilevit_pixel_shuffle")(pose_mobile.mobilevit)
+register_model("pose_mobilevitv2_pixel_shuffle")(pose_mobile.mobilevitv2)
+del _name, _head

@@ -75,14 +75,19 @@ def _blur_matrix(n: int, ksize: int, sigma: float,
 
 @contextlib.contextmanager
 def _ieee_fp32_matmul():
-    """Full-float32 matrix products inside the block, whatever the
-    process-wide setting (which is restored after)."""
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
+    """Full-float32 CUDA matrix products (no TF32) inside the block,
+    whatever the process-wide setting, which is restored after.  Only the
+    CUDA matmul flag is read and set: restoring the generic
+    ``set_float32_matmul_precision("high")`` would also switch the CPU
+    backend to TF32, and a later ``allow_tf32 = False`` then leaves the
+    two backends mixed, where torch refuses every generic query."""
+    matmul = torch.backends.cuda.matmul
+    prev = matmul.allow_tf32
+    matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.set_float32_matmul_precision(prev)
+        matmul.allow_tf32 = prev
 
 
 def gaussian_blur(maps, ksize: int, sigma: float = 0.0):

@@ -5,7 +5,8 @@ The port's own copy of the reverse half of
 ``udp_pose_tpu/utils/torch_convert.py`` (``Converter(reverse=True)``, the
 HRNet and SimpleBaseline mappings ``_map_pose_hrnet`` and
 ``_map_pose_resnet`` with their PSA inserts, the RSN mapping
-``_map_rsn`` and the YOLOv5 mapping ``_map_yolov5``): it walks the JAX
+``_map_rsn``, the mobile nets' ``_map_pose_mobile`` and the YOLOv5
+mapping ``_map_yolov5``): it walks the JAX
 package's flax variables — nested dicts of numpy arrays under
 ``params`` and ``batch_stats`` — and emits
 the reference torch state_dict, whose keys are the port's module names.
@@ -14,7 +15,9 @@ Layout rules: flax conv kernel (kh, kw, I, O) → torch Conv2d
 ConvTranspose2d (I, O, kh, kw); BatchNorm scale/bias → weight/bias,
 batch_stats mean/var → running_mean/running_var; LayerNorm scale/bias →
 weight/bias, (C, 1, 1) for the PSA LayerNorm([C, 1, 1]); flax Dense
-kernel (I, O) → torch Linear (O, I).
+kernel (I, O) → torch Linear (O, I); flax multi-head attention
+(query/key/value (dim, heads, head dim), out (heads, head dim, dim)) →
+corenet's combined ``qkv_proj`` (rows q; k; v) and ``out_proj``.
 """
 
 from __future__ import annotations
@@ -112,6 +115,25 @@ class Converter:
             w, b = w.reshape(-1, 1, 1), b.reshape(-1, 1, 1)
         self.sd[tkey + ".weight"] = w
         self.sd[tkey + ".bias"] = b
+
+    def mha(self, tkey: str, *path):
+        """flax ``MultiHeadDotProductAttention`` at ``path`` → corenet's
+        ``qkv_proj`` / ``out_proj`` Linears
+        (``utils/torch_convert.py:_convert_mha`` there)."""
+        ws, bs = [], []
+        for name in ("query", "key", "value"):
+            k = _get(self.params, (*path, name, "kernel"))
+            dim = k.shape[0]
+            ws.append(k.reshape(dim, dim).T)
+            bs.append(_get(self.params, (*path, name, "bias")).reshape(dim))
+        self.sd[tkey + ".qkv_proj.weight"] = np.ascontiguousarray(
+            np.concatenate(ws, axis=0))
+        self.sd[tkey + ".qkv_proj.bias"] = np.concatenate(bs, axis=0)
+        ko = _get(self.params, (*path, "out", "kernel"))
+        self.sd[tkey + ".out_proj.weight"] = np.ascontiguousarray(
+            ko.reshape(-1, ko.shape[-1]).T)
+        self.sd[tkey + ".out_proj.bias"] = _get(self.params,
+                                                (*path, "out", "bias"))
 
 
 def _convert_psa(cv, tprefix, *path):
@@ -306,6 +328,220 @@ def rsn_family(cfg):
                 prm=extra.get("USE_PRM", False))
 
 
+# ------------------------------------------------------------ mobile nets
+MOBILE_NAMES = {
+    f"{base}{head}" for base in ("pose_shufflenetv2_plus",
+                                 "pose_shufflenetv2_10x",
+                                 "pose_mobilenetv3_small")
+    for head in ("", "_pixel_shuffle")} | {
+    "shufflenetv2_test", "pose_mobilevit_pixel_shuffle",
+    "pose_mobilevitv2_pixel_shuffle"}
+
+
+def _convert_se_hardsigmoid(cv, tprefix, *path):
+    """ShuffleNetV2+'s SELayer (``SE_opr``: [1] conv, [2] bn, [4] conv)."""
+    cv.conv(f"{tprefix}.SE_opr.1", *path, "fc1")
+    cv.bn(f"{tprefix}.SE_opr.2", *path, "bn")
+    cv.conv(f"{tprefix}.SE_opr.4", *path, "fc2")
+
+
+def _convert_shuffle_block(cv, tp, fp, xception):
+    """One ShuffleV2Block / Shufflenet / Shuffle_Xception."""
+    if xception:
+        pairs = [("0", "dw1"), ("2", "pw1"), ("5", "dw2"), ("7", "pw2"),
+                 ("10", "dw3"), ("12", "pw3")]
+        se_idx = 15
+    else:
+        pairs = [("0", "pw"), ("3", "dw"), ("5", "pwl")]
+        se_idx = 8
+    for ti, fn in pairs:
+        cv.conv(f"{tp}.branch_main.{ti}", *fp, fn, "conv")
+        cv.bn(f"{tp}.branch_main.{int(ti) + 1}", *fp, fn, "bn")
+    if cv.probe(f"{tp}.branch_main.{se_idx}.SE_opr.1.weight", *fp, "se"):
+        _convert_se_hardsigmoid(cv, f"{tp}.branch_main.{se_idx}", *fp, "se")
+    if cv.probe(f"{tp}.branch_proj.0.weight", *fp, "proj_dw"):
+        cv.conv(f"{tp}.branch_proj.0", *fp, "proj_dw", "conv")
+        cv.bn(f"{tp}.branch_proj.1", *fp, "proj_dw", "bn")
+        cv.conv(f"{tp}.branch_proj.2", *fp, "proj_pw", "conv")
+        cv.bn(f"{tp}.branch_proj.3", *fp, "proj_pw", "bn")
+
+
+def _map_shufflenetv2(cv, prefix, fr, n_blocks, arch=None):
+    """ShuffleNetV2 (``arch`` None) or ShuffleNetV2+ (``arch`` the block
+    types, 3 = Xception)."""
+    cv.conv(f"{prefix}first_conv.0", *fr, "first_conv", "conv")
+    cv.bn(f"{prefix}first_conv.1", *fr, "first_conv", "bn")
+    for i in range(n_blocks):
+        _convert_shuffle_block(cv, f"{prefix}features.{i}",
+                               (*fr, f"block{i}"),
+                               arch is not None and arch[i] == 3)
+    cv.conv(f"{prefix}conv_last.0", *fr, "conv_last", "conv")
+    cv.bn(f"{prefix}conv_last.1", *fr, "conv_last", "bn")
+
+
+def _convert_cna(cv, tkey, *path):
+    """corenet ConvLayer (``.block.conv`` [+ ``.block.norm``]) →
+    ``ConvNormAct``."""
+    cv.conv(f"{tkey}.block.conv", *path, "conv")
+    if cv.probe(f"{tkey}.block.norm.weight", *path, "bn"):
+        cv.bn(f"{tkey}.block.norm", *path, "bn")
+
+
+def _convert_corenet_mv2(cv, tp, fp):
+    """corenet InvertedResidual (backbones/mobilevit.py:239-366)."""
+    if cv.probe(f"{tp}.block.exp_1x1.block.conv.weight", *fp, "exp_1x1"):
+        _convert_cna(cv, f"{tp}.block.exp_1x1", *fp, "exp_1x1")
+    _convert_cna(cv, f"{tp}.block.conv_3x3", *fp, "conv_3x3")
+    _convert_cna(cv, f"{tp}.block.red_1x1", *fp, "red_1x1")
+
+
+# transformer depth of each MobileViT stage (MOBILEVIT_SPEC's L)
+_MOBILEVIT_DEPTHS = (2, 4, 3)
+
+
+def _map_mobilevit(cv, prefix, fr):
+    p = prefix
+    _convert_cna(cv, f"{p}conv_1", *fr, "conv_1")
+    _convert_corenet_mv2(cv, f"{p}layer_1.0", (*fr, "layer1_0"))
+    for i in range(3):
+        _convert_corenet_mv2(cv, f"{p}layer_2.{i}", (*fr, f"layer2_{i}"))
+    for li, L in zip((3, 4, 5), _MOBILEVIT_DEPTHS):
+        _convert_corenet_mv2(cv, f"{p}layer_{li}.0", (*fr, f"layer{li}_mv2"))
+        tp, fp = f"{p}layer_{li}.1", (*fr, f"layer{li}_vit")
+        _convert_cna(cv, f"{tp}.local_rep.conv_3x3", *fp, "local_3x3")
+        cv.conv(f"{tp}.local_rep.conv_1x1.block.conv", *fp, "local_1x1")
+        for b in range(L):
+            base, tr = f"{tp}.global_rep.{b}", (*fp, f"tr{b}")
+            cv.ln(f"{base}.pre_norm_mha.0", *tr, "ln1")
+            cv.mha(f"{base}.pre_norm_mha.1", *tr, "attn")
+            cv.ln(f"{base}.pre_norm_ffn.0", *tr, "ln2")
+            cv.dense(f"{base}.pre_norm_ffn.1", *tr, "fc1")
+            cv.dense(f"{base}.pre_norm_ffn.4", *tr, "fc2")
+        cv.ln(f"{tp}.global_rep.{L}", *fp, "ln_out")
+        _convert_cna(cv, f"{tp}.conv_proj", *fp, "conv_proj")
+        _convert_cna(cv, f"{tp}.fusion", *fp, "fusion")
+    _convert_cna(cv, f"{p}conv_1x1_exp", *fr, "conv_1x1_exp")
+
+
+def _map_mobilevitv2(cv, prefix, fr):
+    p = prefix
+    _convert_cna(cv, f"{p}conv_1", *fr, "conv_1")
+    _convert_corenet_mv2(cv, f"{p}layer_1.0", (*fr, "layer1_0"))
+    for i in range(2):
+        _convert_corenet_mv2(cv, f"{p}layer_2.{i}", (*fr, f"layer2_{i}"))
+    for li, L in zip((3, 4, 5), (2, 4, 3)):
+        _convert_corenet_mv2(cv, f"{p}layer_{li}.0", (*fr, f"layer{li}_mv2"))
+        tp, fp = f"{p}layer_{li}.1", (*fr, f"layer{li}_vit")
+        _convert_cna(cv, f"{tp}.local_rep.0", *fp, "local_dw")
+        cv.conv(f"{tp}.local_rep.1.block.conv", *fp, "local_1x1")
+        for b in range(L):
+            base, ab = f"{tp}.global_rep.{b}", (*fp, f"attn{b}")
+            cv.ln(f"{base}.pre_norm_attn.0", *ab, "norm1")
+            cv.conv(f"{base}.pre_norm_attn.1.qkv_proj.block.conv",
+                    *ab, "attn", "qkv_proj")
+            cv.conv(f"{base}.pre_norm_attn.1.out_proj.block.conv",
+                    *ab, "attn", "out_proj")
+            cv.ln(f"{base}.pre_norm_ffn.0", *ab, "norm2")
+            cv.conv(f"{base}.pre_norm_ffn.1.block.conv", *ab, "ffn1")
+            cv.conv(f"{base}.pre_norm_ffn.3.block.conv", *ab, "ffn2")
+        cv.ln(f"{tp}.global_rep.{L}", *fp, "norm_out")
+        _convert_cna(cv, f"{tp}.conv_proj", *fp, "conv_proj")
+
+
+def _map_mobilenetv3_small(cv, prefix, fr):
+    """torchvision ``mobilenet_v3_small`` features under ``prefix``."""
+    from ..models.mobile import MOBILENETV3_SMALL_SPEC
+
+    def cna(tkey, *path):
+        cv.conv(f"{tkey}.0", *path, "conv")
+        cv.bn(f"{tkey}.1", *path, "bn")
+
+    cna(f"{prefix}0", *fr, "stem")
+    in_ch = 16
+    for bi, (exp, out, _k, _s, se, _act) in enumerate(MOBILENETV3_SMALL_SPEC):
+        tb, j = f"{prefix}{bi + 1}.block", 0
+        if exp != in_ch:
+            cna(f"{tb}.{j}", *fr, f"b{bi}_expand")
+            j += 1
+        cna(f"{tb}.{j}", *fr, f"b{bi}_dw")
+        j += 1
+        if se:
+            cv.conv(f"{tb}.{j}.fc1", *fr, f"b{bi}_se", "fc1")
+            cv.conv(f"{tb}.{j}.fc2", *fr, f"b{bi}_se", "fc2")
+            j += 1
+        cna(f"{tb}.{j}", *fr, f"b{bi}_project")
+        in_ch = out
+    cna(f"{prefix}12", *fr, "conv_last")
+
+
+def mobile_family_from_cfg(cfg):
+    """What :func:`_map_pose_mobile` needs of a mobile pose config: (the
+    backbone: ``shufflenetv2_plus`` | ``shufflenetv2_10x`` |
+    ``mobilenetv3_small`` | ``mobilevit`` | ``mobilevitv2``, the head:
+    ``deconv`` | ``pixel_shuffle``, the number of DUCs)."""
+    name = cfg.MODEL.NAME
+    if name not in MOBILE_NAMES:
+        raise KeyError(f"not a mobile pose model: {name!r}")
+    if name == "shufflenetv2_test":
+        return "shufflenetv2_10x", "pixel_shuffle", 3
+    backbone = next(b for b in ("shufflenetv2_plus", "shufflenetv2_10x",
+                                "mobilenetv3_small", "mobilevitv2",
+                                "mobilevit") if b in name)
+    if "pixel_shuffle" in name:
+        arch = cfg.MODEL.EXTRA.get("ARCHITECTURE", (512, 256, 128))
+        return backbone, "pixel_shuffle", len(arch)
+    return backbone, "deconv", 0
+
+
+def mobile_family(model):
+    """:func:`mobile_family_from_cfg` of a built ``MobilePoseNet``."""
+    from ..models.mobile import (MobileNetV3Small, ShuffleNetV2,
+                                 ShuffleNetV2Plus)
+    from ..models.mobilevit import MobileViT, MobileViTv2
+    backbone = {ShuffleNetV2Plus: "shufflenetv2_plus",
+                ShuffleNetV2: "shufflenetv2_10x",
+                MobileNetV3Small: "mobilenetv3_small", MobileViT: "mobilevit",
+                MobileViTv2: "mobilevitv2"}[type(model.backbone)]
+    if model.head == "pixel_shuffle":
+        return backbone, "pixel_shuffle", len(model.decoder.duc)
+    return backbone, "deconv", 0
+
+
+def _map_pose_mobile(cv, family):
+    """The mobile pose wrapper (``backbone.`` + ``deconv_layers.`` or
+    ``decoder.`` + ``final_layer``) against the JAX package's
+    ``MobilePoseNet``; ``family`` from :func:`mobile_family_from_cfg`."""
+    from ..models.mobile import SHUFFLENETV2_PLUS_ARCH
+    backbone, head, n_duc = family
+    tp, fr = "backbone.", ("backbone",)
+    if backbone == "shufflenetv2_plus":
+        _map_shufflenetv2(cv, tp, fr, 20, SHUFFLENETV2_PLUS_ARCH)
+    elif backbone == "shufflenetv2_10x":
+        _map_shufflenetv2(cv, tp, fr, 16)
+    elif backbone == "mobilenetv3_small":
+        # the reference wraps Sequential(features): "backbone.0.<idx>"
+        _map_mobilenetv3_small(cv, f"{tp}0.", fr)
+    elif backbone == "mobilevitv2":
+        _map_mobilevitv2(cv, tp, fr)
+    else:
+        _map_mobilevit(cv, tp, fr)
+    if head == "pixel_shuffle":
+        cv.conv("decoder.conv_compress", "decoder", "conv_compress")
+        for i in range(n_duc):
+            cv.conv(f"decoder.duc.{i}.conv", "decoder", f"duc{i}", "cb",
+                    "conv")
+            cv.bn(f"decoder.duc.{i}.bn", "decoder", f"duc{i}", "cb", "bn")
+    else:
+        i = di = 0
+        while cv.probe(f"deconv_layers.{i}.weight", "deconv", f"deconv{di}"):
+            cv.conv(f"deconv_layers.{i}", "deconv", f"deconv{di}",
+                    transposed=True)
+            cv.bn(f"deconv_layers.{i + 1}", "deconv", f"bn{di}")
+            i += 3
+            di += 1
+    cv.conv("final_layer", "final_layer")
+
+
 class _SiteRecorder(Converter):
     """Walks a family mapping over a port model's own state-dict keys and
     records, for each conv, its module name → the flax module path the
@@ -332,16 +568,20 @@ class _SiteRecorder(Converter):
     def ln(self, tkey: str, *path, tshape=None):
         pass
 
+    def mha(self, tkey: str, *path):
+        pass
+
 
 def conv_sites(model) -> Dict[str, str]:
     """{port conv module name: flax path} of a ported model (HRNet,
-    SimpleBaseline, either with PSA, RSN or YOLOv5), e.g.
+    SimpleBaseline, either with PSA, RSN, the mobile nets or YOLOv5), e.g.
     ``stage2.0.branches.0.0.conv1`` → ``stage2_0/branch0_0/cb1/conv``,
     ``layer1.0.conv1`` → ``backbone/layer1_0/cb1/conv``,
     ``stage0.upsample.up1.u_skip.conv`` → ``stage0_up/up1/u_skip/conv``
     and ``model.24.m.0`` → ``detect0``: the names under which a
     calibration table keys its conv sites, in either package."""
     from ..models.hrnet import PoseHRNet
+    from ..models.pose_mobile import MobilePoseNet
     from ..models.resnet import PoseResNet
     from ..models.rsn import RSN
     from ..models.yolov5 import YOLOv5
@@ -355,9 +595,12 @@ def conv_sites(model) -> Dict[str, str]:
                  model.use_prm)
     elif isinstance(model, YOLOv5):
         _map_yolov5(rec)
+    elif isinstance(model, MobilePoseNet):
+        _map_pose_mobile(rec, mobile_family(model))
     else:
         raise KeyError(f"no conv-site map for {type(model).__name__}; "
-                       "mapped: PoseHRNet, PoseResNet, RSN, YOLOv5")
+                       "mapped: PoseHRNet, PoseResNet, RSN, MobilePoseNet, "
+                       "YOLOv5")
     return rec.sites
 
 
@@ -374,10 +617,12 @@ def variables_to_state_dict(variables, cfg) -> Dict[str, np.ndarray]:
                          psa=name.endswith("_psa"))
     elif name == "rsn":
         _map_rsn(cv, **rsn_family(cfg))
+    elif name in MOBILE_NAMES:
+        _map_pose_mobile(cv, mobile_family_from_cfg(cfg))
     else:
         raise KeyError(f"no weight mapping for model {name!r}; ported: "
                        "['pose_hrnet', 'pose_hrnet_psa', 'pose_resnet', "
-                       "'pose_resnet_psa', 'rsn']")
+                       f"'pose_resnet_psa', 'rsn'] and {sorted(MOBILE_NAMES)}")
     return cv.sd
 
 
