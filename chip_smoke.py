@@ -66,11 +66,13 @@ full width (right after phase 11): the five mobile yamls
 ShuffleNetV2+ Small) fp32 card vs CPU and served in bf16 at B=128 with
 the flip folded, and ``shufflenetv2_test``'s offset head through the
 fused decode (12a); each in int8 through the self-calibrating pipeline,
-the int8 depthwise kernel (``csrc/int8_dwconv.cu``) and the fused int8
-conv at every input layout they ran against their plain version and
-the three-step card path, the depthwise kernel timed at each depthwise
-shape of a fold forward beside its bound and cuDNN's bf16 depthwise
-conv, and RSN with ``USE_PRM`` through its 9×9 depthwise site (12b);
+the int8 depthwise kernel (``csrc/int8_dwconv.cu``'s launch) and
+the fused int8 conv at every input layout they ran against their plain
+version and the three-step card path, the depthwise kernel timed at
+each depthwise shape and layout of a fold forward in turns with the
+previous design, beside its bound and cuDNN's bf16
+depthwise conv, and RSN with ``USE_PRM`` through its 9×9 depthwise site
+(12b);
 ``mobilevitv2_05`` trained one epoch through ``train.run`` with WORKERS
 4, evaluated in int8 through ``test.run`` and served over ``/v1/pose``,
 and QAT steps of ``mobilenetv3_small`` (12c).  The kernels' launches
@@ -236,6 +238,38 @@ def graph_ms(fn, arg_sets, iters=30, repeats=5, warm_s=0.3):
         torch.cuda.synchronize()
         runs.append(start.elapsed_time(end) / iters)
     return float(np.median(runs))
+
+
+def turns(fns, order, iters=5, repeats=3):
+    """ms per call of each of ``fns`` (name → function of no arguments):
+    one CUDA graph of ``iters`` calls each, replayed in the turns
+    ``order`` gives (e.g. old, new, new, old), after one replay to warm,
+    the median of ``repeats`` replays a turn; each name's mean over its
+    turns.  Two designs compared on one card in one run, without a
+    capture a turn (a capture allocates the calls' outputs anew)."""
+    graphs = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+        graphs[name] = graph
+    got = {name: [] for name in fns}
+    for name in order:
+        graphs[name].replay()
+        runs = []
+        for _ in range(repeats):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graphs[name].replay()
+            end.record()
+            torch.cuda.synchronize()
+            runs.append(start.elapsed_time(end) / iters)
+        got[name].append(float(np.median(runs)))
+    return {name: float(np.mean(v)) for name, v in got.items()}
 
 
 def host_ms(fn, iters=10):
@@ -1991,7 +2025,8 @@ def kernel_wrappers():
             "int8_conv_fused": ic.int8_conv_fused,
             "quant_im2col": ic.quant_im2col,
             "dequant_epilogue": ic.dequant_epilogue,
-            "int8_dwconv": dw.int8_dwconv}
+            "int8_dwconv": dw.int8_dwconv,
+            "int8_dwconv_tiled": dw.int8_dwconv_tiled}
 
 
 def zero_launches():
@@ -2646,13 +2681,16 @@ def int8_detect(table, path, card, cfg_fn=w32_cfg, device="cuda",
     return {k: float(np.median(v)) for k, v in rates.items()}
 
 
-def layout_tensor(shape, stride, dtype, aligned, scale, seed, device):
+def layout_tensor(shape, stride, dtype, misalign, scale, seed, device):
     """A seeded normal activation (times ``scale``) of ``shape`` in the
-    element strides ``stride``, 16-byte aligned or one element past."""
+    element strides ``stride``, its base ``misalign`` bytes past a 16-byte
+    boundary, with 16 bytes of the buffer on either side of its span."""
     span = 1 + sum((n - 1) * st for n, st in zip(shape, stride))
+    pad = 16 // dtype.itemsize
     g = torch.Generator(device=device).manual_seed(seed)
-    buf = (torch.randn(span + 1, generator=g, device=device) * scale).to(dtype)
-    return buf.as_strided(shape, stride, 0 if aligned else 1)
+    buf = (torch.randn(span + 2 * pad, generator=g, device=device)
+           * scale).to(dtype)
+    return buf.as_strided(shape, stride, pad + misalign // dtype.itemsize)
 
 
 def check_path_layouts(path, card, device="cuda"):
@@ -2668,7 +2706,8 @@ def check_path_layouts(path, card, device="cuda"):
     for i, (key, layer) in enumerate(sorted(path.layouts.items(),
                                             key=lambda kv: str(kv[0]))):
         shape, stride, dtype, aligned = key[:4]
-        x = layout_tensor(shape, stride, dtype, aligned,
+        x = layout_tensor(shape, stride, dtype,
+                          0 if aligned else dtype.itemsize,
                           64.0 / layer.inv_s_a, i, device)
         N, _, H, W = shape
         Ho, Wo = ic.conv_out_hw(H, W, layer.kernel_size, layer.stride,
@@ -3762,15 +3801,31 @@ MOBILE_KP_ATOL = 1e-3            # px: card vs CPU peak keypoints (12a)
 
 
 def mobile_sites(cfg, device="cuda"):
-    """(dense, depthwise) int8 sites of one forward of ``cfg``'s net, from
-    the conv modules its forward calls (:func:`int8_sites`)."""
+    """(dense, depthwise) int8 sites of one forward of ``cfg``'s net at
+    B=2, from the conv modules its forward calls (:func:`int8_sites`);
+    each depthwise site also with its input's element strides and its
+    base's offset from a 16-byte boundary (the layout the kernel's route
+    is chosen by)."""
     from udp_pose_tpu_torch.models import build_model
     from udp_pose_tpu_torch.models.quantize import is_depthwise
     w, h = cfg.MODEL.IMAGE_SIZE
-    sites = int8_sites(build_model(cfg, device=device),
-                       torch.zeros(1, 3, h, w, dtype=torch.bfloat16,
-                                   device=device))
-    dw = [site for site in sites if is_depthwise(site[0])]
+    model = build_model(cfg, device=device)
+    layouts = {}
+
+    def record(m, args):
+        layouts.setdefault(m, (args[0].stride(), args[0].data_ptr() % 16))
+
+    hooks = [m.register_forward_pre_hook(record) for m in model.modules()
+             if isinstance(m, torch.nn.Conv2d) and is_depthwise(m)]
+    try:
+        sites = int8_sites(model, torch.zeros(2, 3, h, w,
+                                              dtype=torch.bfloat16,
+                                              device=device))
+    finally:
+        for hook in hooks:
+            hook.remove()
+    dw = [site + layouts[site[0]] for site in sites
+          if is_depthwise(site[0])]
     return [site for site in sites if not is_depthwise(site[0])], dw
 
 
@@ -3815,23 +3870,28 @@ def check_dw_layouts(path, card, device="cuda"):
     """12b: the depthwise kernel at every input layout at which ``path``
     launched it, with that site's weights on a seeded activation of that
     layout that spans the quantiser's range, against its plain version
-    on the card, bit for bit.  Returns (layouts, |card - plain| max)."""
+    on the card, bit for bit; each layout's load route logged.  Returns
+    (layouts, |card - plain| max)."""
     from udp_pose_tpu_torch.ops import int8_dwconv as dw
     check(path.dw_layouts, f"{path.name}: no depthwise int8 launch recorded")
     routes, err = {}, 0.0
     for i, (key, layer) in enumerate(sorted(path.dw_layouts.items(),
                                             key=lambda kv: str(kv[0]))):
-        shape, stride, dtype, aligned = key[:4]
-        x = layout_tensor(shape, stride, dtype, aligned,
+        shape, stride, dtype, misalign = key[:4]
+        x = layout_tensor(shape, stride, dtype, misalign,
                           64.0 / layer.inv_s_a, 200 + i, device)
         got = dw.int8_dwconv(x, layer)
         want = dw.int8_dwconv_reference(x, layer)
-        route = dw.dw_loads(x)
-        routes[route] = routes.get(route, 0) + 1
+        plan = dw.launch_plan(x, layer)
+        routes[plan.label] = routes.get(plan.label, 0) + 1
         err = max(err, float((got.double() - want.double()).abs().max()))
         check(torch.equal(got, want), f"12b {path.name}: int8_dwconv != its "
               f"plain version at x {shape} strides {stride} {dtype}, kernel "
-              f"{layer.kernel_size}, stride {layer.stride} ({route})")
+              f"{layer.kernel_size}, stride {layer.stride} ({plan.label})")
+        log(f"[mobile] 12b {path.name} layout x {tuple(shape)} strides "
+            f"{stride} +{misalign} B {str(dtype)[6:]} k{layer.kernel_size[0]}"
+            f" s{layer.stride[0]}: {plan.label}, {plan.cb} channels a "
+            f"block")
         del x, got, want
     torch.cuda.empty_cache()
     log(f"[mobile] 12b {path.name}: int8_dwconv bit-equal to its plain "
@@ -3840,37 +3900,55 @@ def check_dw_layouts(path, card, device="cuda"):
     return len(path.dw_layouts), err
 
 
-def dw_shape_run(conv, shape, dtype, device, seed):
-    """One depthwise shape: the kernel against its plain version, bit for
-    bit; times (graph replay) of the kernel and of cuDNN's bf16 depthwise
-    conv of the same shape (the yardstick: no PyTorch call computes the
-    int8 function), the plain version's (eager, once); the byte bound
-    (the activation read once, the output written once, the int8 weight,
-    scale and bias) against the operation bound (2 int8 operations a
-    multiply-add at the int8 rate)."""
+def tile_route(x):
+    """The previous design's load route for ``x``, as its launcher picks it:
+    16 bytes where C % 8 == 0 on a channels-last view whose base and
+    strides are 16-byte multiples, one value a thread otherwise."""
+    step = 8 * x.element_size()
+    return ("vec" if x.shape[1] % 8 == 0 and x.stride(1) == 1
+            and x.data_ptr() % 16 == 0
+            and all(x.stride(d) * x.element_size() % step == 0
+                    for d in (0, 2, 3) if x.shape[d] > 1) else "one-value")
+
+
+def dw_shape_run(conv, shape, stride, misalign, dtype, device, seed):
+    """One depthwise shape in the layout its site gets: the launch and the
+    previous design against the plain version, bit for bit; times (graph
+    replay) of the two designs in turns (previous, launch, launch,
+    previous), of cuDNN's bf16 depthwise conv of the same shape (the
+    yardstick: no PyTorch call computes the int8 function) and the plain
+    version's (eager, once); the byte bound (the activation read once,
+    the output written once, the int8 weight, scale and bias) against the
+    operation bound (2 int8 operations a multiply-add at the int8
+    rate)."""
     import torch.nn.functional as F
 
     from udp_pose_tpu_torch.models.quantize import Int8DepthwiseConv2d
     from udp_pose_tpu_torch.ops import int8_dwconv as dw
-    g = torch.Generator(device=device).manual_seed(seed)
-    x = torch.randn(shape, generator=g, device=device).to(dtype).contiguous(
-        memory_format=torch.channels_last)
+    x = layout_tensor(shape, stride, dtype, misalign, 1.0, seed, device)
     layer = Int8DepthwiseConv2d(conv, float(x.float().abs().amax()) * 0.9)
     got = dw.int8_dwconv(x, layer)
+    old = dw.int8_dwconv_tiled(x, layer)
     want = dw.int8_dwconv_reference(x, layer)
-    err = float((got.double() - want.double()).abs().max())
+    errs = tuple(float((y.double() - want.double()).abs().max())
+                 for y in (got, old))
+    route = dw.launch_plan(x, layer).label
     check(torch.equal(got, want), f"int8_dwconv != its plain version at "
-          f"{tuple(shape)} k{conv.kernel_size[0]} s{conv.stride[0]}")
+          f"{tuple(shape)} k{conv.kernel_size[0]} s{conv.stride[0]} ({route})")
+    check(torch.equal(old, want), f"the tile "
+          f"design != the plain version at {tuple(shape)} "
+          f"k{conv.kernel_size[0]} s{conv.stride[0]}")
     w_bf = conv.weight.detach().to(torch.bfloat16)
-    x_bf = x.to(torch.bfloat16)
+    x_bf = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
     fast = dict(iters=5, repeats=3, warm_s=0.02)
-    t = {"int8_dwconv": graph_ms(lambda: dw.int8_dwconv(x, layer), [()],
-                                 **fast),
-         "cudnn_bf16": graph_ms(lambda: F.conv2d(
-             x_bf, w_bf, None, conv.stride, conv.padding, 1, conv.groups),
-             [()], **fast),
-         "plain": cuda_ms(lambda: dw.int8_dwconv_reference(x, layer), [()],
-                          iters=1, repeats=1, warm_s=0.0)}
+    t = turns({"int8_dwconv": lambda: dw.int8_dwconv(x, layer),
+               "tiled": lambda: dw.int8_dwconv_tiled(x, layer)},
+              ("tiled", "int8_dwconv", "int8_dwconv", "tiled"), repeats=2)
+    t["cudnn_bf16"] = graph_ms(lambda: F.conv2d(
+        x_bf, w_bf, None, conv.stride, conv.padding, 1, conv.groups), [()],
+        **fast)
+    t["plain"] = cuda_ms(lambda: dw.int8_dwconv_reference(x, layer), [()],
+                         iters=1, repeats=1, warm_s=0.0)
     N, C = shape[:2]
     Ho, Wo = got.shape[2:]
     elt = x.element_size()
@@ -3878,49 +3956,72 @@ def dw_shape_run(conv, shape, dtype, device, seed):
     t["bytes"] = x.numel() * elt + N * C * Ho * Wo * elt + k2 * C + 8 * C
     t["ops"] = 2 * k2 * N * C * Ho * Wo
     bound = bound_of(t["bytes"], t["ops"], INT8_OPS_PER_S)
-    route = dw.dw_loads(x)
-    del x, x_bf, got, want
-    return t, bound, err, route
+    routes = (route, tile_route(x))
+    del x, x_bf, got, old, want
+    return t, bound, errs, routes
+
+
+DW_SUMS = ("int8_dwconv", "tiled", "cudnn_bf16", "plain", "bound",
+           "bound_bytes", "bound_ops", "bytes", "ops", "narrow",
+           "narrow_tiled")
 
 
 def dw_forward_times(net, sites, batch, card, device="cuda"):
     """12b for one net: :func:`dw_shape_run` at each distinct depthwise
-    shape of ``sites`` at batch ``batch`` (one fold forward), logged;
-    returns the numbers summed over the forward (each shape times its
-    sites) and the largest |card - plain|."""
+    shape and layout of ``sites`` at batch ``batch`` (one fold forward),
+    logged; returns the numbers summed over the forward (each shape times
+    its sites; ``narrow``: the routes other than 16-byte channels-last,
+    which the previous design served one value a thread), the sums by
+    route, and the largest |card - plain| of the launch and of the
+    previous design."""
     shapes = {}
-    for conv, shape, dtype in sites:
-        key = ((batch,) + shape[1:], dtype, conv.kernel_size, conv.stride)
+    for conv, shape, dtype, stride, misalign in sites:
+        key = ((batch,) + shape[1:], dtype, conv.kernel_size, conv.stride,
+               stride, misalign)
         shapes.setdefault(key, [conv, 0])[1] += 1
-    sums = dict.fromkeys(("int8_dwconv", "cudnn_bf16", "plain", "bound",
-                          "bound_bytes", "bound_ops", "bytes", "ops",
-                          "scalar_route"), 0.0)
+    sums = dict.fromkeys(DW_SUMS, 0.0)
+    sums["tiled_err"] = 0.0
+    by_route = {}
     err = 0.0
     for i, (key, (conv, count)) in enumerate(sorted(
             shapes.items(), key=lambda kv: str(kv[0]))):
-        t, (b_ms, by), e, route = dw_shape_run(conv, key[0], key[1], device,
-                                               seed=300 + i)
+        shape, dtype, _, _, stride, misalign = key
+        t, (b_ms, by), (e, e_old), (route, old) = dw_shape_run(
+            conv, shape, stride, misalign, dtype, device, seed=300 + i)
         err = max(err, e)
-        for k in ("int8_dwconv", "cudnn_bf16", "plain", "bytes", "ops"):
+        sums["tiled_err"] = max(sums["tiled_err"], e_old)
+        for k in ("int8_dwconv", "tiled", "cudnn_bf16", "plain", "bytes",
+                  "ops"):
             sums[k] += count * t[k]
-        if route == "scalar":
-            sums["scalar_route"] += count * t["int8_dwconv"]
+        if not route.startswith("channels_last/16B"):
+            sums["narrow"] += count * t["int8_dwconv"]
+            sums["narrow_tiled"] += count * t["tiled"]
+        r = by_route.setdefault(route, {"ms": 0.0, "previous_design_ms": 0.0,
+                                        "sites": 0})
+        r["ms"] += count * t["int8_dwconv"]
+        r["previous_design_ms"] += count * t["tiled"]
+        r["sites"] += count
         sums["bound"] += count * b_ms
         sums["bound_bytes" if by == "bytes" else "bound_ops"] += count * b_ms
-        log(f"[mobile] 12b {net} dw {key[0]} k{key[2][0]} s{key[3][0]} "
-            f"{str(key[1])[6:]} x{count} ({route}): bit-equal; int8_dwconv "
-            f"{t['int8_dwconv'] * 1e3:.1f} us (bound {b_ms * 1e3:.1f}, {by}; "
-            f"plain {t['plain'] * 1e3:.1f}); bf16 cuDNN depthwise conv "
-            f"{t['cudnn_bf16'] * 1e3:.1f} us")
+        log(f"[mobile] 12b {net} dw {shape} strides {stride} +{misalign} B "
+            f"k{key[2][0]} s{key[3][0]} {str(dtype)[6:]} x{count} ({route}; "
+            f"previous design {old}): both bit-equal; int8_dwconv "
+            f"{t['int8_dwconv'] * 1e3:.2f} us, previous design "
+            f"{t['tiled'] * 1e3:.2f} (in turns) (bound {b_ms * 1e3:.2f}, "
+            f"{by}; plain {t['plain'] * 1e3:.1f}); bf16 cuDNN depthwise conv "
+            f"{t['cudnn_bf16'] * 1e3:.2f} us")
         torch.cuda.empty_cache()
     log(f"[mobile] 12b {net}, one fold forward (B={batch}, {len(sites)} "
         f"depthwise sites, {len(shapes)} shapes, ms): int8_dwconv "
-        f"{sums['int8_dwconv']:.4f} (bound {sums['bound']:.4f}, of which "
-        f"bytes {sums['bound_bytes']:.4f}: {sums['bytes'] / 1e9:.3f} GB, "
-        f"{sums['ops'] / 1e12:.3f} T int8 operations; one-channel route "
-        f"{sums['scalar_route']:.4f}; plain {sums['plain']:.3f}) against "
-        f"the bf16 cuDNN depthwise convs {sums['cudnn_bf16']:.4f} | {card}")
-    return sums, err, len(shapes)
+        f"{sums['int8_dwconv']:.4f}, previous design {sums['tiled']:.4f} "
+        f"(bound {sums['bound']:.4f}, of which bytes "
+        f"{sums['bound_bytes']:.4f}: {sums['bytes'] / 1e9:.3f} GB, "
+        f"{sums['ops'] / 1e12:.3f} T int8 operations; narrow routes "
+        f"{sums['narrow']:.4f} against the previous design's "
+        f"{sums['narrow_tiled']:.4f}; plain {sums['plain']:.3f}) "
+        f"against the bf16 cuDNN depthwise convs {sums['cudnn_bf16']:.4f}; "
+        f"by route {json.dumps(by_route)} | {card}")
+    return sums, by_route, err, len(shapes)
 
 
 def mobile_int8(name, card, device="cuda", batch=SERVE_BATCH, iters=10):
@@ -3930,8 +4031,9 @@ def mobile_int8(name, card, device="cuda", batch=SERVE_BATCH, iters=10):
     a site and batch of the fused int8 conv (dense sites) and of the
     depthwise kernel (depthwise sites), both kernels at every input layout
     they ran against the three-step card path and the plain version; the
-    depthwise kernel timed over one fold forward's shapes.  Returns
-    (launches, the depthwise numbers, crops/s, layouts checked)."""
+    depthwise kernel timed over one fold forward's shapes beside the tile
+    design.  Returns (launches, the depthwise numbers, their sums by
+    route, the largest |card - plain|, crops/s, layouts checked)."""
     from udp_pose_tpu_torch.engine.pose_engine import UdpPosePipeline
     cfg = yaml_cfg(MOBILE_YAMLS[name], "bfloat16")
     dense, dw = mobile_sites(cfg, device)
@@ -3981,10 +4083,10 @@ def mobile_int8(name, card, device="cuda", batch=SERVE_BATCH, iters=10):
     torch.cuda.empty_cache()
     layouts = (check_path_layouts(path, card, device),
                check_dw_layouts(path, card, device))
-    sums, err, n_shapes = dw_forward_times(name, dw, 2 * batch, card,
-                                           device)
+    sums, by_route, err, n_shapes = dw_forward_times(name, dw, 2 * batch,
+                                                     card, device)
     sums["shapes"], sums["sites"] = n_shapes, len(dw)
-    return path.counts, sums, max(err, layouts[1][1]), {
+    return path.counts, sums, by_route, max(err, layouts[1][1]), {
         k: float(np.median(v)) for k, v in rates.items()}, (
         layouts[0], layouts[1][0])
 
@@ -4162,51 +4264,65 @@ def phase_mobile(tmp, device="cuda"):
     card = card_line()
     t_phase = time.perf_counter()
     rates, paths, profiles = mobile_serving(card, device)
-    kernel = {"by_net": {}, "max_abs_err": 0.0}
-    totals = dict.fromkeys(("int8_dwconv", "cudnn_bf16", "plain", "bound",
-                            "bound_bytes", "bound_ops", "bytes", "ops",
-                            "scalar_route", "shapes", "sites"), 0.0)
-    layouts = {}
+    kernel = {"by_net": {}, "max_abs_err": 0.0,
+              "previous_design_max_abs_err": 0.0}
+    totals = dict.fromkeys(DW_SUMS + ("shapes", "sites"), 0.0)
+    by_route, layouts = {}, {}
     for name in MOBILE_YAMLS:
-        paths[f"int8_{name}"], sums, err, int8_rates, n_layouts = \
-            mobile_int8(name, card, device)
+        (paths[f"int8_{name}"], sums, net_routes, err, int8_rates,
+         n_layouts) = mobile_int8(name, card, device)
         rates.update({f"{name}_{k}": v for k, v in int8_rates.items()})
         kernel["max_abs_err"] = max(kernel["max_abs_err"], err)
+        kernel["previous_design_max_abs_err"] = max(
+            kernel["previous_design_max_abs_err"], sums["tiled_err"])
         kernel["by_net"][name] = {
-            "ms": sums["int8_dwconv"], "bound_ms": sums["bound"],
-            "plain_ms": sums["plain"],
+            "ms": sums["int8_dwconv"], "previous_design_ms": sums["tiled"],
+            "bound_ms": sums["bound"], "plain_ms": sums["plain"],
             "cudnn_bf16_dwconv_ms": sums["cudnn_bf16"],
-            "one_channel_route_ms": sums["scalar_route"],
+            "narrow_routes_ms": sums["narrow"],
+            "narrow_routes_previous_design_ms": sums["narrow_tiled"],
             "sites": int(sums["sites"]), "shapes": int(sums["shapes"])}
         layouts[f"int8_{name}"] = n_layouts
         for k in totals:
             totals[k] += sums[k]
+        for route, r in net_routes.items():
+            into = by_route.setdefault(route, dict.fromkeys(r, 0))
+            for k, v in r.items():
+                into[k] += v
     paths["int8_rsn18_prm"], err = rsn_prm_int8(card, device)
     kernel["max_abs_err"] = max(kernel["max_abs_err"], err)
     train_paths, train_rates = mobile_training(tmp, card, device)
     paths.update(train_paths)
     rates.update(train_rates)
     kernel.update(
-        ms=totals["int8_dwconv"], plain_ms=totals["plain"],
-        bound_ms=totals["bound"],
+        ms=totals["int8_dwconv"], previous_design_ms=totals["tiled"],
+        plain_ms=totals["plain"], bound_ms=totals["bound"],
         bound_by=("bytes" if totals["bound_bytes"] >= totals["bound_ops"]
                   else "operations"),
         library_ms=None, cudnn_bf16_dwconv_ms=totals["cudnn_bf16"],
-        one_channel_route_ms=totals["scalar_route"],
+        by_route_ms={r: v["ms"] for r, v in by_route.items()},
+        by_route=by_route, narrow_routes_ms=totals["narrow"],
+        narrow_routes_previous_design_ms=totals["narrow_tiled"],
         bound_gb=totals["bytes"] / 1e9, tera_ops=totals["ops"] / 1e12,
         per=f"one fold forward (B={2 * SERVE_BATCH}) of each of the "
             f"{len(MOBILE_YAMLS)} mobile yamls: {int(totals['sites'])} "
             f"depthwise sites, {int(totals['shapes'])} shapes",
         layouts_checked_by_path=layouts)
+    slower = [n for n, v in kernel["by_net"].items()
+              if v["ms"] > v["previous_design_ms"]]
     log(f"[mobile] 12b int8_dwconv over the {int(totals['sites'])} "
         f"depthwise sites of the five fold forwards: "
-        f"{totals['int8_dwconv']:.4f} ms, "
+        f"{totals['int8_dwconv']:.4f} ms against the previous design's "
+        f"{totals['tiled']:.4f} in the same turns, "
         f"{totals['int8_dwconv'] / totals['bound']:.2f}x its bound "
         f"{totals['bound']:.4f} ({totals['bytes'] / 1e9:.3f} GB, "
-        f"{totals['ops'] / 1e12:.3f} T int8 operations), one-channel route "
-        f"{totals['scalar_route']:.4f} ms; plain {totals['plain']:.3f}; "
+        f"{totals['ops'] / 1e12:.3f} T int8 operations); narrow routes "
+        f"{totals['narrow']:.4f} ms (previous design "
+        f"{totals['narrow_tiled']:.4f}); plain "
+        f"{totals['plain']:.3f}; "
         f"{totals['int8_dwconv'] / totals['cudnn_bf16']:.2f}x the bf16 "
-        f"cuDNN depthwise convs {totals['cudnn_bf16']:.4f} ms | {card}")
+        f"cuDNN depthwise convs {totals['cudnn_bf16']:.4f} ms; nets slower "
+        f"than the previous design: {slower or 'none'} | {card}")
     log(f"[mobile] phase 12 {time.perf_counter() - t_phase:.1f} s; "
         f"launches {paths}")
     return paths, kernel, rates, profiles
@@ -4295,7 +4411,17 @@ def main(argv=None):
         {"name": "int8_dwconv", "route": "cuda",
          "source": "udp_pose_tpu_torch/csrc/int8_dwconv.cu",
          "replaces": "udp_pose_tpu/models/quantize.py:206-213",
-         "matched": True, **launches("int8_dwconv"), **dw_kernel}]}))
+         "matched": True, **launches("int8_dwconv"), **dw_kernel},
+        {"name": "int8_dwconv_tiled", "route": "cuda",
+         "source": "udp_pose_tpu_torch/csrc/int8_dwconv.cu",
+         "replaces": "udp_pose_tpu/models/quantize.py:206-213",
+         "on_main_path": False, "matched": True,
+         **launches("int8_dwconv_tiled"),
+         "ms": dw_kernel["previous_design_ms"],
+         "max_abs_err": dw_kernel["previous_design_max_abs_err"],
+         **{k: dw_kernel[k] for k in ("plain_ms", "bound_ms", "bound_by",
+                                      "library_ms", "cudnn_bf16_dwconv_ms",
+                                      "per")}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -204,33 +204,57 @@ def test_int_mm_shape_rules(cuda):
             mm(m, k, n)
 
 
-@pytest.mark.parametrize("case", [
-    # (N, C, H, W, kernel, stride, bias, dtype, view)
-    (4, 16, 128, 96, 3, 2, False, torch.bfloat16, "channels_last"),
-    (4, 576, 8, 6, 5, 1, False, torch.bfloat16, "channels_last"),
-    (4, 96, 32, 24, 5, 2, False, torch.float32, "channels_last"),
-    (3, 18, 17, 13, 3, 1, False, torch.bfloat16, "channels_last"),
-    (3, 58, 16, 12, 3, 2, False, torch.bfloat16, "odd_channels"),
-    (2, 52, 10, 9, 7, 1, True, torch.float32, "channel_slice"),
-    (2, 104, 12, 9, 7, 2, False, torch.bfloat16, "nchw"),
-    (2, 32, 16, 12, 9, 1, True, torch.bfloat16, "channels_last"),
-    (1, 40, 3, 2, 9, 2, True, torch.float32, "channels_last"),
-    (2, 36, 64, 48, 5, 2, False, torch.bfloat16, "odd_channels"),
-    (2, 72, 19, 21, 3, 1, True, torch.bfloat16, "channels_last"),
-])
-def test_int8_dwconv_kernel_equals_plain_version(cuda, case):
-    """The int8 depthwise kernel, which ``Int8DepthwiseConv2d`` launches
-    on the card, against its plain version on the card and on the CPU,
-    bit for bit: the mobile nets' shapes (k 3/5/7, strides 1 and 2, C
-    from 16 to 576, many not multiples of 8), ShuffleNet's channel-split
-    views, a channel slice, NCHW input, RSN's PRM 9×9 with a bias, an
-    output smaller than the kernel and maps that are no multiple of the
-    8×8 tile; blocks of 8, 16 and 32 channels, and both load routes
-    (16-byte chunks where the layout allows, one channel a thread
-    otherwise)."""
+DW_CASES = [
+    # (N, C, H, W, kernel, stride, bias, dtype, view, route/bytes)
+    (4, 16, 128, 96, 3, 2, False, torch.bfloat16, "channels_last",
+     "channels_last/16B"),
+    (4, 576, 8, 6, 5, 1, False, torch.bfloat16, "channels_last",
+     "channels_last/16B"),
+    (4, 96, 32, 24, 5, 2, False, torch.float32, "channels_last",
+     "channels_last/16B"),
+    (3, 18, 17, 13, 3, 1, False, torch.bfloat16, "channels_last",
+     "channels_last/4B"),
+    (1, 58, 16, 12, 7, 1, True, torch.bfloat16, "channels_last",
+     "channels_last/4B"),
+    (3, 116, 16, 12, 3, 2, False, torch.bfloat16, "channels_last",
+     "channels_last/8B"),
+    (3, 58, 16, 12, 3, 2, False, torch.bfloat16, "odd_channels",
+     "split/8B"),
+    (1, 18, 64, 48, 5, 1, True, torch.bfloat16, "odd_channels", "split/8B"),
+    (3, 208, 8, 6, 3, 1, False, torch.bfloat16, "odd_channels",
+     "split/16B"),
+    (2, 24, 9, 7, 9, 2, True, torch.float32, "even_channels", "split/16B"),
+    (2, 36, 64, 48, 5, 2, False, torch.bfloat16, "odd_channels",
+     "split/16B"),
+    (2, 52, 10, 9, 7, 1, True, torch.float32, "channel_slice",
+     "channels_last/4B"),
+    (1, 13, 11, 9, 3, 1, False, torch.bfloat16, "channel_slice",
+     "channels_last/2B"),
+    (2, 104, 12, 9, 7, 2, False, torch.bfloat16, "nchw", "nchw/2B"),
+    (3, 384, 16, 12, 3, 1, True, torch.bfloat16, "nchw", "nchw/8B"),
+    (1, 256, 8, 6, 5, 2, False, torch.bfloat16, "nchw", "nchw/4B"),
+    (2, 40, 32, 24, 9, 1, False, torch.float32, "nchw", "nchw/16B"),
+    (2, 32, 16, 12, 9, 1, True, torch.bfloat16, "channels_last",
+     "channels_last/16B"),
+    (1, 40, 3, 2, 9, 2, True, torch.float32, "channels_last",
+     "channels_last/16B"),
+    (3, 72, 2, 5, 7, 1, True, torch.bfloat16, "channels_last",
+     "channels_last/16B"),
+    (2, 72, 19, 21, 3, 1, True, torch.bfloat16, "channels_last",
+     "channels_last/16B"),
+    (1, 64, 40, 300, 3, 1, False, torch.bfloat16, "channels_last",
+     "channels_last/16B"),
+    (3, 32, 24, 150, 5, 2, True, torch.float32, "odd_channels",
+     "split/16B"),
+]
+
+
+def _dw_case(case, device):
+    """A seeded activation of the case's layout on the CPU and on
+    ``device`` (the same strides, base offsets and storage), and its
+    layer."""
     from udp_pose_tpu_torch.models.quantize import Int8DepthwiseConv2d
-    from udp_pose_tpu_torch.ops import int8_dwconv as dw
-    N, C, H, W, k, s, bias, dtype, view = case
+    N, C, H, W, k, s, bias, dtype, view = case[:9]
     g = torch.Generator().manual_seed(sum(case[:6]))
     wide = (torch.randn(N, 2 * C, H, W, generator=g) * 3).to(dtype)
     wide = wide.contiguous(memory_format=torch.channels_last)
@@ -238,22 +262,66 @@ def test_int8_dwconv_kernel_equals_plain_version(cuda, case):
     def view_of(t):
         return {"channels_last": t[:, :C].contiguous(
                     memory_format=torch.channels_last),
-                "odd_channels": t[:, 1::2], "channel_slice": t[:, 5:5 + C],
+                "odd_channels": t[:, 1::2], "even_channels": t[:, 0::2],
+                "channel_slice": t[:, 5:5 + C] if C % 2 else t[:, 7:7 + C],
                 "nchw": t[:, :C].contiguous()}[view]
 
-    x, xc = view_of(wide), view_of(wide.to(cuda))
+    x, xc = view_of(wide), view_of(wide.to(device))
     assert xc.stride() == x.stride()
     conv = torch.nn.Conv2d(C, C, k, s, (k - 1) // 2, groups=C, bias=bias)
-    layer = Int8DepthwiseConv2d(conv, float(x.float().abs().amax()) * 0.8)
+    return x, xc, Int8DepthwiseConv2d(conv,
+                                      float(x.float().abs().amax()) * 0.8)
+
+
+@pytest.mark.parametrize("case", DW_CASES)
+def test_int8_dwconv_kernel_equals_plain_version(cuda, case):
+    """The launch, which ``Int8DepthwiseConv2d`` makes on the card,
+    against its plain version on the card and on the CPU, bit for bit, on
+    every load route and width (channels-last 16, 8, 4 and 2 bytes, the
+    even/odd channel-split views, NCHW rows), k = 3, 5, 7, 9 and s = 1,
+    2, the mobile nets' shapes, RSN's PRM 9×9 with a bias, maps narrower
+    and shorter than one 8×8 tile and than a kernel's k rows, rows of
+    many tiles, and batches of 1, 2, 3 and 4."""
+    from udp_pose_tpu_torch.ops import int8_dwconv as dw
+    x, xc, layer = _dw_case(case, cuda)
     want = dw.int8_dwconv_reference(x, layer)
     layer = layer.to(cuda)
-    before = dw.int8_dwconv.launches
+    plan = dw.launch_plan(xc, layer)
+    assert plan.label == case[9]
+    before = (dw.int8_dwconv.launches, dw.int8_dwconv_tiled.launches)
     out = layer(xc)
     torch.cuda.synchronize()
-    assert dw.int8_dwconv.launches == before + 1
-    assert dw.dw_loads(xc) == ("vec" if view == "channels_last"
-                               and C % 8 == 0 else "scalar")
+    assert (dw.int8_dwconv.launches,
+            dw.int8_dwconv_tiled.launches) == (before[0] + 1, before[1])
     assert out.is_contiguous(memory_format=torch.channels_last)
-    assert out.dtype == dtype
+    assert out.dtype == case[7]
     assert torch.equal(out.cpu(), want)
     assert torch.equal(dw.int8_dwconv_reference(xc, layer).cpu(), want)
+
+
+def test_int8_dwconv_tiled_yardstick_equals_plain_version(cuda):
+    """The previous design, kept as the launch's yardstick, is still bit-equal
+    to the plain version (one channel-split shape)."""
+    from udp_pose_tpu_torch.ops import int8_dwconv as dw
+    x, xc, layer = _dw_case(DW_CASES[6], cuda)
+    want = dw.int8_dwconv_reference(x, layer)
+    layer = layer.to(cuda)
+    before = dw.int8_dwconv_tiled.launches
+    out = dw.int8_dwconv_tiled(xc, layer)
+    torch.cuda.synchronize()
+    assert dw.int8_dwconv_tiled.launches == before + 1
+    assert torch.equal(out.cpu(), want)
+
+
+def test_int8_dwconv_refuses_a_layout_without_a_route(cuda):
+    """A channel stride of 3 with no unit W stride has no load route: the
+    wrapper raises and launches nothing."""
+    from udp_pose_tpu_torch.ops import int8_dwconv as dw
+    x, xc, layer = _dw_case(DW_CASES[3], cuda)
+    layer = layer.to(cuda)
+    wide = torch.zeros(1, 54, 8, 8, device=cuda).contiguous(
+        memory_format=torch.channels_last)[:, ::3]
+    before = dw.int8_dwconv.launches
+    with pytest.raises(ValueError, match="load route"):
+        layer(wide)
+    assert dw.int8_dwconv.launches == before

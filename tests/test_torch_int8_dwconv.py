@@ -148,19 +148,218 @@ def test_int8_conv_for_routes_depthwise_convs():
         tq.int8_conv_for(torch.nn.Conv2d(16, 32, 3, 1, 1, groups=16), 2.0)
 
 
-def test_loads_of_a_layout():
-    """``dw_loads``: the 16-byte route for channels-last views whose 8
-    channel chunks are aligned, one channel a thread otherwise."""
-    x = torch.zeros(2, 32, 6, 5)
-    assert dw.dw_loads(x) == "scalar"                       # NCHW
-    cl = x.contiguous(memory_format=torch.channels_last)
-    assert dw.dw_loads(cl) == "vec"
-    assert dw.dw_loads(cl[:, :, 1:5]) == "vec"
-    assert dw.dw_loads(cl[:, 8:24]) == "vec"
-    assert dw.dw_loads(cl[:, 3:19]) == "scalar"             # misaligned
-    assert dw.dw_loads(cl[:, 1::2]) == "scalar"             # channel split
-    assert dw.dw_loads(torch.zeros(2, 18, 6, 5).contiguous(
-        memory_format=torch.channels_last)) == "scalar"     # C % 8
+def _cl(N, C, H, W, dtype):
+    return torch.zeros(N, C, H, W, dtype=dtype).contiguous(
+        memory_format=torch.channels_last)
+
+
+# (layout, dtype, the view, its route, bytes a load, offset): the four
+# groups of the mobile nets' depthwise sites (channels-last with C % 8
+# == 0 and with C = 18, 58, 116; ShuffleNet's even/odd channel split of a
+# channels-last parent; NCHW after a transformer fold)
+LAYOUTS = [
+    ("cl_c32", torch.bfloat16, lambda d: _cl(2, 32, 6, 5, d),
+     "channels_last", 16, 0),
+    ("cl_c18", torch.bfloat16, lambda d: _cl(2, 18, 6, 5, d),
+     "channels_last", 4, 0),
+    ("cl_c18", torch.float32, lambda d: _cl(2, 18, 6, 5, d),
+     "channels_last", 8, 0),
+    ("cl_c58", torch.bfloat16, lambda d: _cl(2, 58, 6, 5, d),
+     "channels_last", 4, 0),
+    ("cl_c116", torch.bfloat16, lambda d: _cl(2, 116, 6, 5, d),
+     "channels_last", 8, 0),
+    ("cl_c116", torch.float32, lambda d: _cl(2, 116, 6, 5, d),
+     "channels_last", 16, 0),
+    ("cl_rows", torch.bfloat16, lambda d: _cl(2, 32, 6, 5, d)[:, :, 1:5],
+     "channels_last", 16, 0),
+    ("cl_slice", torch.bfloat16, lambda d: _cl(2, 32, 6, 5, d)[:, 8:24],
+     "channels_last", 16, 0),
+    ("cl_slice_odd", torch.bfloat16, lambda d: _cl(2, 32, 6, 5, d)[:, 3:19],
+     "channels_last", 2, 0),
+    ("even_c18", torch.bfloat16, lambda d: _cl(2, 36, 6, 5, d)[:, 0::2],
+     "split", 8, 0),
+    ("odd_c18", torch.bfloat16, lambda d: _cl(2, 36, 6, 5, d)[:, 1::2],
+     "split", 8, 1),
+    ("odd_c208", torch.bfloat16, lambda d: _cl(2, 416, 8, 6, d)[:, 1::2],
+     "split", 16, 1),
+    ("odd_c58", torch.float32, lambda d: _cl(2, 116, 6, 5, d)[:, 1::2],
+     "split", 16, 1),
+    ("nchw_16x12", torch.bfloat16,
+     lambda d: torch.zeros(2, 384, 16, 12, dtype=d), "nchw", 8, 0),
+    ("nchw_8x6", torch.bfloat16,
+     lambda d: torch.zeros(2, 256, 8, 6, dtype=d), "nchw", 4, 0),
+    ("nchw_32x24", torch.float32,
+     lambda d: torch.zeros(2, 16, 32, 24, dtype=d), "nchw", 16, 0),
+]
+
+
+@pytest.mark.parametrize("name,dtype,make,route,load_bytes,offset", LAYOUTS,
+                         ids=[f"{n}_{str(d)[6:]}" for n, d, *_ in LAYOUTS])
+def test_loads_of_a_layout(name, dtype, make, route, load_bytes, offset):
+    """``_plan`` picks the load route from the strides, the dtype and the
+    base address's alignment: the widest load that the channel count, the
+    pixel, row and image strides and the base allow on a channels-last
+    view (C = 18 and 58 → 4 bytes of bf16, 116 → 8), the parent's words
+    on ShuffleNet's even/odd views (the odd one 2 bytes past its parent's
+    base), rows of each channel plane on NCHW; the route and its load
+    width travel in ``DwArgs``."""
+    x = make(dtype)
+    C = x.shape[1]
+    layer = tq.Int8DepthwiseConv2d(
+        torch.nn.Conv2d(C, C, 3, 1, 1, groups=C), 2.0)
+    plan = dw._plan(x, layer)
+    assert (plan.route, plan.load_bytes, plan.offset) == (route, load_bytes,
+                                                          offset)
+    assert (dw.ROUTES[plan.args.route], plan.args.load_bytes,
+            plan.args.offset) == (route, load_bytes, offset)
+    assert x.data_ptr() % 16 == x.element_size() * (
+        offset + (3 if name == "cl_slice_odd" else 0))
+
+
+def test_a_layout_without_a_route_raises():
+    """A channel stride of 3 with no unit W stride, and a channel-split
+    view whose parent's words would run past its storage, have no load
+    route: ``_plan`` raises rather than pick a slower kernel."""
+    wide = _cl(2, 54, 6, 5, torch.bfloat16)
+    layer = tq.Int8DepthwiseConv2d(
+        torch.nn.Conv2d(18, 18, 3, 1, 1, groups=18), 2.0)
+    with pytest.raises(ValueError, match="load route"):
+        dw._plan(wide[:, ::3], layer)
+    flat = torch.zeros(2 * 5 * 6 * 36 - 1, dtype=torch.bfloat16)
+    even = flat.as_strided((2, 18, 6, 5), (1080, 2, 180, 36))
+    with pytest.raises(ValueError, match="load route"):
+        dw._plan(even, layer)
+
+
+@pytest.mark.parametrize("k", [3, 5, 7, 9])
+def test_packed_weights_unpack_to_w_taps(k):
+    """``w_packed`` holds four taps of a row a word, the first in the low
+    byte, zeros past k and past C: unpacked, it is ``w_taps``."""
+    C = 37
+    layer = tq.Int8DepthwiseConv2d(
+        torch.nn.Conv2d(C, C, k, 1, k // 2, groups=C), 2.0)
+    w = layer.w_packed
+    tw = (k + 3) // 4
+    assert w.dtype == torch.int32 and tuple(w.shape) == (64, k, tw)
+    taps = torch.stack([(w >> (8 * e)) & 0xFF for e in range(4)], -1)
+    taps = ((taps + 128) % 256 - 128).to(torch.int8).reshape(64, k, 4 * tw)
+    assert torch.equal(taps[:C, :, :k].reshape(C, k * k).t(), layer.w_taps)
+    assert not taps[:C, :, k:].any() and not taps[C:].any()
+
+
+def _mobile_dw_sites():
+    """(input shape, k, stride) of every depthwise site of one forward of
+    the five mobile yamls at B=256 (74 sites), from a forward on the meta
+    device, and RSN's PRM 9×9 (its 256 channels at 64×48)."""
+    from udp_pose_tpu_torch.config import load_config
+    from udp_pose_tpu_torch.models.registry import MODELS
+    sites = []
+    for stem in ("mobilenetv3_small_256x192",
+                 "mobilevit_s_256x192_pixel_shuffle",
+                 "mobilevitv2_05_256x192_pixel_shuffle",
+                 "shufflenetv2_10x_256x192_pixel_shuffle",
+                 "shufflenetv2_plus_small_256x192"):
+        cfg = load_config(str(REPO / "configs/coco" / f"{stem}.yaml"))
+        with torch.device("meta"):
+            model = MODELS[cfg.MODEL.NAME](cfg).eval()
+        hooks = [m.register_forward_pre_hook(
+            lambda m, a: sites.append(((256,) + tuple(a[0].shape[1:]),
+                                       m.kernel_size[0], m.stride[0])))
+            for m in model.modules()
+            if isinstance(m, torch.nn.Conv2d) and tq.is_depthwise(m)]
+        w, h = cfg.MODEL.IMAGE_SIZE
+        with torch.no_grad():
+            model(torch.zeros(1, 3, h, w, device="meta"))
+        for hook in hooks:
+            hook.remove()
+    assert len(sites) == 74
+    return sites + [((32, 256, 64, 48), 9, 1)]
+
+
+def _outputs_written(C, Ho, Wo, cb):
+    """How often the launch's blocks (an 8×8 output tile of ``cb``
+    channels) and threads (a channel and a row of 8 columns, guarded by
+    c < C, ho < Ho and wo < Wo) write each output channel and pixel."""
+    T = dw.TILE
+    chans = np.zeros(C, int)
+    for c0 in range(0, -(-C // cb) * cb, cb):
+        c = c0 + np.arange(cb)
+        np.add.at(chans, c[c < C], 1)
+    ho = (np.arange(-(-Ho // T))[:, None] * T + np.arange(T)).ravel()
+    wo = (np.arange(-(-Wo // T))[:, None] * T + np.arange(T)).ravel()
+    hits = np.zeros((Ho, Wo), int)
+    np.add.at(hits, np.ix_(ho[ho < Ho], wo[wo < Wo]), 1)
+    return chans, hits
+
+
+def _cells_staged(route, vals, cb, k, s, x0):
+    """How often a block's staging loop writes each (channel, row, column)
+    cell of its quantised input tile, walked as the kernel walks it:
+    NCHW, loads of ``vals`` columns of a channel's row from the aligned
+    column at or before ``x0``; channels-last and split, ``vals`` of a
+    pixel's channels a load."""
+    n = (dw.TILE - 1) * s + k
+    cells = np.zeros((cb, n, n), int)
+    if route == "nchw":
+        xa = x0 - (x0 & (vals - 1))
+        per_row = (x0 + n - xa + vals - 1) // vals
+        i = np.arange(cb * n * per_row)
+        rest, j = np.divmod(i, per_row)
+        cl, iy = np.divmod(rest, n)
+        for e in range(vals):
+            ix = xa + j * vals + e - x0
+            keep = (ix >= 0) & (ix < n)
+            np.add.at(cells, (cl[keep], iy[keep], ix[keep]), 1)
+    else:
+        groups = cb // vals
+        pix, g = np.divmod(np.arange(n * n * groups), groups)
+        iy, ix = np.divmod(pix, n)
+        for j in range(vals):
+            np.add.at(cells, (g * vals + j, iy, ix), 1)
+    return cells
+
+
+def test_tile_geometry_covers_every_output_once():
+    """At each of the 74 depthwise sites' shapes of the mobile nets and
+    RSN's PRM 9×9: the blocks and threads of the launch, with the
+    channels a block ``_plan`` picks, write every output channel and
+    pixel exactly once, and on every route and load width the staging
+    loop writes every cell of a block's input tile (channels, rows and
+    columns with the halo) exactly once, at each tile's first column."""
+    seen = set()
+    for shape, k, s in _mobile_dw_sites():
+        N, C, H, W = shape
+        p = (k - 1) // 2
+        Ho, Wo = ic.conv_out_hw(H, W, (k, k), (s, s), (p, p))
+        cb = dw.channel_block(C)
+        if (C, Ho, Wo, k, s) in seen:
+            continue
+        seen.add((C, Ho, Wo, k, s))
+        chans, hits = _outputs_written(C, Ho, Wo, cb)
+        assert (chans == 1).all() and (hits == 1).all(), (shape, k, s)
+        for x0 in sorted({t * dw.TILE * s - p for t in range(-(-Wo // 8))}):
+            for route, vals in (("channels_last", 8), ("channels_last", 4),
+                                ("channels_last", 2), ("channels_last", 1),
+                                ("split", 4), ("split", 2), ("split", 1),
+                                ("nchw", 8), ("nchw", 4), ("nchw", 2),
+                                ("nchw", 1)):
+                cells = _cells_staged(route, vals, cb, k, s, x0)
+                assert (cells == 1).all(), (shape, k, s, route, vals, x0)
+
+
+def test_plan_cache_keeps_base_alignments_apart():
+    """The same shape and strides at two base alignments take two plans
+    with their own load widths (8 bytes at a 16-byte boundary, 4 bytes 4
+    bytes past it), kept apart in ``launch_plans``."""
+    layer = tq.Int8DepthwiseConv2d(
+        torch.nn.Conv2d(116, 116, 3, 1, 1, groups=116), 2.0)
+    buf = torch.zeros(2 * 116 * 6 * 5 + 8, dtype=torch.bfloat16)
+    shape, stride = (2, 116, 6, 5), (3480, 1, 580, 116)
+    at16, at4 = (buf.as_strided(shape, stride, off) for off in (0, 2))
+    assert (at16.data_ptr() % 16, at4.data_ptr() % 16) == (0, 4)
+    plans = [dw.launch_plan(x, layer) for x in (at16, at4, at16)]
+    assert [p.load_bytes for p in plans] == [8, 4, 8]
+    assert plans[2] is plans[0] and len(layer.launch_plans) == 2
 
 
 def test_cpu_route_is_the_plain_version():
@@ -173,8 +372,9 @@ def test_cpu_route_is_the_plain_version():
     assert torch.equal(dw.int8_dwconv(xt, layer),
                        dw.int8_dwconv_reference(xt, layer))
     assert (dw.int8_dwconv.launches, ic.int8_conv_fused.launches) == before
-    with pytest.raises(ValueError, match="CUDA"):
-        dw._plan(xt, layer)
+    for wrapper in (dw.int8_dwconv, dw.int8_dwconv_tiled):
+        with pytest.raises(ValueError, match="CUDA"):
+            wrapper(xt.to("meta"), layer)
     with pytest.raises(TypeError):
         dw._plan(xt.half(), layer)
     with pytest.raises(TypeError):
@@ -187,7 +387,7 @@ def test_wrapper_finds_its_launcher_and_struct():
     and of the same C types."""
     src = (REPO / "udp_pose_tpu_torch/csrc/int8_dwconv.cu").read_text()
     assert set(re.findall(r'extern "C" int (\w+)\(', src)) == {
-        "int8_dwconv_launch"}
+        "int8_dwconv_launch", "int8_dwconv_tiled_launch"}
     body = re.search(r"struct DwArgs \{(.*?)\};", src, re.S).group(1)
     ctype = {"long long": ctypes.c_longlong, "const void*": ctypes.c_void_p,
              "int": ctypes.c_int, "float": ctypes.c_float}

@@ -43,7 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.int8_conv import gemm_pad, int8_conv2d, k_tile_pad
-from ..ops.int8_dwconv import int8_dwconv
+from ..ops.int8_dwconv import int8_dwconv, pack_weights
 from ..utils.convert import conv_sites
 
 # the output heads stay in float (quantize.py:36-44 there): the pose
@@ -293,15 +293,20 @@ class Int8Conv2d(_Int8Site):
 
 
 class Int8DepthwiseConv2d(_Int8Site):
-    """The w8a8 replacement of one depthwise ``nn.Conv2d`` (groups = C):
-    the int8 weight as (kh·kw, C), tap-major with the channels contiguous
-    (the kernel's layout), run by :func:`..ops.int8_dwconv.int8_dwconv`."""
+    """The w8a8 replacement of one depthwise ``nn.Conv2d`` (groups = C),
+    run by :func:`..ops.int8_dwconv.int8_dwconv`: the int8 weight as
+    (kh·kw, C), tap-major with the channels contiguous (``w_taps``: the
+    plain version's, the previous design's and the calibration tables'), and
+    packed once into the kernel's words (``w_packed``, see
+    :func:`..ops.int8_dwconv.pack_weights`)."""
 
     def __init__(self, conv: nn.Conv2d, amax: float):
         super().__init__()
         w_i8 = self._prepare(conv, amax)
         self.register_buffer("w_taps", w_i8.reshape(
             self.in_channels, -1).t().contiguous(), persistent=False)
+        self.register_buffer("w_packed", pack_weights(
+            self.w_taps, self.kernel_size[0]), persistent=False)
 
     def forward(self, x):
         return int8_dwconv(x, self)
