@@ -75,12 +75,24 @@ depthwise conv, and RSN with ``USE_PRM`` through its 9×9 depthwise site
 (12b);
 ``mobilevitv2_05`` trained one epoch through ``train.run`` with WORKERS
 4, evaluated in int8 through ``test.run`` and served over ``/v1/pose``,
-and QAT steps of ``mobilenetv3_small`` (12c).  The kernels' launches
+and QAT steps of ``mobilenetv3_small`` (12c).  Phase 13, checkpoints and
+weight I/O (right after phase 7, w32 bf16 B=32 on a seeded synthetic
+mini-COCO of 128 training and 40 validation crops): ``train.run`` with
+WORKERS 2 and deterministic cuDNN uninterrupted twice, then stopped by
+``SIGTERM`` in the middle of epoch 1 and resumed with ``AUTO_RESUME``,
+the batches and the weights held against the uninterrupted runs, and a
+checkpoint's save and load timed and held bit for bit (13a); the
+rolling backend of ``TPU.CKPT_BACKEND orbax`` over three saves (13b);
+``rsn18`` in iteration mode stopped and resumed from ``iter-last.pth``
+(13c); an ``rsn18`` step with and without ``TPU.REMAT`` (13d);
+``MODEL.PRETRAINED`` grafting a backbone-only file (13e); the same
+weights as ``.msgpack`` and ``.pth`` served bit for bit (13f); the
+``DEBUG.DEBUG`` images of one epoch (13g).  The kernels' launches
 count phases 6, 7 and 8, each path in one window, and the two int8
 paths (9b-9c, 9d) in windows around each of their own calls: the bf16
 engines timed in turns with them and the card-vs-CPU checks run
-outside; phases 10, 11 and 12's paths likewise.  Any failed check exits
-nonzero before the last line, which is ``{"ok": true, "device":
+outside; phases 10, 11, 12 and 13's paths likewise.  Any failed check
+exits nonzero before the last line, which is ``{"ok": true, "device":
 {...}}``.  Without a CUDA card it exits 1.  Imports nothing of JAX or of
 the JAX package.
 """
@@ -4329,6 +4341,562 @@ def phase_mobile(tmp, device="cuda"):
 
 
 # ------------------------------------------------------------------ main
+# ---------------------------------------------------------------- phase 13
+RESUME_TRAIN_IMAGES, RESUME_VAL_IMAGES = 64, 20   # 128 / 40 crops
+RESUME_LAYERS = ["conv1", "bn1", "conv2", "bn2", "layer1", "stage4"]
+REMAT_STEPS = 6
+REMAT_GRAD_TOL = 1e-3            # x each gradient tensor's max |g|
+
+
+class StepDigests:
+    """Each train step's batch as a digest of its u8 images and targets
+    (sha1), taken where ``train.run`` uploads it (``core.train.
+    upload_batch``, which RSN's upload calls too); with ``kill_at`` set,
+    this process sends itself ``SIGTERM`` while that step's batch
+    uploads, so that the run's guard stops it after the step."""
+
+    def __init__(self):
+        self.seen, self.kill_at = [], None
+
+    def __enter__(self):
+        import hashlib
+        import signal
+
+        from udp_pose_tpu_torch.core import train as core_train
+        self._module, self._upload = core_train, core_train.upload_batch
+        upload = self._upload
+
+        def spy(batch, device, keys=("target", "target_weight"), *args):
+            h = hashlib.sha1()
+            for k in ("image",) + tuple(keys):
+                h.update(torch.as_tensor(batch[k]).cpu().contiguous()
+                         .numpy().tobytes())
+            if self.kill_at == len(self.seen):
+                os.kill(os.getpid(), signal.SIGTERM)
+            self.seen.append(h.hexdigest())
+            return upload(batch, device, keys, *args)
+
+        core_train.upload_batch = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._module.upload_batch = self._upload
+
+    def take(self):
+        seen, self.seen, self.kill_at = self.seen, [], None
+        return seen
+
+
+def max_abs_diff(a, b):
+    """max |a - b| over two state dicts' floating tensors."""
+    return max(float((a[k].double() - b[k].double()).abs().max())
+               for k in a if a[k].is_floating_point())
+
+
+def resume_cfg(root, out_dir, cfg_fn=w32_cfg, **over):
+    """13a's w32 run: bf16, B=32, 2 epochs, WORKERS 2, the deterministic
+    cuDNN switches (which :func:`phase_resume` sets for the phase),
+    writing under ``out_dir``."""
+    cfg = train_cfg(root, out_dir, "bfloat16", cfg_fn)
+    cfg.WORKERS = 2
+    cfg.CUDNN.DETERMINISTIC, cfg.CUDNN.BENCHMARK = True, False
+    cfg.merge_from_dict(over)
+    os.makedirs(out_dir, exist_ok=True)
+    return cfg
+
+
+def trained_run(path, cfg, train_ds, val_ds, device, guard=None):
+    """``train.run`` of a fresh seeded model of ``cfg`` in ``path``'s
+    launch window."""
+    from udp_pose_tpu_torch import train as train_cli
+    from udp_pose_tpu_torch.models import build_model
+    model = build_model(cfg, device=device, train=True)
+    return path.run(train_cli.run, cfg, model, train_ds, val_ds,
+                    cfg.OUTPUT_DIR, device, guard)
+
+
+def epoch_resume(data, card, device="cuda", cfg_fn=w32_cfg):
+    """13a: w32 trained uninterrupted twice (A1, A2); run B, which gets
+    ``SIGTERM`` during the second step of epoch 1 and saves a mid-epoch
+    checkpoint; run C, which goes on from it with ``AUTO_RESUME``.
+    Checks the batches, the weights against A1 within max |A1 - A2|, and
+    a save -> load round trip of a w32 train state bit for bit, timed.
+    Returns the path's launches."""
+    from udp_pose_tpu_torch.utils.preemption import PreemptionGuard
+    root, tmp, frames = data["root"], data["tmp"], data["frames"]
+    path = PathLaunches("resume")
+    runs, digests = {}, StepDigests()
+    cfg = resume_cfg(root, os.path.join(tmp, "a1"), cfg_fn)
+    B = cfg.TRAIN.BATCH_SIZE_PER_GPU
+    train_ds = in_memory_coco(cfg, frames["train2017"], True)
+    val_ds = in_memory_coco(cfg, frames["val2017"], False)
+    k = len(train_ds) // B
+    check(k >= 4, f"{k} steps an epoch")
+    t0 = time.perf_counter()
+    with digests:
+        for name in ("a1", "a2"):
+            runs[name] = trained_run(path, resume_cfg(
+                root, os.path.join(tmp, name), cfg_fn), train_ds, val_ds,
+                device)
+            runs[name]["digests"] = digests.take()
+        guard = PreemptionGuard()
+        digests.kill_at = k + 1
+        try:
+            runs["b"] = trained_run(path, resume_cfg(
+                root, os.path.join(tmp, "b"), cfg_fn), train_ds, val_ds,
+                device, guard)
+        finally:
+            guard.restore()
+        runs["b"]["digests"] = digests.take()
+        mid = torch.load(os.path.join(tmp, "b", "checkpoint.pth"),
+                         map_location="cpu", weights_only=False)
+        runs["c"] = trained_run(path, resume_cfg(
+            root, os.path.join(tmp, "b"), cfg_fn, AUTO_RESUME=True),
+            train_ds, val_ds, device)
+        runs["c"]["digests"] = digests.take()
+    secs = time.perf_counter() - t0
+    a1, b, c = runs["a1"], runs["b"], runs["c"]
+    n = 2 * k
+    check(len(a1["steps"]) == n and not a1["preempted"]
+          and b["preempted"] and len(b["steps"]) == k + 2
+          and [s["iteration"] for s in c["steps"]] == list(range(k + 2, n)),
+          f"steps: A1 {len(a1['steps'])}, B {len(b['steps'])} (preempted "
+          f"{b['preempted']}), C {[s['iteration'] for s in c['steps']]}")
+    check(runs["a2"]["digests"] == a1["digests"]
+          and b["digests"] + c["digests"] == a1["digests"],
+          "the batches of B then C are not A1's")
+    check((mid["epoch"], mid["step_in_epoch"], mid["step"]) == (0, 2, k + 2)
+          and c["steps"][0]["epoch"] == 1, f"mid-epoch checkpoint: epoch "
+          f"{mid['epoch']}, step_in_epoch {mid['step_in_epoch']}, step "
+          f"{mid['step']}")
+    final = {name: torch.load(os.path.join(tmp, d, "final_state.pth"),
+                              map_location="cpu")
+             for name, d in (("a1", "a1"), ("a2", "a2"), ("c", "b"))}
+    a1_a2 = max_abs_diff(final["a1"], final["a2"])
+    c_a1 = max_abs_diff(final["c"], final["a1"])
+    check(c_a1 <= a1_a2, f"resumed weights max |C - A1| {c_a1:.3g} > max "
+          f"|A1 - A2| {a1_a2:.3g}")
+    n_val = sum(len(r["validations"]) for r in runs.values())
+    check(n_val == 6, f"{n_val} validations in the four runs")
+    eval_batches = -(-len(val_ds) // cfg.TEST.BATCH_SIZE_PER_GPU)
+    path.served(n_val * eval_batches, 0)
+    check(path.counts == path.want, f"resume: launches {path.counts}, want "
+          f"{path.want}")
+    log(f"[resume] 13a w32 bf16 B={B} WORKERS 2, cuDNN deterministic, "
+        f"{k} steps an epoch x 2: B stopped by SIGTERM after step "
+        f"{mid['step']} (epoch {mid['epoch'] + 1}, step_in_epoch "
+        f"{mid['step_in_epoch']}), C resumed with AUTO_RESUME at iteration "
+        f"{c['steps'][0]['iteration']}; the {n} batch digests of B then C "
+        f"= A1's = A2's; final weights max |A1 - A2| = {a1_a2:.6g}, max |C "
+        f"- A1| = {c_a1:.6g}; four train.run in {secs:.1f} s; fused decode "
+        f"launches {path.counts['udp_offset_decode_fused']} = {n_val} "
+        f"validations x {eval_batches} batches | {card}")
+    checkpoint_round_trip(cfg, train_ds, card, device)
+    return path.counts
+
+
+def checkpoint_round_trip(cfg, train_ds, card, device="cuda"):
+    """13a: a w32 train state after two steps through ``save_checkpoint``
+    and ``load_checkpoint`` into a fresh one: the state dict, both Adam
+    moments and step counts, the scheduler, the LR and the step bit for
+    bit; the file's bytes and the two times."""
+    from udp_pose_tpu_torch.core.loss import make_loss_fn
+    from udp_pose_tpu_torch.core.train import (create_train_state,
+                                               make_train_step, upload_batch)
+    from udp_pose_tpu_torch.data.base import epoch_loader
+    from udp_pose_tpu_torch.models import build_model
+    from udp_pose_tpu_torch.utils import checkpoint as ckpt
+    train_ds.seed(0)
+    batch = next(epoch_loader(train_ds, cfg.TRAIN.BATCH_SIZE_PER_GPU, seed=0))
+    k = len(train_ds) // cfg.TRAIN.BATCH_SIZE_PER_GPU
+    model = build_model(cfg, device=device, train=True)
+    state = create_train_state(cfg, model, k)
+    step_fn = make_train_step(make_loss_fn(cfg))
+    for _ in range(2):
+        step_fn(state, upload_batch(batch, device))
+    out = cfg.OUTPUT_DIR
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint(out, model, state, 0, 0.5, step_in_epoch=2)
+    save_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(os.path.join(out, ckpt.CHECKPOINT))
+    fresh = build_model(cfg, device=device, train=True, seed=1)
+    fresh_state = create_train_state(cfg, fresh, k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = ckpt.load_checkpoint(out, fresh, fresh_state, device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(got == (1, 0.5, 2), f"load_checkpoint returned {got}")
+    sd, fsd = model.state_dict(), fresh.state_dict()
+    moments = [(s, fresh_state.optimizer.state[q])
+               for p, q in zip(model.parameters(), fresh.parameters())
+               for s in [state.optimizer.state[p]]]
+    check(all(torch.equal(sd[n], fsd[n]) for n in sd)
+          and all(torch.equal(a[m], b[m]) for a, b in moments
+                  for m in ("exp_avg", "exp_avg_sq", "step"))
+          and fresh_state.scheduler.last_epoch == state.scheduler.last_epoch
+          and fresh_state.optimizer.param_groups[0]["lr"]
+          == state.optimizer.param_groups[0]["lr"]
+          and fresh_state.step == state.step == 2,
+          "checkpoint round trip is not bit-exact")
+    log(f"[resume] 13a checkpoint.pth of w32 (weights, BN buffers, both "
+        f"Adam moments of {len(moments)} tensors, scheduler, step): "
+        f"{nbytes} bytes ({nbytes / 1e6:.2f} MB); save_checkpoint "
+        f"{save_s:.3f} s, load_checkpoint {load_s:.3f} s "
+        f"(map_location {device}); state dict, exp_avg, exp_avg_sq, step "
+        f"counts, scheduler last_epoch {state.scheduler.last_epoch}, LR "
+        f"{state.optimizer.param_groups[0]['lr']:g} and step bit-equal | "
+        f"{card}")
+    del model, fresh, state, fresh_state
+    torch.cuda.empty_cache()
+
+
+def rolling_backend(data, card, device="cuda", cfg_fn=w32_cfg):
+    """13b: ``TPU.CKPT_BACKEND orbax`` with ``CKPT_MAX_TO_KEEP`` 2 over
+    three saves of a w32 train state, a train step between them: the
+    time ``save()`` blocks the step loop against the time to commit;
+    the last two step directories left; ``load_any``'s tuple and the
+    restored state bit for bit."""
+    from udp_pose_tpu_torch.core.loss import make_loss_fn
+    from udp_pose_tpu_torch.core.train import (create_train_state,
+                                               make_train_step, upload_batch)
+    from udp_pose_tpu_torch.data.base import epoch_loader
+    from udp_pose_tpu_torch.models import build_model
+    from udp_pose_tpu_torch.utils.orbax_ckpt import OrbaxBackend, load_any
+    cfg = resume_cfg(data["root"], os.path.join(data["tmp"], "rolling"),
+                     cfg_fn, TPU={"CKPT_BACKEND": "orbax",
+                                  "CKPT_MAX_TO_KEEP": 2})
+    train_ds = in_memory_coco(cfg, data["frames"]["train2017"], True)
+    train_ds.seed(0)
+    batch = next(epoch_loader(train_ds, cfg.TRAIN.BATCH_SIZE_PER_GPU, seed=0))
+    model = build_model(cfg, device=device, train=True)
+    state = create_train_state(cfg, model, 4)
+    step_fn = make_train_step(make_loss_fn(cfg))
+    backend = OrbaxBackend(cfg.OUTPUT_DIR, cfg.TPU.CKPT_MAX_TO_KEEP)
+    block_ms, commit_ms, step_ms = [], [], []
+    for n in range(3):
+        t0 = time.perf_counter()
+        step_fn(state, upload_batch(batch, device))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        backend.save(model, state, {"epoch": n, "perf": 0.25 * n,
+                                    "step_in_epoch": n})
+        t2 = time.perf_counter()
+        backend.wait()
+        t3 = time.perf_counter()
+        step_ms.append((t1 - t0) * 1e3)
+        block_ms.append((t2 - t1) * 1e3)
+        commit_ms.append((t3 - t1) * 1e3)
+    check(backend.steps() == [2, 3] and sorted(os.listdir(backend.root))
+          == ["2", "3"], f"step directories {os.listdir(backend.root)}")
+    fresh = build_model(cfg, device=device, train=True, seed=1)
+    fresh_state = create_train_state(cfg, fresh, 4)
+    got = load_any(backend, fresh, fresh_state, False, device)
+    sd, fsd = model.state_dict(), fresh.state_dict()
+    check(got == (3, 0.5, 2) and fresh_state.step == 3
+          and all(torch.equal(sd[k], fsd[k]) for k in sd),
+          f"load_any returned {got}, step {fresh_state.step}")
+    log(f"[resume] 13b rolling backend (TPU.CKPT_BACKEND orbax, "
+        f"CKPT_MAX_TO_KEEP 2), three saves of the w32 train state, a train "
+        f"step before each ({', '.join(f'{v:.1f}' for v in step_ms)} ms): "
+        f"save() blocks {', '.join(f'{v:.1f}' for v in block_ms)} ms, "
+        f"committed {', '.join(f'{v:.1f}' for v in commit_ms)} ms after "
+        f"save() began; step directories left {backend.steps()}; load_any "
+        f"-> {got}, the restored state dict bit-equal | {card}")
+    del model, fresh, state, fresh_state
+    torch.cuda.empty_cache()
+
+
+def rsn_resume(data, card, device="cuda", yaml=RSN18_YAML):
+    """13c: ``rsn18`` (bf16, B=32, WORKERS 2, deterministic cuDNN) in
+    iteration mode for 6 iterations, 4 an epoch, checkpoints every 2:
+    uninterrupted (A), then stopped by ``SIGTERM`` during iteration 4
+    (B) and resumed from ``iter-last.pth`` (C).  The batch digests of B
+    then C are A's; C runs the one iteration left.  Returns the path's
+    launches."""
+    from udp_pose_tpu_torch.utils.preemption import PreemptionGuard
+    root, tmp, frames = data["root"], data["tmp"], data["frames"]
+    path = PathLaunches("rsn_iteration_resume")
+
+    def cfg_for(name, **over):
+        cfg = rsn_data_cfg(yaml, "bfloat16", root, os.path.join(tmp, name))
+        cfg.merge_from_dict({"WORKERS": 2, "CUDNN": {
+            "DETERMINISTIC": True, "BENCHMARK": False}, "TRAIN": {
+            "MAX_ITER": 6, "CHECKPOINT_PERIOD": 2, "WARMUP_ITERS": 2,
+            "ITER_BASELINE_DEVICES": 1}, **over})
+        return cfg
+
+    cfg = cfg_for("rsn_a")
+    train_ds = in_memory_rsn(cfg, frames["train2017"], True)
+    val_ds = in_memory_rsn(cfg, frames["val2017"], False)
+    digests = StepDigests()
+    with digests:
+        a = trained_run(path, cfg, train_ds, val_ds, device)
+        want = digests.take()
+        guard = PreemptionGuard()
+        digests.kill_at = 4
+        try:
+            b = trained_run(path, cfg_for("rsn_b"), train_ds, val_ds,
+                            device, guard)
+        finally:
+            guard.restore()
+        got = digests.take()
+        c = trained_run(path, cfg_for("rsn_b", AUTO_RESUME=True), train_ds,
+                        val_ds, device)
+        got += digests.take()
+    check([s["iteration"] for s in a["steps"]] == list(range(6))
+          and b["preempted"] and len(b["steps"]) == 5
+          and [s["iteration"] for s in c["steps"]] == [5]
+          and os.readlink(os.path.join(tmp, "rsn_b", "iter-last.pth"))
+          == "iter-5.pth", f"iterations: A {len(a['steps'])}, B "
+          f"{len(b['steps'])}, C {[s['iteration'] for s in c['steps']]}")
+    check(got == want, "the batches of B then C are not A's")
+    check(path.counts == path.want, f"rsn resume: launches {path.counts}")
+    last = {name: torch.load(os.path.join(tmp, name, "iter-last.pth"),
+                             map_location="cpu", weights_only=False)
+            for name in ("rsn_a", "rsn_b")}
+    diff = max_abs_diff(last["rsn_b"]["state_dict"],
+                        last["rsn_a"]["state_dict"])
+    B = cfg.TRAIN.BATCH_SIZE_PER_GPU
+    log(f"[resume] 13c rsn18 bf16 B={B} WORKERS 2 iteration mode, 6 "
+        f"iterations of {len(train_ds)} samples ({len(train_ds) // B} an "
+        f"epoch): B stopped by SIGTERM after iteration 4 (iter-4.pth), C "
+        f"resumed from iter-last.pth past epoch 0 and one batch of epoch 1 "
+        f"and ran iteration 5; the 6 batch digests of B then C = A's; "
+        f"iter-5.pth weights max |C - A| = {diff:.6g} | {card}")
+    return path.counts
+
+
+def remat_step(data, card, device="cuda", yaml=RSN18_YAML,
+               n_steps=REMAT_STEPS):
+    """13d: ``rsn18`` train steps at B=32 (bf16 autocast, deterministic
+    cuDNN) with and without ``TPU.REMAT`` from the same init and batch:
+    the first step's loss bit-equal and every gradient within
+    ``REMAT_GRAD_TOL`` of its tensor's max (max |Δ| printed); each
+    side's peak memory and median step time."""
+    from udp_pose_tpu_torch.core.rsn import (create_rsn_train_state,
+                                             make_rsn_train_step,
+                                             upload_rsn_batch)
+    from udp_pose_tpu_torch.data.base import epoch_loader
+    from udp_pose_tpu_torch.models import build_model
+    cfg = rsn_data_cfg(yaml, "bfloat16", data["root"],
+                       os.path.join(data["tmp"], "remat"))
+    train_ds = in_memory_rsn(cfg, data["frames"]["train2017"], True)
+    train_ds.seed(0)
+    batch = next(epoch_loader(train_ds, cfg.TRAIN.BATCH_SIZE_PER_GPU,
+                              seed=0))
+    sides = {}
+    for remat in (False, True):
+        cfg.TPU.REMAT = remat
+        model = build_model(cfg, device=device, train=True)
+        state = create_rsn_train_state(cfg, model, 1e-3, 100, 10)
+        step_fn = make_rsn_train_step(cfg.MODEL.EXTRA.get("STAGE_NUM", 1))
+        up = upload_rsn_batch(batch, device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        secs, loss, grads = [], None, None
+        for i in range(n_steps):
+            t0 = time.perf_counter()
+            m = step_fn(state, up)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if i == 0:
+                loss = m["loss"].clone()
+                grads = {k: p.grad.double().cpu()
+                         for k, p in model.named_parameters()}
+        # the steps' own peak: above what the process held before them
+        # (the model, its batch, and what earlier phases left allocated)
+        sides[remat] = (loss, grads,
+                        (torch.cuda.max_memory_allocated() - before) / 1e9,
+                        np.median(secs[1:]) * 1e3)
+        del model, state, up
+        torch.cuda.empty_cache()
+    (l0, g0, mem0, ms0), (l1, g1, mem1, ms1) = sides[False], sides[True]
+    dg = max(float((g1[k] - g0[k]).abs().max()) for k in g0)
+    rel = max(float((g1[k] - g0[k]).abs().max()
+                    / max(float(g0[k].abs().max()), 1e-30)) for k in g0)
+    check(torch.equal(l0, l1) and rel <= REMAT_GRAD_TOL,
+          f"remat step: loss {float(l0)} vs {float(l1)}, gradients max "
+          f"|Δ| {dg:.3g} ({rel:.3g} of a tensor's max)")
+    log(f"[resume] 13d rsn18 bf16 B={len(batch['image'])} train step, "
+        f"cuDNN deterministic: loss bit-equal ({float(l0):.6g}); "
+        f"gradients max |Δ| {dg:.6g} ({rel:.3g} of a tensor's max |g|, "
+        f"{len(g0)} tensors); peak max_memory_allocated above the "
+        f"allocation before the steps {mem0:.3f} GB plain, {mem1:.3f} GB "
+        f"with TPU.REMAT ({mem1 / mem0:.3f}x); median step {ms0:.2f} ms plain, "
+        f"{ms1:.2f} ms with TPU.REMAT ({ms1 / ms0:.3f}x) over "
+        f"{n_steps - 1} steps after the first | {card}")
+
+
+def pretrained_graft(data, card, device="cuda", cfg_fn=w32_cfg):
+    """13e: a backbone-only ``.pth`` of a seeded w32 grafted onto a fresh
+    one with ``PRETRAINED_LAYERS`` naming a subset: the grafted keys equal
+    the file, every other key (``stage4.2.fuse_layers`` among them) the
+    fresh init; then one train step."""
+    from udp_pose_tpu_torch.core.loss import make_loss_fn
+    from udp_pose_tpu_torch.core.train import (create_train_state,
+                                               make_train_step, upload_batch)
+    from udp_pose_tpu_torch.data.base import epoch_loader
+    from udp_pose_tpu_torch.models import build_model
+    from udp_pose_tpu_torch.utils.checkpoint import load_pretrained
+    cfg = resume_cfg(data["root"], os.path.join(data["tmp"], "pretrained"),
+                     cfg_fn)
+    cfg.MODEL.EXTRA.PRETRAINED_LAYERS = RESUME_LAYERS
+    source = {k: v.cpu() for k, v in build_model(
+        cfg, device=device, train=True, seed=5).state_dict().items()
+        if not k.startswith("final_layer")}
+    file = os.path.join(cfg.OUTPUT_DIR, "backbone.pth")
+    torch.save(source, file)
+    model = build_model(cfg, device=device, train=True)
+    fresh = {k: v.cpu().clone() for k, v in model.state_dict().items()}
+    t0 = time.perf_counter()
+    n = load_pretrained(model, file, cfg)
+    secs = time.perf_counter() - t0
+    got = {k: v.cpu() for k, v in model.state_dict().items()}
+    grafted = [k for k in source if k.split(".")[0] in RESUME_LAYERS
+               and "stage4.2.fuse_layers" not in k
+               and not k.endswith("num_batches_tracked")]
+    kept = [k for k in got if k not in grafted]
+    check(n == len(grafted) and any("stage4.2.fuse_layers" in k
+                                    for k in kept)
+          and all(torch.equal(got[k], source[k]) for k in grafted)
+          and all(torch.equal(got[k], fresh[k]) for k in kept),
+          f"graft of {n} leaves is not the file's subset over the fresh "
+          "init")
+    train_ds = in_memory_coco(cfg, data["frames"]["train2017"], True)
+    train_ds.seed(0)
+    batch = next(epoch_loader(train_ds, cfg.TRAIN.BATCH_SIZE_PER_GPU, seed=0))
+    state = create_train_state(cfg, model, 4)
+    loss = float(make_train_step(make_loss_fn(cfg))(
+        state, upload_batch(batch, device))["loss"])
+    check(np.isfinite(loss), f"loss {loss} after the graft")
+    log(f"[resume] 13e MODEL.PRETRAINED: a backbone-only w32 .pth "
+        f"({len(source)} keys) with PRETRAINED_LAYERS {RESUME_LAYERS}: "
+        f"{n} leaves grafted in {secs:.3f} s, each equal to the file; the "
+        f"other {len(kept)} keys (stage4.2.fuse_layers among them) equal "
+        f"the fresh init; one train step, loss {loss:.6g} | {card}")
+    del model, state
+    torch.cuda.empty_cache()
+
+
+def msgpack_serving(data, card, device="cuda", cfg_fn=w32_cfg,
+                    batch=SERVE_BATCH):
+    """13f: the seeded w32 weights written as a ``.msgpack`` of flax
+    variables by the port's own writer and as a ``.pth``, each loaded
+    into ``UdpPosePipeline`` (bf16, flip folded): keypoints and scores of
+    ``batch`` crops bit for bit.  Returns the path's launches."""
+    from udp_pose_tpu_torch.engine.pose_engine import UdpPosePipeline
+    from udp_pose_tpu_torch.models import build_model
+    from udp_pose_tpu_torch.utils.checkpoint import save_weights
+    from udp_pose_tpu_torch.utils.convert import write_msgpack_weights
+    cfg = cfg_fn("bfloat16")
+    model = build_model(cfg, device=device, train=True, seed=4)
+    files = {ext: os.path.join(data["tmp"], f"w32{ext}")
+             for ext in (".msgpack", ".pth")}
+    t0 = time.perf_counter()
+    write_msgpack_weights(files[".msgpack"], model.state_dict(), cfg)
+    write_s = time.perf_counter() - t0
+    save_weights(files[".pth"], model)
+    crops, center, scale = random_crops(batch, cfg, seed=13)
+    path = PathLaunches("msgpack_serving")
+    out, load_s = {}, {}
+    for ext, f in files.items():
+        t0 = time.perf_counter()
+        pipe = UdpPosePipeline(cfg, weights=f, device=device)
+        load_s[ext] = time.perf_counter() - t0
+        out[ext] = path.run(pipe.infer_crops, crops, center, scale)
+        path.served(1, 0)
+        del pipe
+    check(path.counts == path.want, f"msgpack serving: launches "
+          f"{path.counts}")
+    (kp_m, sc_m), (kp_p, sc_p) = out[".msgpack"], out[".pth"]
+    check(np.array_equal(kp_m, kp_p) and np.array_equal(sc_m, sc_p)
+          and np.isfinite(kp_m).all(), "msgpack keypoints != the .pth's")
+    log(f"[resume] 13f msgpack weights: the seeded w32 written as flax "
+        f"variables by utils/msgpack ({os.path.getsize(files['.msgpack'])} "
+        f"bytes in {write_s:.3f} s) and as .pth "
+        f"({os.path.getsize(files['.pth'])} bytes); UdpPosePipeline built "
+        f"and loaded in {load_s['.msgpack']:.3f} / {load_s['.pth']:.3f} s; "
+        f"keypoints and scores of {batch} crops (bf16, flip folded) "
+        f"bit-equal; fused decode launches "
+        f"{path.counts['udp_offset_decode_fused']} | {card}")
+    del model
+    torch.cuda.empty_cache()
+    return path.counts
+
+
+def debug_images(data, card, device="cuda", cfg_fn=w32_cfg):
+    """13g: one epoch of w32 with ``DEBUG.DEBUG`` and every
+    ``DEBUG.SAVE_*`` switch, ``PRINT_FREQ`` 2, WORKERS 2: the
+    ``train_<e>_<i>`` and ``val_<n>`` images written.  Returns the path's
+    launches."""
+    cfg = resume_cfg(data["root"], os.path.join(data["tmp"], "debug"),
+                     cfg_fn, PRINT_FREQ=2, TRAIN={"END_EPOCH": 1}, DEBUG={
+                         "DEBUG": True, "SAVE_BATCH_IMAGES_GT": True,
+                         "SAVE_BATCH_IMAGES_PRED": True,
+                         "SAVE_HEATMAPS_GT": True,
+                         "SAVE_HEATMAPS_PRED": True})
+    train_ds = in_memory_coco(cfg, data["frames"]["train2017"], True)
+    val_ds = in_memory_coco(cfg, data["frames"]["val2017"], False)
+    path = PathLaunches("debug_images")
+    trained_run(path, cfg, train_ds, val_ds, device)
+    eval_batches = -(-len(val_ds) // cfg.TEST.BATCH_SIZE_PER_GPU)
+    path.served(eval_batches, 0)
+    check(path.counts == path.want, f"debug: launches {path.counts}")
+    want = [f"{p}_{s}.jpg" for p in ("train_0_0", "train_0_2", "val_0")
+            for s in ("gt", "pred", "hm_gt", "hm_pred")]
+    sizes = {n: os.path.getsize(os.path.join(cfg.OUTPUT_DIR, n))
+             for n in want if os.path.exists(os.path.join(cfg.OUTPUT_DIR, n))}
+    check(sorted(sizes) == sorted(want) and min(sizes.values()) > 0,
+          f"debug images {sorted(sizes)}, want {want}")
+    log(f"[resume] 13g DEBUG.DEBUG: one epoch wrote {len(sizes)} images "
+        f"({', '.join(want[:4])} ...; {sum(sizes.values())} bytes) | {card}")
+    return path.counts
+
+
+def phase_resume(tmp, device="cuda", cfg_fn=w32_cfg, rsn_yaml=RSN18_YAML,
+                 n_train=RESUME_TRAIN_IMAGES, n_val=RESUME_VAL_IMAGES):
+    """Phase 13: checkpoints, resume, preemption and weight I/O at full
+    width on a seeded synthetic mini-COCO in memory (13a-13g).  Returns
+    the launches by path."""
+    card = card_line()
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(41)
+    root = os.path.join(tmp, "coco")
+    data = {"root": root, "tmp": tmp, "frames": {
+        "train2017": synthetic_coco(root, "train2017", n_train, rng),
+        "val2017": synthetic_coco(root, "val2017", n_val, rng)}}
+    # the runs' CUDNN switches (train.main's set_cudnn), for this phase
+    # only: the phases after it compare results of repeated calls
+    flags = (torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    parts = (("13a", "resume", epoch_resume, cfg_fn),
+             ("13b", None, rolling_backend, cfg_fn),
+             ("13c", "rsn_iteration_resume", rsn_resume, rsn_yaml),
+             ("13d", None, remat_step, rsn_yaml),
+             ("13e", None, pretrained_graft, cfg_fn),
+             ("13f", "msgpack_serving", msgpack_serving, cfg_fn),
+             ("13g", "debug_images", debug_images, cfg_fn))
+    paths, secs = {}, {}
+    try:
+        for part, name, fn, arg in parts:
+            t0 = time.perf_counter()
+            launches = fn(data, card, device, arg)
+            secs[part] = time.perf_counter() - t0
+            if name is not None:
+                paths[name] = launches
+    finally:
+        (torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.deterministic) = flags
+    log(f"[resume] phase 13 {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"{p} {v:.1f}" for p, v in secs.items()) + " s)")
+    return paths
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -4372,6 +4940,8 @@ def main(argv=None):
         paths["pose_serving"] = phase_server(w32_cfg("bfloat16"))
         with tempfile.TemporaryDirectory() as tmp:
             paths["training"] = phase_train(tmp)
+        with tempfile.TemporaryDirectory() as tmp:
+            paths.update(phase_resume(tmp))
         paths.update(int8_paths)
         paths.update(zoo_paths)
         paths.update(rsn_paths)

@@ -326,8 +326,8 @@ def test_port_imports_nothing_of_jax():
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "optax",
-                               "udp_pose_tpu"), \
+            assert top not in ("jax", "jaxlib", "flax", "optax", "orbax",
+                               "msgpack", "udp_pose_tpu"), \
                 f"{path.relative_to(REPO)} imports {mod}"
 
 

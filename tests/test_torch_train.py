@@ -374,7 +374,7 @@ def test_entry_points_refuse_what_is_not_ported(tmp_path, coco_root):
     path = tmp_path / "c.yaml"
     path.write_text(yaml.safe_dump(cfg.to_dict()))
     for key, value in (("DATASET.DEVICE_AUG", "True"),
-                       ("AUTO_RESUME", "True"), ("TPU.PP", "True")):
+                       ("TPU.TP", "True"), ("TPU.PP", "True")):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train_cli.main(["--cfg", str(path), "--device", "cpu", key,
                             value])

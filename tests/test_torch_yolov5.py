@@ -137,6 +137,6 @@ def test_ultralytics_state_dict_loads_strict(bridged_n, tmp_path):
         for k in want:
             assert torch.equal(got.state_dict()[k], want[k]), k
     with pytest.raises(ValueError, match=".pt"):
-        load_yolov5_weights(str(tmp_path / "yolov5n.msgpack"))
+        load_yolov5_weights(str(tmp_path / "yolov5n.onnx"))
     with pytest.raises(KeyError, match="yolov5n"):
         build_detector("yolov5x", device="cpu")

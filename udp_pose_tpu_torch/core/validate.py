@@ -12,6 +12,7 @@ padded: the port compiles nothing per shape.
 
 from __future__ import annotations
 
+import itertools
 import logging
 import time
 
@@ -32,11 +33,12 @@ def validate(cfg, dataset, model, output_dir="", batch_size=None,
     ``model``: the serving model, as ``models.build_model`` gives it (eval
     mode, compute dtype); so for the same weights the preds are those
     ``engine.UdpPosePipeline`` returns for the same crops.  ``infer_fn``
-    replaces the graph built from ``model`` and ``cfg``.
+    replaces the graph built from ``model`` and ``cfg``.  With
+    ``DEBUG.DEBUG`` and an ``output_dir``, every ``PRINT_FREQ``-th batch
+    that has targets writes the debug images of ``val_<batch>``
+    (:func:`..utils.vis.save_debug_images`; the reference's
+    function.py:219).
     """
-    if cfg.DEBUG.DEBUG:
-        raise NotImplementedError("DEBUG.DEBUG (debug images) is not ported "
-                                  "yet")
     pairs = tuple(map(tuple, dataset.flip_pairs))
     if infer_fn is None and cfg.MODEL.NAME == "rsn":
         # RSN's flip test and decode (udp_pose_tpu/core/validate.py:43-53)
@@ -59,7 +61,7 @@ def validate(cfg, dataset, model, output_dir="", batch_size=None,
     batches = iter(epoch_loader(dataset, batch_size, shuffle=False,
                                 drop_last=False))
 
-    while True:
+    for n_batch in itertools.count():
         t_build = time.perf_counter()
         batch = next(batches, None)
         if batch is None:
@@ -74,8 +76,17 @@ def validate(cfg, dataset, model, output_dir="", batch_size=None,
                 hm, tgt = hm[:, ::3], batch["target"][:, ::3]
             else:
                 tgt = batch["target"]
-            _, avg_acc, cnt, _ = pck_accuracy(hm.cpu().numpy(), tgt)
+            hm_np = hm.cpu().numpy()
+            _, avg_acc, cnt, pred = pck_accuracy(hm_np, tgt)
             accs.append((avg_acc, cnt))
+            if (cfg.DEBUG.DEBUG and n_batch % cfg.PRINT_FREQ == 0
+                    and output_dir):
+                # pred joints at the heatmap argmax x 4, in crop space
+                from ..utils.vis import save_debug_images
+                save_debug_images(
+                    cfg, batch["image"], batch.get("joints"),
+                    batch.get("joints_vis"), tgt, hm_np,
+                    f"{output_dir}/val_{n_batch}", pred_joints=pred * 4)
 
         all_preds[idx:idx + bs, :, 0:2] = preds.cpu().numpy()
         all_preds[idx:idx + bs, :, 2:3] = maxvals.cpu().numpy()

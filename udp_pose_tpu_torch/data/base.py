@@ -290,14 +290,29 @@ def epoch_batch_indices(dataset, batch_size, shuffle=True, seed=0,
             for start in range(0, end, batch_size)]
 
 
+def epoch_plan_size(dataset, batch_size, shuffle=True, seed=0,
+                    drop_last=True, group_ids=None):
+    """The batches of epoch ``seed``'s plan, counted from the indices
+    alone: no sample is built (a resume skips whole epochs with it,
+    ``tools/train.py:312-320``)."""
+    return len(epoch_batch_indices(dataset, batch_size, shuffle=shuffle,
+                                   seed=seed, drop_last=drop_last,
+                                   group_ids=group_ids))
+
+
 def epoch_loader(dataset, batch_size, shuffle=True, seed=0, drop_last=True,
-                 shard_index=0, num_shards=1, group_ids=None):
+                 shard_index=0, num_shards=1, group_ids=None,
+                 skip_batches=0):
     """Epoch-seeded batch iterator over :func:`epoch_batch_indices`, in
     this process (the reference's DataLoader + DistributedSampler,
-    RSN/cvpack/dataset/torch_samplers/distributed.py:10-66)."""
+    RSN/cvpack/dataset/torch_samplers/distributed.py:10-66).
+    ``skip_batches`` drops the plan's first chunks without building them:
+    an index skip, which does not replay the augmentation draws of the
+    dataset's one generator; an exact mid-epoch resume builds and throws
+    away the prefix instead (:func:`..train.run`)."""
     for chunk in epoch_batch_indices(dataset, batch_size, shuffle=shuffle,
                                      seed=seed, drop_last=drop_last,
                                      shard_index=shard_index,
                                      num_shards=num_shards,
-                                     group_ids=group_ids):
+                                     group_ids=group_ids)[skip_batches:]:
         yield collate([dataset[int(i)] for i in chunk])

@@ -38,9 +38,10 @@ def _next_bucket(n, buckets=(1, 2, 4, 8, 16, 32, 64, 128)):
 class UdpPosePipeline:
     """Build from a config (yaml path or Node) + weights on ``device``.
 
-    ``weights``: a reference ``.pth`` path, the JAX package's variables
-    (a dict with ``params`` and ``batch_stats``), or a state_dict of the
-    port's keys; None keeps the seeded random init (smoke mode).
+    ``weights``: a reference ``.pth`` path, a ``.msgpack`` path of the JAX
+    package's variables (its ``save_weights``), those variables (a dict
+    with ``params`` and ``batch_stats``), or a state_dict of the port's
+    keys; None keeps the seeded random init (smoke mode).
     ``quantize="int8"`` serves w8a8 convs (:mod:`..models.quantize`);
     ``act_scales`` is a calibration table (dict or json path), and without
     one the first ``calib_batches`` batches (default
@@ -132,14 +133,10 @@ class UdpPosePipeline:
 
     def load_weights(self, weights):
         """Load ``weights`` (see the class doc) with ``strict=True``."""
-        from ..utils.convert import (load_torch_state_dict,
-                                     state_dict_to_torch,
+        from ..utils.convert import (read_weights, state_dict_to_torch,
                                      variables_to_state_dict)
         if isinstance(weights, (str, os.PathLike)):
-            if not str(weights).endswith(".pth"):
-                raise ValueError(f"weights {weights!r}: only reference "
-                                 ".pth files load in the port so far")
-            sd = load_torch_state_dict(weights)
+            sd = read_weights(weights, self.cfg)
         elif "params" in weights:
             sd = variables_to_state_dict(weights, self.cfg)
         else:

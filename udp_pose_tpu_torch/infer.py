@@ -35,7 +35,8 @@ def parse_args(argv=None):
                         "'webcam:<id>'")
     p.add_argument("--pose-cfg", required=True)
     p.add_argument("--pose-weights", default="",
-                   help="reference .pth pose weights (default: seeded "
+                   help="reference .pth pose weights, or a .msgpack of "
+                        "the JAX package's variables (default: seeded "
                         "random init)")
     p.add_argument("--bbox-dir", default="",
                    help="YOLO label dir (pose-labelling mode)")
@@ -43,7 +44,8 @@ def parse_args(argv=None):
                    choices=("",) + DETECTORS,
                    help="YOLOv5 variant: n/s/m/l or yolov5n/...")
     p.add_argument("--detector-weights", default="",
-                   help="ultralytics YOLOv5 state dict (.pt/.pth)")
+                   help="ultralytics YOLOv5 state dict (.pt/.pth), or a "
+                        ".msgpack of the JAX package's YOLOv5 variables")
     p.add_argument("--conf-thres", type=float, default=0.25)
     p.add_argument("--iou-thres", type=float, default=0.45)
     p.add_argument("--max-det", type=int, default=300,

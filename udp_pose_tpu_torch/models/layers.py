@@ -35,16 +35,22 @@ class BatchNorm2d(nn.BatchNorm2d):
     and takes the variance from the inverse std that it returns,
     ``1/invstd² - eps``: no second pass over the activation.  Eval mode
     and the state-dict keys are those of ``nn.BatchNorm2d``.
+    ``update_stats`` False keeps the running stats as they are in train
+    mode (the recomputed forward of a rematerialised block, which flax's
+    functional update discards).
     """
 
     def __init__(self, num_features, eps=1e-5, momentum=BN_MOMENTUM):
         super().__init__(num_features, eps=eps, momentum=momentum)
+        self.update_stats = True
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
         out, mean, invstd = torch.native_batch_norm(
             x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        if not self.update_stats:
+            return out
         with torch.no_grad():
             dt = self.running_mean.dtype
             self.running_mean.lerp_(mean.to(dt), self.momentum)

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.blur import _ieee_fp32_matmul
 from .layers import BatchNorm2d, max_pool_3x3_s2
@@ -178,17 +179,45 @@ class RSNBottleneck(nn.Module):
         return F.relu(out + residual)
 
 
+def remat_call(block, x):
+    """``block(x)`` whose activations the backward recomputes instead of
+    keeping (``torch.utils.checkpoint``, non-reentrant; the JAX package's
+    ``nn.checkpoint``).  The recomputed forward leaves the block's
+    BatchNorm running stats as the first forward left them."""
+    calls = [0]
+
+    def forward(v):
+        calls[0] += 1
+        if calls[0] == 1:
+            return block(v)
+        bns = [m for m in block.modules() if isinstance(m, BatchNorm2d)]
+        for m in bns:
+            m.update_stats = False
+        try:
+            return block(v)
+        finally:
+            for m in bns:
+                m.update_stats = True
+
+    return checkpoint(forward, x, use_reentrant=False)
+
+
 class DownsampleModule(nn.Module):
     """ResNet_downsample_module (network.py:140-199): four layers of
     bottlenecks (64, 128, 256, 512 planes; strides 1, 2, 2, 2), each
     layer's output plus the previous stage's two skips when
-    ``has_skip``; returns the features deepest first."""
+    ``has_skip``; returns the features deepest first.  ``remat``
+    (``TPU.REMAT``): each bottleneck's activations are recomputed in the
+    backward (:func:`remat_call`; the reference's efficient/checkpoint
+    flag, ``udp_pose_tpu/models/rsn.py:178-190``)."""
 
     def __init__(self, layers: Sequence[int] = (2, 2, 2, 2),
                  has_skip: bool = False, plain: bool = False,
-                 se: bool = False, bc_planes: bool = False):
+                 se: bool = False, bc_planes: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.has_skip = has_skip
+        self.remat = remat
         in_planes = 64
         for li, (planes, blocks, stride) in enumerate(
                 zip((64, 128, 256, 512), layers, (1, 2, 2, 2))):
@@ -203,8 +232,10 @@ class DownsampleModule(nn.Module):
 
     def forward(self, x, skip1=None, skip2=None):
         feats = []
+        remat = self.remat and torch.is_grad_enabled()
         for li in range(4):
-            x = getattr(self, f"layer{li + 1}")(x)
+            for block in getattr(self, f"layer{li + 1}"):
+                x = remat_call(block, x) if remat else block(x)
             if self.has_skip:
                 x = x + skip1[li] + skip2[li]
             feats.append(x)
@@ -315,10 +346,10 @@ class SingleStage(nn.Module):
 
     def __init__(self, output_chl_num, output_shape, chl_num, layers,
                  has_skip, gen_skip, gen_cross_conv, plain, se, bc_planes,
-                 use_prm):
+                 use_prm, remat=False):
         super().__init__()
         self.downsample = DownsampleModule(layers, has_skip, plain, se,
-                                           bc_planes)
+                                           bc_planes, remat)
         self.upsample = UpsampleModule(output_chl_num, output_shape, chl_num,
                                        gen_skip, gen_cross_conv, use_prm)
 
@@ -359,7 +390,7 @@ class RSN(nn.Module):
                  layers: Sequence[int] = (2, 2, 2, 2), plain: bool = False,
                  se: bool = False, bc_planes: bool = False,
                  conv_stem: bool = False, use_prm: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 remat: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         #: compute dtype, as ``PoseHRNet.dtype``
         self.dtype = dtype
@@ -372,7 +403,7 @@ class RSN(nn.Module):
             setattr(self, f"stage{i}", SingleStage(
                 output_chl_num, output_shape, upsample_chl_num,
                 tuple(layers), i > 0, not last, not last, plain, se,
-                bc_planes, use_prm))
+                bc_planes, use_prm, remat))
 
     def forward(self, x, all_stages: bool = False):
         x = self.top(x)
@@ -404,5 +435,6 @@ def rsn_from_cfg(cfg):
         bc_planes=extra.get("BC_FROM_PLANES", se),
         conv_stem=extra.get("CONV_STEM", se),
         use_prm=extra.get("USE_PRM", False),
+        remat=cfg.TPU.REMAT,
         dtype=dtype,
     )

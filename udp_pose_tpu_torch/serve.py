@@ -23,8 +23,9 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--cfg", required=True, help="pose model yaml")
     p.add_argument("--weights", default="",
-                   help="reference .pth pose weights "
-                        "(default: seeded random init, smoke mode)")
+                   help="reference .pth pose weights, or a .msgpack of the "
+                        "JAX package's variables (default: seeded random "
+                        "init, smoke mode)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080,
                    help="0 picks a free port (printed on startup)")
@@ -42,7 +43,8 @@ def parse_args(argv=None):
                    help="enable /v1/detect_pose with this YOLOv5 variant "
                         "(n/s/m/l or yolov5n/...)")
     p.add_argument("--detector-weights", default="",
-                   help="ultralytics YOLOv5 state dict (.pt/.pth) "
+                   help="ultralytics YOLOv5 state dict (.pt/.pth) or a "
+                        ".msgpack of the JAX package's YOLOv5 variables "
                         "(default: seeded random init)")
     p.add_argument("--max-persons", type=int, default=16,
                    help="person rows a /v1/detect_pose frame carries")

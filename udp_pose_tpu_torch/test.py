@@ -3,8 +3,10 @@
     python -m udp_pose_tpu_torch.test --cfg <experiment.yaml> \
         [--device cpu] TEST.MODEL_FILE x.pth [KEY VALUE ...]
 
-Loads ``TEST.MODEL_FILE`` (a ``.pth``; without one, ``final_state.pth``
-of the run directory, or else the seeded random init), runs the
+Loads ``TEST.MODEL_FILE`` (a ``.pth``, or a ``.msgpack`` of the JAX
+package's variables; without one, ``final_state.pth`` of the run
+directory, else its ``final_state.msgpack``, else the seeded random
+init), runs the
 flip-test validation of :mod:`.core.validate` and prints the AP table;
 ``TPU.QUANTIZE int8`` evaluates w8a8 serving calibrated on the first
 ``TPU.QUANTIZE_CALIB_BATCHES`` val batches, ``TPU.QAT int8`` the
@@ -26,15 +28,14 @@ def run(cfg, weight_file, val_ds, out_dir="", device="cuda"):
     returns (name_values, perf)."""
     from .core.validate import validate
     from .models import build_model
-    from .utils.convert import load_torch_state_dict, state_dict_to_torch
+    from .utils.convert import read_weights, state_dict_to_torch
     from .utils.logging import print_name_value
 
     model = build_model(cfg, device=device)
     if weight_file and os.path.exists(weight_file):
         logger.info(f"=> loading model from {weight_file}")
         model.load_state_dict(
-            state_dict_to_torch(load_torch_state_dict(weight_file)),
-            strict=True)
+            state_dict_to_torch(read_weights(weight_file, cfg)), strict=True)
     else:
         logger.warning(f"=> no weights at {weight_file!r}; evaluating the "
                        "seeded random init (smoke mode)")
@@ -73,8 +74,13 @@ def main(argv=None):
     update_config(cfg, args)
     refuse_unported(cfg)
     _, final_output_dir, _ = create_logger(cfg, args.cfg, "valid")
-    weight_file = (cfg.TEST.MODEL_FILE
-                   or os.path.join(final_output_dir, "final_state.pth"))
+    weight_file = cfg.TEST.MODEL_FILE
+    if not weight_file:
+        # the port's own run, else one of the JAX trainer's
+        weight_file = os.path.join(final_output_dir, "final_state.pth")
+        jax_file = os.path.join(final_output_dir, "final_state.msgpack")
+        if not os.path.exists(weight_file) and os.path.exists(jax_file):
+            weight_file = jax_file
     return run(cfg, weight_file, build_dataset(cfg, is_train=False),
                final_output_dir, device)
 

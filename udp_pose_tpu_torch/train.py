@@ -6,14 +6,23 @@ mode):
         [--device cpu] [KEY VALUE ...]
 
 Each epoch runs the train steps (train-time PCK at ``PRINT_FREQ``, but
-for RSN), the flip-test validation of :mod:`.core.validate`, then writes
-``model_best.pth`` when the AP improved; ``final_state.pth`` follows the
-last epoch.  An RSN with ``TRAIN.MAX_ITER`` > 0 trains for iterations
-instead (:func:`run`), writing ``iter-<N>.pth`` and ``iter-last.pth``
-every checkpoint period, and validates once at the end.  The weights
-are torch state dicts in the reference key names, which
-``UdpPosePipeline(cfg, weights=...)`` and ``serve --weights`` load with
-``strict=True``.  Runs on the card unless given ``--device cpu``.
+for RSN), the flip-test validation of :mod:`.core.validate`, then rolls
+the checkpoint ``checkpoint.pth`` and writes ``model_best.pth`` when the
+AP improved; ``final_state.pth`` follows the last epoch.  An RSN with
+``TRAIN.MAX_ITER`` > 0 trains for iterations instead (:func:`run`),
+writing ``iter-<N>.pth`` and ``iter-last.pth`` every checkpoint period,
+and validates once at the end.  ``AUTO_RESUME`` goes on from the rolling
+checkpoint (``iter-last.pth`` in iteration mode), also from one saved
+in the middle of an epoch when ``SIGTERM`` stopped the run
+(:mod:`.utils.preemption`); ``TPU.CKPT_BACKEND orbax`` rolls the
+checkpoint asynchronously with retention (:mod:`.utils.orbax_ckpt`);
+``MODEL.PRETRAINED`` grafts a partial ``.pth`` or ``.msgpack`` onto the
+fresh model (:mod:`.utils.checkpoint`); ``DEBUG.DEBUG`` writes debug
+images (:mod:`.utils.vis`); ``TRAIN.RESUME``, which the JAX trainer
+reads nowhere, is ignored.  The weights are torch state dicts in the
+reference key names, which ``UdpPosePipeline(cfg, weights=...)`` and
+``serve --weights`` load with ``strict=True``.  Runs on the card unless
+given ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -35,13 +44,6 @@ _NOT_PORTED = (
      "augmentation)"),
     (lambda c: c.TPU.PP, "TPU.PP (pipeline parallelism)"),
     (lambda c: c.TPU.TP, "TPU.TP (tensor parallelism)"),
-    (lambda c: c.TPU.REMAT, "TPU.REMAT (activation rematerialisation)"),
-    (lambda c: c.TPU.CKPT_BACKEND != "msgpack", "TPU.CKPT_BACKEND orbax"),
-    (lambda c: c.AUTO_RESUME, "AUTO_RESUME (resume from checkpoints)"),
-    (lambda c: c.TRAIN.RESUME, "TRAIN.RESUME"),
-    (lambda c: c.MODEL.INIT_WEIGHTS and c.MODEL.PRETRAINED,
-     "MODEL.PRETRAINED (pretrained-weight grafting)"),
-    (lambda c: c.DEBUG.DEBUG, "DEBUG.DEBUG (debug images)"),
 )
 
 
@@ -72,13 +74,6 @@ def set_cudnn(cfg):
     torch.backends.cudnn.enabled = cfg.CUDNN.ENABLED
 
 
-def save_state_dict(model, path):
-    """``model``'s state dict as contiguous CPU tensors in the reference
-    key names."""
-    torch.save({k: v.detach().cpu().contiguous()
-                for k, v in model.state_dict().items()}, path)
-
-
 def main(argv=None):
     args = parse_args(argv)
     from .config import default_config, update_config
@@ -99,7 +94,15 @@ def main(argv=None):
     model = build_model(cfg, device=device, train=True)
     train_ds = build_dataset(cfg, is_train=True)
     val_ds = build_dataset(cfg, is_train=False)
-    return run(cfg, model, train_ds, val_ds, final_output_dir, device)
+    # a SIGTERM (a reclaimed machine, `kill -TERM`) checkpoints at the
+    # next step boundary and returns; AUTO_RESUME goes on from there
+    from .utils.preemption import PreemptionGuard
+    guard = PreemptionGuard()
+    try:
+        return run(cfg, model, train_ds, val_ds, final_output_dir, device,
+                   guard=guard)
+    finally:
+        guard.restore()
 
 
 class RSNSchedule(NamedTuple):
@@ -128,71 +131,81 @@ def rsn_schedule(cfg, steps_per_epoch: int) -> RSNSchedule:
                        min(1000, steps_per_epoch))
 
 
-def save_iter_checkpoint(out_dir, model, state, iteration):
-    """RSN's iteration checkpoint (engine.py:162-169), named as the JAX
-    package names its ``.msgpack`` (``utils/checkpoint.py:50-70``):
-    ``iter-<iteration>.pth`` holding the model's state dict in the
-    reference keys (``state_dict``), the optimizer's and the scheduler's,
-    the iteration and the step, and ``iter-last.pth`` a link to it.
-    Returns the path."""
-    name = f"iter-{int(iteration)}.pth"
-    path = os.path.join(out_dir, name)
-    torch.save({"iteration": int(iteration), "step": int(state.step),
-                "state_dict": {k: v.detach().cpu().contiguous()
-                               for k, v in model.state_dict().items()},
-                "optimizer": state.optimizer.state_dict(),
-                "scheduler": state.scheduler.state_dict()}, path)
-    link = os.path.join(out_dir, "iter-last.pth")
-    if os.path.lexists(link):
-        os.unlink(link)
-    os.symlink(name, link)
-    return path
-
-
 def infinite_batches(dataset, batch_size, shuffle, epoch_batches,
-                     group_ids=None):
+                     group_ids=None, skip=0):
     """RSN's endless batch stream (the IterationBasedBatchSampler, cvpack
     iteration_based_batch_sampler.py:5-31): epoch ``p`` = 0, 1, ... in
     turn, each its epoch-seeded plan through ``epoch_batches(p)``; yields
-    (epoch, step in epoch, batch).  Raises when an epoch's plan holds no
-    batch."""
-    from .data.base import epoch_batch_indices
+    (epoch, step in epoch, batch).  ``skip`` goes past the batches a
+    preempted run took (``tools/train.py:342-375``): whole epochs by the
+    plan sizes alone, with no sample built (each epoch's generators are
+    seeded anew, so nothing is lost), the partial epoch by building its
+    prefix and throwing it away, so that the draws of the in-process
+    loader's one generator replay and the stream goes on as the
+    uninterrupted run's.  Raises when an epoch's plan holds no batch."""
+    from .data.base import epoch_plan_size
     p = 0
     while True:
-        if not epoch_batch_indices(dataset, batch_size, shuffle=shuffle,
-                                   seed=p, group_ids=group_ids):
+        size = epoch_plan_size(dataset, batch_size, shuffle=shuffle, seed=p,
+                               group_ids=group_ids)
+        if not size:
             raise RuntimeError(
                 f"epoch {p} produced no batches (dataset size "
                 f"{len(dataset)} < batch {batch_size}?)")
+        if skip >= size:
+            skip -= size
+            p += 1
+            continue
         batches = epoch_batches(p)
         try:
             for j, batch in enumerate(batches):
-                yield p, j, batch
+                if j >= skip:
+                    yield p, j, batch
         finally:
-            close = getattr(batches, "close", None)
-            if close is not None:
-                close()
+            _close(batches)
+        skip = 0
         p += 1
 
 
-def run(cfg, model, train_ds, val_ds, out_dir, device="cuda"):
+def _close(batches):
+    """Stop a loader early: the prefetch thread and the worker processes
+    shut down now, not when the generator is collected."""
+    close = getattr(batches, "close", None)
+    if close is not None:
+        close()
+
+
+def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
     """Train ``model`` (from ``build_model(cfg, train=True)``) on
     ``train_ds`` and validate it on ``val_ds``: for epochs
-    ``TRAIN.BEGIN_EPOCH`` to ``TRAIN.END_EPOCH``, validating after each,
-    or, for an RSN with ``TRAIN.MAX_ITER`` > 0, for the iterations of
-    :func:`rsn_schedule` over endless epoch-seeded batches
-    (:func:`infinite_batches`), with :func:`save_iter_checkpoint` every
-    checkpoint period and after the last iteration, then one validation.
-    With ``WORKERS`` > 0 the batches come from that many worker
-    processes (:mod:`.data.worker_loader`, augmentation seeded per
+    ``TRAIN.BEGIN_EPOCH`` to ``TRAIN.END_EPOCH``, validating after each
+    and rolling the checkpoint, or, for an RSN with ``TRAIN.MAX_ITER`` >
+    0, for the iterations of :func:`rsn_schedule` over endless
+    epoch-seeded batches (:func:`infinite_batches`), with an iteration
+    checkpoint every checkpoint period and after the last iteration, then
+    one validation.  With ``WORKERS`` > 0 the batches come from that many
+    worker processes (:mod:`.data.worker_loader`, augmentation seeded per
     record) through the pinned one-ahead upload of :mod:`.data.prefetch`;
     else, or with ``ASPECT_RATIO_GROUPING``, they are built in this
-    process.  Returns a record of the run: per step its epoch, step in
-    the epoch, iteration, loss, LR, the seconds spent waiting for the
-    batch (``load_s``) and the whole iteration (``iter_s``, host clock;
-    no per-step synchronise); per validation its seconds, crop count and
-    AP; the last ``name_values``, the best AP and the iteration
-    checkpoints written."""
+    process.
+
+    ``MODEL.PRETRAINED`` is grafted onto ``model`` first
+    (:func:`.utils.checkpoint.load_pretrained`).  ``AUTO_RESUME`` restores
+    the model, the optimizer, the scheduler and the step from the
+    rolling checkpoint (``TPU.CKPT_BACKEND``: ``checkpoint.pth``, or the
+    latest ``orbax/<step>/``) or from ``iter-last.pth``, and goes on from
+    the epoch (and step in it) or iteration after the saved one.
+    ``guard`` (a :class:`.utils.preemption.PreemptionGuard`) is polled
+    after every step: once it says stop, the run saves a checkpoint to go
+    on from (in epoch mode a mid-epoch one), closes its loaders and
+    returns, with no validation and no ``final_state.pth``.
+
+    Returns a record of the run: per step its epoch, step in the epoch,
+    iteration, loss, LR, the seconds spent waiting for the batch
+    (``load_s``) and the whole iteration (``iter_s``, host clock; no
+    per-step synchronise); per validation its seconds, crop count and
+    AP; the last ``name_values``, the best AP, the checkpoints written
+    and whether the guard stopped the run (``preempted``)."""
     from .core.accuracy import pck_accuracy
     from .core.loss import make_loss_fn
     from .core.rsn import (RSN_BATCH_KEYS, create_rsn_train_state,
@@ -203,11 +216,19 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda"):
     from .data.prefetch import device_prefetch
     from .data.worker_loader import worker_loader
     from .models import build_model
+    from .utils import checkpoint as ckpt
     from .utils.logging import AverageMeter, print_name_value
     from .utils.platform import resolve_device
+    from .utils.vis import save_debug_images
 
     refuse_unported(cfg)
     device = resolve_device(device)
+    if cfg.MODEL.INIT_WEIGHTS and cfg.MODEL.PRETRAINED:
+        # the reference's model.init_weights(PRETRAINED) (tools/train.py:
+        # 91-116): a partial or backbone-only file onto the fresh init
+        n = ckpt.load_pretrained(model, cfg.MODEL.PRETRAINED, cfg)
+        logger.info(f"=> loaded pretrained {cfg.MODEL.PRETRAINED} "
+                    f"({n} leaves)")
     batch_size = cfg.TRAIN.BATCH_SIZE_PER_GPU
     steps_per_epoch = max(len(train_ds) // batch_size, 1)
     is_rsn = cfg.MODEL.NAME == "rsn"
@@ -233,6 +254,26 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda"):
         from .models.quantize import FakeQuantModel
         eval_net = FakeQuantModel(eval_model)
         logger.info("=> QAT int8: training through the fake-quant grid")
+    # the rolling checkpoint: checkpoint.pth written in this thread, or
+    # the asynchronous backend with retention (utils/orbax_ckpt.py)
+    backend = None
+    if cfg.TPU.CKPT_BACKEND == "orbax":
+        from .utils.orbax_ckpt import OrbaxBackend
+        backend = OrbaxBackend(out_dir, max_to_keep=cfg.TPU.CKPT_MAX_TO_KEEP)
+        logger.info("=> orbax-role checkpoint backend (asynchronous "
+                    f"commit, {cfg.TPU.CKPT_MAX_TO_KEEP} kept)")
+    elif cfg.TPU.CKPT_BACKEND != "msgpack":
+        raise ValueError(f"unknown TPU.CKPT_BACKEND "
+                         f"{cfg.TPU.CKPT_BACKEND!r}")
+
+    def resume(iter_mode):
+        if backend is not None:
+            from .utils.orbax_ckpt import load_any
+            return load_any(backend, model, state, iter_mode, device)
+        if iter_mode:
+            return ckpt.load_iter_checkpoint(out_dir, model, state, device)
+        return ckpt.load_checkpoint(out_dir, model, state, device)
+
     group_ids = (aspect_ratio_group_ids(train_ds)
                  if cfg.DATASET.ASPECT_RATIO_GROUPING else None)
     # WORKERS > 0: worker processes and the pinned prefetch, as the JAX
@@ -253,8 +294,11 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda"):
         return epoch_loader(train_ds, batch_size, shuffle=cfg.TRAIN.SHUFFLE,
                             seed=epoch, group_ids=group_ids)
 
+    def stop():
+        return guard is not None and guard.should_stop()
+
     record = {"steps": [], "validations": [], "best_perf": 0.0,
-              "name_values": None, "checkpoints": []}
+              "name_values": None, "checkpoints": [], "preempted": False}
 
     def validated(epoch):
         t0 = time.perf_counter()
@@ -289,12 +333,23 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda"):
                     f"{cfg.TRAIN.ITER_BASELINE_DEVICES:g} of "
                     f"{cfg.TRAIN.MAX_ITER}), lr {sched.base_lr}, ckpt every "
                     f"{sched.ckpt_period}")
+
+        def save_iter(it):
+            if backend is not None:
+                path = backend.save(model, state, {"iteration": int(it)})
+            else:
+                path = ckpt.save_iter_checkpoint(out_dir, model, state, it)
+            record["checkpoints"].append(path)
+
+        start_iter = resume(True) if cfg.AUTO_RESUME else 0
+        if start_iter:
+            logger.info(f"=> resumed at iteration {start_iter}")
         stream = infinite_batches(train_ds, batch_size, cfg.TRAIN.SHUFFLE,
-                                  epoch_batches, group_ids)
+                                  epoch_batches, group_ids, skip=start_iter)
         loss_sum = None
         t_iter = time.perf_counter()
         try:
-            for it in range(sched.max_iters):
+            for it in range(start_iter, sched.max_iters):
                 epoch, i, batch = next(stream)
                 step_loss = stepped(epoch, i, it, batch, t_iter)["loss"]
                 # summed on the device: no per-step wait for the card
@@ -306,58 +361,123 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda"):
                         f"Iter [{it}/{sched.max_iters}] Speed "
                         f"{len(batch['image']) / secs:.1f}/s Loss "
                         f"{float(step_loss):.4f} (avg "
-                        f"{float(loss_sum) / (it + 1):.4f}) lr "
+                        f"{float(loss_sum) / (it - start_iter + 1):.4f}) lr "
                         f"{record['steps'][-1]['lr']:.6g} ETA "
                         f"{(sched.max_iters - it) * secs / 3600:.2f}h")
                 if (it + 1) % sched.ckpt_period == 0:
-                    record["checkpoints"].append(
-                        save_iter_checkpoint(out_dir, model, state, it))
+                    save_iter(it)
                 t_iter = iteration_ended(t_iter)
+                if stop():
+                    save_iter(it)
+                    record["preempted"] = True
+                    logger.info(f"=> preempted: saved iteration checkpoint "
+                                f"{it}; exiting")
+                    break
         finally:
             stream.close()
-        record["checkpoints"].append(
-            save_iter_checkpoint(out_dir, model, state, sched.max_iters - 1))
-        record["best_perf"] = validated(record["steps"][-1]["epoch"])
+        if not record["preempted"]:
+            save_iter(sched.max_iters - 1)
+            record["best_perf"] = validated(record["steps"][-1]["epoch"])
     else:
-        best_perf = 0.0
-        for epoch in range(cfg.TRAIN.BEGIN_EPOCH, cfg.TRAIN.END_EPOCH):
+        begin_epoch, best_perf, resume_skip = cfg.TRAIN.BEGIN_EPOCH, 0.0, 0
+        if cfg.AUTO_RESUME:
+            resumed = resume(False)
+            if resumed != (0, 0.0, 0):
+                begin_epoch, best_perf, resume_skip = resumed
+                logger.info(f"=> resumed at epoch {begin_epoch}" + (
+                    f" step {resume_skip} (mid-epoch preemption save)"
+                    if resume_skip else ""))
+        for epoch in range(begin_epoch, cfg.TRAIN.END_EPOCH):
             loss_sum, loss_cnt = None, 0
             acc_meter = AverageMeter()
+            skip = resume_skip if epoch == begin_epoch else 0
+            batches = epoch_batches(epoch)
             t_iter = time.perf_counter()
-            for i, batch in enumerate(epoch_batches(epoch)):
-                metrics = stepped(epoch, i, len(record["steps"]), batch,
-                                  t_iter)
-                step_loss = metrics["loss"]
-                loss_sum = (step_loss if loss_sum is None
-                            else loss_sum + step_loss)
-                loss_cnt += 1
-                if i % cfg.PRINT_FREQ == 0:
-                    if not is_rsn:
-                        # train-time PCK@0.5 on the heatmap argmax
-                        hm = metrics["output"]
-                        tgt = torch.as_tensor(batch["target"]).cpu().numpy()
-                        if cfg.MODEL.TARGET_TYPE == "offset":
-                            hm, tgt = hm[:, ::3], tgt[:, ::3]
-                        _, avg_acc, cnt, _ = pck_accuracy(hm.cpu().numpy(),
-                                                          tgt)
-                        acc_meter.update(avg_acc, cnt)
-                    speed = len(batch["image"]) / max(
-                        time.perf_counter() - t_iter, 1e-9)
-                    logger.info(
-                        f"Epoch [{epoch}][{i}/{steps_per_epoch}] "
-                        f"Speed {speed:.1f}/s Loss "
-                        f"{float(step_loss) * 1e5:.1f}e-5 (avg "
-                        f"{float(loss_sum) / loss_cnt * 1e5:.1f}e-5) "
-                        f"Acc {acc_meter.val:.3f} ({acc_meter.avg:.3f})")
-                t_iter = iteration_ended(t_iter)
+            try:
+                for i, batch in enumerate(batches):
+                    if i < skip:
+                        # a mid-epoch resume replays the epoch through
+                        # the loader the run uses and throws away the
+                        # batches the saved run took: the worker
+                        # loader's (WORKERS > 0) are seeded per record
+                        # and would come out the same unbuilt, but the
+                        # in-process loader draws each epoch's samples
+                        # from one generator, whose draws must replay
+                        # for the continuation to be exact
+                        continue
+                    metrics = stepped(epoch, i, state.step, batch, t_iter)
+                    step_loss = metrics["loss"]
+                    loss_sum = (step_loss if loss_sum is None
+                                else loss_sum + step_loss)
+                    loss_cnt += 1
+                    if i % cfg.PRINT_FREQ == 0:
+                        if not is_rsn:
+                            # train-time PCK@0.5 on the heatmap argmax
+                            hm = metrics["output"].cpu().numpy()
+                            tgt = torch.as_tensor(
+                                batch["target"]).cpu().numpy()
+                            if cfg.MODEL.TARGET_TYPE == "offset":
+                                hm, tgt = hm[:, ::3], tgt[:, ::3]
+                            _, avg_acc, cnt, pred = pck_accuracy(hm, tgt)
+                            acc_meter.update(avg_acc, cnt)
+                            if cfg.DEBUG.DEBUG:
+                                save_debug_images(
+                                    cfg, batch["image"], batch["joints"],
+                                    batch["joints_vis"], tgt, hm,
+                                    os.path.join(out_dir,
+                                                 f"train_{epoch}_{i}"),
+                                    pred_joints=pred * 4)
+                        speed = len(batch["image"]) / max(
+                            time.perf_counter() - t_iter, 1e-9)
+                        logger.info(
+                            f"Epoch [{epoch}][{i}/{steps_per_epoch}] "
+                            f"Speed {speed:.1f}/s Loss "
+                            f"{float(step_loss) * 1e5:.1f}e-5 (avg "
+                            f"{float(loss_sum) / loss_cnt * 1e5:.1f}e-5) "
+                            f"Acc {acc_meter.val:.3f} ({acc_meter.avg:.3f})")
+                    t_iter = iteration_ended(t_iter)
+                    if stop():
+                        record["preempted"] = True
+                        break
+            finally:
+                _close(batches)
+            if record["preempted"]:
+                # the state has taken i + 1 batches of this epoch: a
+                # resume begins it again and skips them
+                meta = {"epoch": epoch - 1, "perf": best_perf,
+                        "step_in_epoch": i + 1}
+                if backend is not None:
+                    record["checkpoints"].append(
+                        backend.save(model, state, meta))
+                else:
+                    ckpt.save_checkpoint(out_dir, model, state, **meta)
+                    record["checkpoints"].append(
+                        os.path.join(out_dir, ckpt.CHECKPOINT))
+                logger.info(f"=> preempted: saved mid-epoch checkpoint "
+                            f"(epoch {epoch} step {i + 1}); exiting")
+                break
             perf = validated(epoch)
-            if perf > best_perf:
-                best_perf = perf
-                save_state_dict(model, os.path.join(out_dir,
-                                                    "model_best.pth"))
+            # the reference rolls the epoch's AP as "perf" (not the best),
+            # and a resume takes it as the best so far
+            best = perf > best_perf
+            best_perf = max(best_perf, perf)
+            if backend is not None:
+                record["checkpoints"].append(backend.save(
+                    model, state, {"epoch": epoch, "perf": perf}))
+                if best:
+                    ckpt.save_weights(os.path.join(out_dir,
+                                                   "model_best.pth"), model)
+            else:
+                ckpt.save_checkpoint(out_dir, model, state, epoch, perf,
+                                     is_best=best)
+                record["checkpoints"].append(
+                    os.path.join(out_dir, ckpt.CHECKPOINT))
         record["best_perf"] = best_perf
-    save_state_dict(model, os.path.join(out_dir, "final_state.pth"))
-    logger.info(f"=> saved final state to {out_dir}")
+    if not record["preempted"]:
+        ckpt.save_weights(os.path.join(out_dir, "final_state.pth"), model)
+        logger.info(f"=> saved final state to {out_dir}")
+    if backend is not None:
+        backend.wait()
     record["steps"] = [dict(s, loss=float(s["loss"]))
                        for s in record["steps"]]
     return record

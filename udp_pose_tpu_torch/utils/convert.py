@@ -18,6 +18,12 @@ weight/bias, (C, 1, 1) for the PSA LayerNorm([C, 1, 1]); flax Dense
 kernel (I, O) → torch Linear (O, I); flax multi-head attention
 (query/key/value (dim, heads, head dim), out (heads, head dim, dim)) →
 corenet's combined ``qkv_proj`` (rows q; k; v) and ``out_proj``.
+
+The same mappings walked the other way (:func:`state_dict_to_variables`,
+the JAX package's forward ``Converter``) give flax variables of a port
+state dict, which :func:`write_msgpack_weights` writes as the JAX
+package's ``save_weights`` does; :func:`read_weights` reads either kind
+of weight file.
 """
 
 from __future__ import annotations
@@ -604,12 +610,10 @@ def conv_sites(model) -> Dict[str, str]:
     return rec.sites
 
 
-def variables_to_state_dict(variables, cfg) -> Dict[str, np.ndarray]:
-    """JAX-package variables of ``cfg``'s model → the port's state_dict
-    (numpy values; ``model.load_state_dict(strict=True)`` accepts it)."""
+def _map_from_cfg(cv: Converter, cfg):
+    """Walk the weight mapping of ``cfg``'s model with ``cv``."""
     from ..models.hrnet import stages_from_cfg
     name = cfg.MODEL.NAME
-    cv = Converter(variables)
     if name in ("pose_hrnet", "pose_hrnet_psa"):
         _map_pose_hrnet(cv, stages_from_cfg(cfg), psa=name.endswith("_psa"))
     elif name in ("pose_resnet", "pose_resnet_psa"):
@@ -623,7 +627,112 @@ def variables_to_state_dict(variables, cfg) -> Dict[str, np.ndarray]:
         raise KeyError(f"no weight mapping for model {name!r}; ported: "
                        "['pose_hrnet', 'pose_hrnet_psa', 'pose_resnet', "
                        f"'pose_resnet_psa', 'rsn'] and {sorted(MOBILE_NAMES)}")
+
+
+def variables_to_state_dict(variables, cfg) -> Dict[str, np.ndarray]:
+    """JAX-package variables of ``cfg``'s model → the port's state_dict
+    (numpy values; ``model.load_state_dict(strict=True)`` accepts it)."""
+    cv = Converter(variables)
+    _map_from_cfg(cv, cfg)
     return cv.sd
+
+
+def _set(tree, path, value):
+    node = tree
+    for p in path[:-1]:
+        node = node.setdefault(p, {})
+    node[path[-1]] = value
+
+
+class _FlaxWriter(Converter):
+    """The mapping walked the other way (the JAX package's forward
+    ``Converter``): reads a port state dict, writes flax variables."""
+
+    #: attention heads of every MobileViT transformer block
+    heads = 4
+
+    def __init__(self, sd):
+        self.src = {k: (v.detach().cpu().numpy() if torch.is_tensor(v)
+                        else np.asarray(v)) for k, v in sd.items()}
+        self.params, self.stats = {}, {}
+
+    def probe(self, tkey: str, *fpath) -> bool:
+        return tkey in self.src
+
+    def conv(self, tkey: str, *path, transposed=False):
+        w = self.src[tkey + ".weight"]
+        _set(self.params, (*path, "kernel"), np.ascontiguousarray(
+            np.transpose(w[:, :, ::-1, ::-1], (2, 3, 0, 1)) if transposed
+            else np.transpose(w, (2, 3, 1, 0))))
+        if tkey + ".bias" in self.src:
+            _set(self.params, (*path, "bias"), self.src[tkey + ".bias"])
+
+    def bn(self, tkey: str, *path):
+        for tsuf, tree, fsuf in (("weight", self.params, "scale"),
+                                 ("bias", self.params, "bias"),
+                                 ("running_mean", self.stats, "mean"),
+                                 ("running_var", self.stats, "var")):
+            _set(tree, (*path, fsuf), self.src[f"{tkey}.{tsuf}"])
+
+    def dense(self, tkey: str, *path):
+        _set(self.params, (*path, "kernel"),
+             np.ascontiguousarray(self.src[tkey + ".weight"].T))
+        if tkey + ".bias" in self.src:
+            _set(self.params, (*path, "bias"), self.src[tkey + ".bias"])
+
+    def ln(self, tkey: str, *path, tshape=None):
+        _set(self.params, (*path, "scale"),
+             self.src[tkey + ".weight"].reshape(-1))
+        _set(self.params, (*path, "bias"),
+             self.src[tkey + ".bias"].reshape(-1))
+
+    def mha(self, tkey: str, *path):
+        W = self.src[tkey + ".qkv_proj.weight"]
+        b = self.src[tkey + ".qkv_proj.bias"]
+        dim, heads = W.shape[1], self.heads
+        hd = dim // heads
+        for i, name in enumerate(("query", "key", "value")):
+            _set(self.params, (*path, name, "kernel"), np.ascontiguousarray(
+                W[i * dim:(i + 1) * dim].T.reshape(dim, heads, hd)))
+            _set(self.params, (*path, name, "bias"),
+                 b[i * dim:(i + 1) * dim].reshape(heads, hd))
+        _set(self.params, (*path, "out", "kernel"), np.ascontiguousarray(
+            self.src[tkey + ".out_proj.weight"].T.reshape(heads, hd, dim)))
+        _set(self.params, (*path, "out", "bias"),
+             self.src[tkey + ".out_proj.bias"])
+
+
+def state_dict_to_variables(sd, cfg):
+    """The port's state dict of ``cfg``'s model (tensors or numpy) → the
+    JAX package's flax variables (``{"params", "batch_stats"}`` of numpy
+    arrays), the inverse of :func:`variables_to_state_dict`; BatchNorm's
+    ``num_batches_tracked``, which flax has not, is dropped."""
+    cv = _FlaxWriter(sd)
+    _map_from_cfg(cv, cfg)
+    return {"params": cv.params, "batch_stats": cv.stats}
+
+
+def read_weights(path, cfg) -> Dict[str, np.ndarray]:
+    """The pose weights of the file at ``path`` as the port's state dict:
+    a ``.msgpack`` of the JAX package's variables (its ``save_weights``,
+    or :func:`write_msgpack_weights`) through
+    :func:`variables_to_state_dict`, else a reference ``.pth``/``.pt``
+    (:func:`load_torch_state_dict`)."""
+    if str(path).endswith(".msgpack"):
+        from .msgpack import read_file
+        return variables_to_state_dict(read_file(path), cfg)
+    if not str(path).endswith((".pth", ".pt", ".tar")):
+        raise ValueError(f"weights {path!r}: a .pth, .pt or .tar torch "
+                         "file, or a .msgpack of flax variables")
+    return load_torch_state_dict(path)
+
+
+def write_msgpack_weights(path, sd, cfg):
+    """Write the port's state dict ``sd`` of ``cfg``'s model as the JAX
+    package's ``save_weights`` writes its variables: msgpack of
+    ``{"params", "batch_stats"}``."""
+    from .msgpack import write_file
+    write_file(path, state_dict_to_variables(sd, cfg))
 
 
 # ultralytics yolov5 v6.0 module indices → the JAX package's layer names
@@ -687,14 +796,21 @@ def ultralytics_state_dict(sd) -> Dict[str, np.ndarray]:
 
 def load_yolov5_weights(weights) -> Dict[str, object]:
     """YOLOv5 weights in any of the forms the engines take → the port's
-    state dict: the JAX package's variables (a dict with ``params``), a
-    state dict (the port's or ultralytics'), or a ``.pt`` / ``.pth`` path
-    to a saved ultralytics state dict."""
+    state dict: the JAX package's variables (a dict with ``params``, or a
+    ``.msgpack`` path to them), a state dict (the port's or
+    ultralytics'), or a ``.pt`` / ``.pth`` path to a saved ultralytics
+    state dict."""
     if isinstance(weights, (str, os.PathLike)):
-        if not str(weights).endswith((".pt", ".pth")):
+        if str(weights).endswith(".msgpack"):
+            from .msgpack import read_file
+            weights = read_file(weights)
+        elif str(weights).endswith((".pt", ".pth")):
+            weights = torch.load(weights, map_location="cpu",
+                                 weights_only=True)
+        else:
             raise ValueError(f"detector weights {weights!r}: a .pt or .pth "
-                             "file holding a state dict")
-        weights = torch.load(weights, map_location="cpu", weights_only=True)
+                             "file holding a state dict, or a .msgpack of "
+                             "flax variables")
     if "params" in weights:
         return yolov5_variables_to_state_dict(weights)
     return ultralytics_state_dict(weights)
