@@ -340,11 +340,11 @@ def set_tf32(enabled):
 
 # ---------------------------------------------------------------- phase 2
 def phase_build():
-    """The three CUDA sources, one nvcc each, started together."""
+    """The CUDA sources, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from udp_pose_tpu_torch.ops import _build
-    names = ("peak_offset", "int8_conv", "int8_dwconv")
+    names = ("peak_offset", "int8_conv", "int8_conv_sm90", "int8_dwconv")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(_build.build, names)))
@@ -2044,22 +2044,36 @@ def kernel_wrappers():
 def zero_launches():
     for fn in kernel_wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_route"):
+            fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
 
 def read_launches():
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
+def fused_routes():
+    """``int8_conv_fused``'s launches since the counts were set to 0, by
+    route."""
+    from udp_pose_tpu_torch.ops import int8_conv as ic
+    return dict(getattr(ic.int8_conv_fused, "launches_by_route", {}))
+
+
 class PathLaunches:
     """The launches of one path, summed over the windows in which only
     that path runs: :meth:`run` sets every count to 0 just before its call
     and reads them just after.  ``want`` holds what the batches that the
-    path served should have launched (:meth:`served`)."""
+    path served should have launched (:meth:`served`).  ``made``: every
+    path of the run, for the kernels line's launches by route."""
+
+    made = []
 
     def __init__(self, name):
+        PathLaunches.made.append(self)
         self.name = name
         self.counts = dict.fromkeys(kernel_wrappers(), 0)
         self.want = dict.fromkeys(kernel_wrappers(), 0)
+        self.routes = {}        # int8_conv_fused's launches by route
         self.layouts = {}
         self.dw_layouts = {}
 
@@ -2070,6 +2084,8 @@ class PathLaunches:
         finally:
             for name, n in read_launches().items():
                 self.counts[name] += n
+            for route, n in fused_routes().items():
+                self.routes[route] = self.routes.get(route, 0) + n
 
     def served(self, decodes, int8_sites, dw_sites=0):
         """Batches served: ``decodes`` decode launches, ``int8_sites``
@@ -2099,10 +2115,18 @@ class PathLaunches:
                              m.kernel_size, m.stride, m.padding,
                              m.bias is not None), m)
 
-    def check(self):
+    def check(self, engine=False):
+        """The launches against what the served batches need; with
+        ``engine``, also that the Hopper engine ran ("wgmma" launches)."""
         check(self.counts == self.want and self.want["int8_conv_fused"] > 0,
               f"{self.name}: launches {self.counts}, but its batches should "
               f"have launched {self.want}")
+        check(sum(self.routes.values()) == self.counts["int8_conv_fused"]
+              and (not engine or self.routes.get("wgmma", 0) > 0),
+              f"{self.name}: int8_conv_fused launches by route "
+              f"{self.routes}, {self.counts['int8_conv_fused']} in all")
+        log(f"[int8] {self.name}: int8_conv_fused launches by route "
+            f"{self.routes}")
 
 
 def forwards(cfg):
@@ -2111,18 +2135,20 @@ def forwards(cfg):
         "FLIP_MODE", "fold") == "two_pass") else 1
 
 
-def int8_sites(model, x):
+def int8_sites(model, x, strides=False):
     """The int8 sites of ``model``'s forward on ``x``, in call order:
-    (conv module, its input's shape and dtype); the heads that
-    ``DEFAULT_SKIP`` keeps in float are left out."""
+    (conv module, its input's shape and dtype[, its input's element
+    strides]); the heads that ``DEFAULT_SKIP`` keeps in float are left
+    out."""
     from udp_pose_tpu_torch.models.quantize import DEFAULT_SKIP, _matches
     from udp_pose_tpu_torch.utils.convert import conv_sites
     sites, seen, hooks = conv_sites(model), [], []
     for name, mod in model.named_modules():
         if name in sites and not _matches(sites[name], DEFAULT_SKIP):
             hooks.append(mod.register_forward_pre_hook(
-                lambda m, args: seen.append((m, tuple(args[0].shape),
-                                             args[0].dtype))))
+                lambda m, args: seen.append(
+                    (m, tuple(args[0].shape), args[0].dtype)
+                    + ((tuple(args[0].stride()),) if strides else ()))))
     try:
         with torch.inference_mode():
             model(x)
@@ -2132,22 +2158,27 @@ def int8_sites(model, x):
     return seen
 
 
-def int8_shape_run(conv, shape, dtype, device, seed):
+def int8_shape_run(conv, shape, dtype, device, seed, stride=None):
     """9a at one conv shape: the weight quantisation against the CPU's,
     the fused kernel against the three-step card path and the plain
-    version, the three-step kernels against theirs, ``_int_mm`` against
-    the exact float64 product on the card and the CPU's integer product
-    on its first rows, all bit for bit; times (graph replay) of each
-    kernel, the plain versions, ``_int_mm`` and the bf16 cuDNN conv of
-    the same shape; each kernel's bound (ms, and what bounds it)."""
+    version (at the route ``fused_tiling`` picks and, where that is the
+    Hopper engine, at PR 6's route too), the three-step kernels against
+    theirs, ``_int_mm`` against the exact float64 product on the card and
+    the CPU's integer product on its first rows, all bit for bit; times
+    (graph replay; the engine and PR 6's design in turns) of each kernel,
+    the plain versions, ``_int_mm`` and the bf16 cuDNN conv of the same
+    shape; each kernel's bound (ms, and what bounds it)."""
     import torch.nn.functional as F
 
     from udp_pose_tpu_torch.models.quantize import Int8Conv2d, quantize_kernel
     from udp_pose_tpu_torch.ops import int8_conv as ic
     N, C, H, W = shape
-    g = torch.Generator(device=device).manual_seed(seed)
-    x = torch.randn(shape, generator=g, device=device).to(dtype).contiguous(
-        memory_format=torch.channels_last)
+    if stride is None:          # dense channels-last
+        g = torch.Generator(device=device).manual_seed(seed)
+        x = torch.randn(shape, generator=g, device=device).to(
+            dtype).contiguous(memory_format=torch.channels_last)
+    else:                       # the site's own layout (a channel slice)
+        x = layout_tensor(shape, stride, dtype, 0, 1.0, seed, device)
     layer = Int8Conv2d(conv, float(x.float().abs().amax()) * 0.9)
     args = (layer.inv_s_a, layer.kernel_size, layer.stride, layer.padding,
             layer.k_pad)
@@ -2182,26 +2213,48 @@ def int8_shape_run(conv, shape, dtype, device, seed):
           f"dequant_epilogue != its plain version at {what}")
     check(torch.equal(fused, y),
           f"int8_conv_fused != the three-step card path at {what}")
+    sms = card_sms()
+    tiling = ic.fused_tiling(shape, O, layer.kernel_size, layer.stride,
+                             layer.padding, ic._loads(x), dtype, sms)
+    # PR 6's design at the same shape: where the Hopper engine takes the
+    # conv, the route and tiling the older kernel would, launched too
+    pr6 = ic.fused_tiling(shape, O, layer.kernel_size, layer.stride,
+                          layer.padding, ic._loads(x), dtype, sms,
+                          wgmma=False)
+    engine = tiling.route == "wgmma"
+    if engine:
+        check(torch.equal(ic.int8_conv_fused(x, layer, route=pr6.route)
+                          .permute(0, 2, 3, 1).reshape(M, O), y),
+              f"int8_conv_fused, PR 6's {pr6.route} route, != the "
+              f"three-step card path at {what}")
     # the shift route's blocks of twice the rows, against the tiling they
     # widen: that launch too must equal the three steps
-    tiling = ic.fused_tiling(shape, O, layer.kernel_size, layer.stride,
-                             layer.padding, ic._loads(x), dtype, card_sms())
-    narrow = (tiling.block_m // 2, tiling.block_n)
-    narrow = ic.FUSED_TILES.index(narrow) if narrow in ic.FUSED_TILES else None
+    narrow = (pr6.block_m // 2, pr6.block_n)
+    narrow = (ic.FUSED_TILES.index(narrow)
+              if pr6.route == "shift" and narrow in ic.FUSED_TILES else None)
     if narrow is not None:
-        check(torch.equal(ic.int8_conv_fused(x, layer, narrow).permute(
-            0, 2, 3, 1).reshape(M, O), y), f"int8_conv_fused at tiling "
-            f"{ic.FUSED_TILES[narrow]} != the three-step card path at {what}")
+        check(torch.equal(ic.int8_conv_fused(x, layer, narrow, pr6.route)
+                          .permute(0, 2, 3, 1).reshape(M, O), y),
+              f"int8_conv_fused at tiling {ic.FUSED_TILES[narrow]} != "
+              f"the three-step card path at {what}")
     del a_ref, exact, y_ref
     elt = x.element_size()
     w_bf = conv.weight.detach().to(torch.bfloat16)
     x_bf = x.to(torch.bfloat16)
     fast = dict(iters=5, repeats=3, warm_s=0.02)
     once = dict(iters=1, repeats=1, warm_s=0.0)
-    t = {"int8_conv_fused": graph_ms(lambda: ic.int8_conv_fused(x, layer),
-                                     [()], **fast),
+    if engine:       # the two designs in turns: new, old, old, new
+        both = turns({"new": lambda: ic.int8_conv_fused(x, layer),
+                      "pr6": lambda: ic.int8_conv_fused(x, layer,
+                                                        route=pr6.route)},
+                     ["new", "pr6", "pr6", "new"])
+    else:
+        both = dict.fromkeys(("new", "pr6"), graph_ms(
+            lambda: ic.int8_conv_fused(x, layer), [()], **fast))
+    t = {"int8_conv_fused": both["new"], "pr6_design": both["pr6"],
          "narrow_tiles": graph_ms(lambda: ic.int8_conv_fused(
-             x, layer, narrow), [()], **fast) if narrow is not None else 0.0,
+             x, layer, narrow, pr6.route), [()], **fast)
+         if narrow is not None else 0.0,
          "quant_im2col": graph_ms(lambda: ic.quant_im2col(x, *args), [()],
                                   **fast),
          "dequant_epilogue": graph_ms(lambda: ic.dequant_epilogue(
@@ -2218,7 +2271,7 @@ def int8_shape_run(conv, shape, dtype, device, seed):
              repeats=1, warm_s=0.0)}
     del a, acc, y, fused
     if narrow is None:
-        t["narrow_tiles"] = t["int8_conv_fused"]
+        t["narrow_tiles"] = t["pr6_design"]
     t["wide_sites"] = 0 if narrow is None else 1
     t["plain_int8_conv_fused"] = cuda_ms(
         lambda: ic.int8_conv_fused_reference(x, layer), [()], **once)
@@ -2234,8 +2287,14 @@ def int8_shape_run(conv, shape, dtype, device, seed):
         "quant_im2col": bound_of(x.numel() * elt + ic.gemm_rows(M)
                                  * layer.k_pad, 0),
         "dequant_epilogue": bound_of(M * O * (4 + elt) + O * 8, 0)}
-    return t, bounds, errs, f"{what} {tiling.route} {tiling.block_m}x" \
-        f"{tiling.block_n}"
+    t["route"] = tiling.route
+    design = (f"wgmma {tiling.block_m}x{tiling.block_n}"
+              + (f" walking {tiling.tiles_per_block} tiles"
+                 if tiling.tiles_per_block > 1 else "")
+              + f", PR 6: {pr6.route} {pr6.block_m}x{pr6.block_n}"
+              if engine else f"{tiling.route} {tiling.block_m}x"
+              f"{tiling.block_n}")
+    return t, bounds, errs, f"{what} {design}"
 
 
 @functools.lru_cache(maxsize=None)
@@ -2245,30 +2304,53 @@ def card_sms(device="cuda"):
 
 
 INT8_KERNELS = ("int8_conv_fused", "quant_im2col", "dequant_epilogue")
+DESIGN_INT8_CONV = (
+    "the Hopper engine of csrc/int8_conv_sm90.cu (warpgroup MMAs, since "
+    "PR 12) at the sites fused_tiling routes to it ('wgmma'), PR 6's "
+    "implicit GEMM of csrc/int8_conv.cu at the others; 'ms' times the "
+    "sum, 'pr6_design_ms' PR 6's design at every site in the same turns")
 
 
 def int8_forward_times(net, sites, batch, card, device="cuda"):
     """9a for one net: :func:`int8_shape_run` at each distinct int8 conv
-    shape of ``sites`` (from :func:`int8_sites`; ``batch`` replaces their
+    shape of ``sites`` (from :func:`int8_sites`, with the input's strides
+    where they are recorded: a site whose input is not dense
+    channels-last is run in its own layout; ``batch`` replaces their
     batch, None keeps it), logged.  Returns the numbers summed over one
     forward (each shape times its sites), the largest |card - plain| per
     kernel, and the number of shapes."""
     errs = dict.fromkeys(INT8_KERNELS, 0.0)
     shapes = {}
-    for conv, shape, dtype in sites:
+    for conv, shape, dtype, *stride in sites:
         n = shape[0] if batch is None else batch
+        stride = stride[0] if stride else None
+        if stride is not None and all(
+                stride[d] == want for d, want in (
+                    (0, shape[1] * shape[2] * shape[3]), (1, 1),
+                    (2, shape[3] * shape[1]), (3, shape[1]))
+                if shape[d] > 1):
+            stride = None       # dense channels-last
         key = ((n,) + shape[1:], dtype, conv.out_channels,
-               conv.kernel_size, conv.stride, conv.padding)
+               conv.kernel_size, conv.stride, conv.padding, stride)
         shapes.setdefault(key, [conv, 0])[1] += 1
-    sums = {"bound_by_bytes": 0.0, "bound_by_ops": 0.0}
+    sums = {"bound_by_bytes": 0.0, "bound_by_ops": 0.0, "by_route": {}}
     for i, (key, (conv, count)) in enumerate(sorted(
             shapes.items(), key=lambda kv: str(kv[0]))):
         t, bounds, err, what = int8_shape_run(conv, key[0], key[1],
-                                              device, seed=i)
+                                              device, seed=i, stride=key[6])
         errs = {k: max(v, err[k]) for k, v in errs.items()}
         for k, v in list(t.items()) + [(f"bound_{k}", b[0])
                                        for k, b in bounds.items()]:
-            sums[k] = sums.get(k, 0.0) + count * v
+            if not isinstance(v, str):
+                sums[k] = sums.get(k, 0.0) + count * v
+        r = sums["by_route"].setdefault(t["route"], dict.fromkeys(
+            ("sites", "ms", "pr6_design_ms", "bound_ms", "cudnn_bf16_ms"),
+            0.0))
+        for k, v in (("sites", 1), ("ms", t["int8_conv_fused"]),
+                     ("pr6_design_ms", t["pr6_design"]),
+                     ("bound_ms", bounds["int8_conv_fused"][0]),
+                     ("cudnn_bf16_ms", t["cudnn_bf16"])):
+            r[k] += count * v
         by = bounds["int8_conv_fused"][1]
         sums["bound_by_" + ("bytes" if by == "bytes" else "ops")] += (
             count * bounds["int8_conv_fused"][0])
@@ -2276,9 +2358,12 @@ def int8_forward_times(net, sites, batch, card, device="cuda"):
         narrow = (f", at the tiling it widens "
                   f"{t['narrow_tiles'] * 1e3:.1f}" if t["wide_sites"]
                   else "")
-        log(f"[int8] 9a {net} {what} {str(key[1])[6:]} x{count}: "
+        pr6 = (f", PR 6's design {t['pr6_design'] * 1e3:.1f} us in the "
+               f"same turns" if t["route"] == "wgmma" else "")
+        layout = "" if key[6] is None else f" strides {key[6]}"
+        log(f"[int8] 9a {net} {what}{layout} {str(key[1])[6:]} x{count}: "
             f"bit-equal; int8_conv_fused {t['int8_conv_fused'] * 1e3:.1f}"
-            f" us{narrow} (bound "
+            f" us{pr6}{narrow} (bound "
             f"{bounds['int8_conv_fused'][0] * 1e3:.1f}, {by}; "
             f"plain {t['plain_int8_conv_fused'] * 1e3:.1f}); three steps "
             f"{three * 1e3:.1f} us (quant_im2col "
@@ -2313,6 +2398,14 @@ def int8_forward_times(net, sites, batch, card, device="cuda"):
         f"route's blocks of twice the rows at the tiling they widen "
         f"({sums['wide_sites']:.0f} sites on {card_sms()} SMs) "
         f"{sums['narrow_tiles']:.3f} | {card}")
+    routes = "; ".join(
+        f"{route} {r['sites']:.0f} sites {r['ms']:.3f} ms (PR 6's design "
+        f"{r['pr6_design_ms']:.3f}, bound {r['bound_ms']:.3f}, bf16 cuDNN "
+        f"{r['cudnn_bf16_ms']:.3f})"
+        for route, r in sorted(sums["by_route"].items()))
+    log(f"[int8] 9a {net}, one forward by route: {routes}; all "
+        f"{sums['int8_conv_fused']:.3f} ms against PR 6's design "
+        f"{sums['pr6_design']:.3f} in the same turns | {card}")
     return sums, errs, len(shapes)
 
 
@@ -2347,7 +2440,8 @@ def check_int8_kernels(card, cfg_fn=w32_cfg, device="cuda", fold_batch=256,
     host = int8_host_cost(device)
     log(f"[int8] 9a host cost of one launch at one frame's 16 crops with "
         f"the flip (B=32, 3x3 64->64 at 32x24, enqueued back to back): "
-        f"int8_conv_fused {host['int8_conv_fused']:.2f} us, the three steps "
+        f"int8_conv_fused {host['int8_conv_fused']:.2f} us (PR 6's design "
+        f"{host['pr6_design']:.2f}), the three steps "
         f"{host['three_step']:.2f} us, a bf16 cuDNN conv "
         f"{host['cudnn_bf16']:.2f} us | {card}")
     log(f"[int8] 9a {time.perf_counter() - t_start:.1f} s: int8_conv_fused "
@@ -2364,14 +2458,19 @@ def check_int8_kernels(card, cfg_fn=w32_cfg, device="cuda", fold_batch=256,
                   "yolov5n_frame_bound_ms": yolo[f"bound_{name}"]}
            for name in INT8_KERNELS}
     out["int8_conv_fused"].update(
+        design=DESIGN_INT8_CONV,
         bound_by=("bytes" if w32["bound_by_bytes"] >= w32["bound_by_ops"]
                   else "operations"),
+        pr6_design_ms=w32["pr6_design"], by_route=w32["by_route"],
+        yolov5n_frame_pr6_design_ms=yolo["pr6_design"],
         three_step_ms=w32["three_step"], int_mm_ms=w32["int_mm"],
-        ms_without_wide_blocks=w32["narrow_tiles"],
+        pr6_ms_without_wide_blocks=w32["narrow_tiles"],
         cudnn_bf16_conv_ms=w32["cudnn_bf16"],
         yolov5n_frame_three_step_ms=yolo["three_step"],
         yolov5n_frame_cudnn_bf16_conv_ms=yolo["cudnn_bf16"])
     out["int8_conv_fused"]["host_us_per_launch"] = host["int8_conv_fused"]
+    out["int8_conv_fused"]["pr6_design_host_us_per_launch"] = host[
+        "pr6_design"]
     for name in ("quant_im2col", "dequant_epilogue"):
         out[name]["on_main_path"] = False
     return out
@@ -2399,8 +2498,12 @@ def int8_host_cost(device):
         acc = ic.int8_gemm(ic.quant_im2col(x, *args), layer.w_gemm)
         ic.dequant_epilogue(acc, layer.scale, layer.bias, x.dtype, M, 64)
 
+    pr6 = ic.fused_tiling(x.shape, 64, (3, 3), (1, 1), (1, 1),
+                          ic._loads(x), x.dtype, card_sms(), wgmma=False)
     return {"int8_conv_fused": enqueue_us(lambda: ic.int8_conv_fused(
                 x, layer)),
+            "pr6_design": enqueue_us(lambda: ic.int8_conv_fused(
+                x, layer, route=pr6.route)),
             "three_step": enqueue_us(three),
             "cudnn_bf16": enqueue_us(lambda: F.conv2d(x, w_bf, None, 1, 1))}
 
@@ -2710,8 +2813,10 @@ def check_path_layouts(path, card, device="cuda"):
     launched it (shape, strides, dtype, alignment and conv geometry, so
     every tiling and route the path ran at the shapes it ran them), with
     that site's weights on a seeded activation of that layout that spans
-    the quantiser's range, against the three-step card path, bit for bit.
-    Returns the number of layouts."""
+    the quantiser's range, against the three-step card path, bit for bit;
+    and the route the path launched at each layout (its plan in
+    ``launch_plans``) is the one ``fused_tiling`` picks, the Hopper engine
+    at every site it routes there.  Returns the number of layouts."""
     from udp_pose_tpu_torch.ops import int8_conv as ic
     check(path.layouts, f"{path.name}: no fused int8 launch recorded")
     tilings = {}
@@ -2734,6 +2839,13 @@ def check_path_layouts(path, card, device="cuda"):
                             layer.padding, ic._loads(x), dtype, card_sms())
         name = f"{t.route} {t.block_m}x{t.block_n}"
         tilings[name] = tilings.get(name, 0) + 1
+        launched = {ic.ROUTES[plan[0].route]
+                    for k, plan in layer.launch_plans.items()
+                    if (k[0], k[1], k[2], k[4], k[-1])
+                    == (shape, stride, dtype, aligned, None)}
+        check(launched == {t.route}, f"9g {path.name}: routes {launched} "
+              f"launched at x {shape} strides {stride} -> {O}, kernel "
+              f"{layer.kernel_size}, where fused_tiling takes {t.route}")
         check(torch.equal(got, want), f"9g {path.name}: int8_conv_fused != "
               f"the three-step card path at x {shape} strides {stride} "
               f"{dtype} -> {O}, kernel {layer.kernel_size}, stride "
@@ -2814,7 +2926,7 @@ def phase_int8(tmp, cfg_fn=w32_cfg, pose_yaml=W32_YAML, device="cuda",
     frames_s = int8_detect(table, detect, card, cfg_fn, device, frame_hw,
                            det_size)
     for path in (serving, detect):
-        path.check()
+        path.check(engine=True)
     paths = {path.name: path.counts for path in (serving, detect)}
     int8_qat(card, cfg_fn, device)
     int8_test_cli(tmp, card, device, pose_yaml)
@@ -3010,7 +3122,7 @@ def int8_resnet(card, device="cuda", batch=SERVE_BATCH, iters=10):
           f"pose_resnet50: {len(q.int8.qmodel.engaged)} engaged sites")
     kp_q = path.run(served(crops, center, scale))[0]
     kp_b = bf16.infer_crops(crops, center, scale)[0]
-    path.check()
+    path.check(engine=True)
     log(f"[zoo] 10c int8 pose_resnet50 256x192 B={batch} (no flip): "
         f"self-calibrated ({len(table)} sites in the table, "
         f"{INT8_SITES_RESNET50} engaged: final_layer and the 3 transposed "
@@ -3028,12 +3140,14 @@ def int8_resnet(card, device="cuda", batch=SERVE_BATCH, iters=10):
     w, h = cfg.MODEL.IMAGE_SIZE
     sites = int8_sites(build_model(cfg, device=device),
                        torch.zeros(1, 3, h, w, dtype=torch.bfloat16,
-                                   device=device))
+                                   device=device), strides=True)
     check(len(sites) == INT8_SITES_RESNET50,
           f"pose_resnet50: {len(sites)} int8 sites")
     sums, errs, n_shapes = int8_forward_times("pose_resnet50", sites, batch,
                                               card, device)
     kernel = {"ms": sums["int8_conv_fused"],
+              "pr6_design_ms": sums["pr6_design"],
+              "by_route": sums["by_route"],
               "bound_ms": sums["bound_int8_conv_fused"],
               "bound_by": ("bytes" if sums["bound_by_bytes"]
                            >= sums["bound_by_ops"] else "operations"),
@@ -3737,7 +3851,7 @@ def rsn_int8(tmp, card, device="cuda", yaml=RSN18_YAML,
             ms = [host_ms(lambda: bf16_fn(crops, center, scale), iters)
                   for _ in range(3)]
         crops_s[kind].append(batch / np.median(ms) * 1e3)
-    path.check()
+    path.check(engine=True)
     kp_q = int8_fn(crops, center, scale)[0]      # outside the windows
     kp_b = bf16_fn(crops, center, scale)[0]
     log(f"[rsn] 11d int8 rsn18 256x192 B={batch} flip fold: crops/s int8 "
@@ -3754,11 +3868,13 @@ def rsn_int8(tmp, card, device="cuda", yaml=RSN18_YAML,
     w, h = cfg.MODEL.IMAGE_SIZE
     sites = int8_sites(build_model(cfg, device=device),
                        torch.zeros(1, 3, h, w, dtype=torch.bfloat16,
-                                   device=device))
+                                   device=device), strides=True)
     check(len(sites) == INT8_SITES_RSN18, f"rsn18: {len(sites)} int8 sites")
     sums, errs, n_shapes = int8_forward_times("rsn18", sites, 2 * batch,
                                               card, device)
     kernel = {"ms": sums["int8_conv_fused"],
+              "pr6_design_ms": sums["pr6_design"],
+              "by_route": sums["by_route"],
               "bound_ms": sums["bound_int8_conv_fused"],
               "bound_by": ("bytes" if sums["bound_by_bytes"]
                            >= sums["bound_by_ops"] else "operations"),
@@ -4957,6 +5073,9 @@ def main(argv=None):
     int8 = {"route": "cuda",
             "source": "udp_pose_tpu_torch/csrc/int8_conv.cu",
             "matched": True}
+    engine = {"source": "udp_pose_tpu_torch/csrc/int8_conv_sm90.cu",
+              "sources": ["udp_pose_tpu_torch/csrc/int8_conv_sm90.cu",
+                          "udp_pose_tpu_torch/csrc/int8_conv.cu"]}
     replaces = {"int8_conv_fused": "udp_pose_tpu/models/quantize.py:188-218",
                 "quant_im2col": "udp_pose_tpu/models/quantize.py:203-204",
                 "dequant_epilogue": "udp_pose_tpu/models/quantize.py:214-218"}
@@ -4968,6 +5087,13 @@ def main(argv=None):
 
     int8_kernels["int8_conv_fused"]["pose_resnet50"] = resnet_int8
     int8_kernels["int8_conv_fused"]["rsn18"] = rsn_int8_kernel
+    by_route = {}
+    for path in PathLaunches.made:
+        for route, n in path.routes.items():
+            if n:
+                by_path = by_route.setdefault(path.name, {})
+                by_path[route] = by_path.get(route, 0) + n
+    int8_kernels["int8_conv_fused"]["launches_by_route"] = by_route
     print(card_line())
     print(json.dumps({"kernels": [
         {"name": "udp_offset_decode_fused", **decode,
@@ -4976,7 +5102,9 @@ def main(argv=None):
          "mpii_b128_c48_64x64": decode_64},
         {"name": "fused_peak_offset", **decode,
          **launches("fused_peak_offset"), "on_main_path": False, **peak},
-    ] + [{"name": name, **int8, "replaces": replaces[name], **launches(name),
+    ] + [{"name": name, **int8,
+          **(engine if name == "int8_conv_fused" else {}),
+          "replaces": replaces[name], **launches(name),
           **int8_kernels[name]} for name in INT8_KERNELS] + [
         {"name": "int8_dwconv", "route": "cuda",
          "source": "udp_pose_tpu_torch/csrc/int8_dwconv.cu",

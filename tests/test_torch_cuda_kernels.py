@@ -130,11 +130,13 @@ def test_int8_conv_kernels_equal_plain_versions(cuda, case):
     version: w32 shapes (bf16, channels-last), YOLOv5's 6×6 stem on an
     NCHW image, odd channel counts (scalar epilogue), bias, strided input,
     two column blocks (Cout 256) and fewer than 17 output pixels; the
-    shift route's 3×3 stride-1 convs at those edges too (9 pixels, Cout
-    130), at 64 crops of w32's 64×48 branch, and in both of its blocks
-    of twice the rows (w32's 3×3 convs of 64 and 128 channels at
-    batches that have two such blocks an SM), each a launch at the
-    tiling that ``fused_tiling`` gives it."""
+    stride-1 convs of dense channels-last bf16 activations (the Hopper
+    engine's, "wgmma") at those edges too (9 pixels, Cout 130), at 64
+    crops of w32's 64×48 branch, and at w32's 3×3 convs of 64 and 128
+    channels, each a launch at the route and tiling that
+    ``fused_tiling`` gives it, and there also a launch of PR 6's design
+    (the shift route, in both of its blocks of twice the rows, or the
+    16-byte loads)."""
     from udp_pose_tpu_torch.models.quantize import Int8Conv2d
     from udp_pose_tpu_torch.ops import int8_conv as ic
     N, C, H, W, k, s, p, O, bias, dtype, channels_last = case
@@ -166,12 +168,26 @@ def test_int8_conv_kernels_equal_plain_versions(cuda, case):
         xc.shape, O, layer.kernel_size, layer.stride, layer.padding,
         ic._loads(xc), dtype,
         torch.cuda.get_device_properties(xc.device).multi_processor_count)
-    assert (tiling.route == "shift") == (channels_last and s == 1
-                                         and k == 3 and C % 32 == 0
-                                         and dtype == torch.bfloat16)
+    sms = torch.cuda.get_device_properties(xc.device).multi_processor_count
+    engine = (channels_last and s == 1 and k % 2 == 1 and p == k // 2
+              and dtype == torch.bfloat16
+              and ic.wgmma_routes(C, O, (k, k), H, W))
+    if engine:      # where PR 6 takes the shift route, the engine at NT
+        # <= 64 only in blocks that walk tiles
+        plan = ic.wgmma_plan(xc.shape, O, (k, k), sms)
+        engine = not (k == 3 and C % 32 == 0 and plan.block_n <= 64
+                      and plan.tiles_per_block == 1)
+    assert (tiling.route == "wgmma") == engine
     assert (ic.quant_im2col.launches, ic.dequant_epilogue.launches,
             ic.int8_conv_fused.launches) == (counts[0] + 1, counts[1] + 1,
                                              counts[2] + 1)
+    if engine:
+        pr6 = ic.fused_tiling(
+            xc.shape, O, layer.kernel_size, layer.stride, layer.padding,
+            ic._loads(xc), dtype, sms, wgmma=False)
+        assert (pr6.route == "shift") == (k == 3 and C % 32 == 0)
+        old = ic.int8_conv_fused(xc, layer, route=pr6.route)
+        assert torch.equal(old.permute(0, 2, 3, 1).reshape(M, O), y)
     assert torch.equal(a.cpu(), want_a)
     assert torch.equal(acc.cpu(), want_acc)
     assert torch.equal(y.cpu(), want_y)
@@ -325,3 +341,65 @@ def test_int8_dwconv_refuses_a_layout_without_a_route(cuda):
     with pytest.raises(ValueError, match="load route"):
         layer(wide)
     assert dw.int8_dwconv.launches == before
+
+
+# (N, C, H, W, kernel, Cout, bias): the Hopper engine's shapes
+ENGINE_CASES = [
+    (3, 26, 64, 48, 3, 26, True),     # RSN's C = 26, the halo of 49
+    (2, 52, 32, 24, 3, 52, False),
+    (72, 26, 64, 48, 3, 26, False),   # blocks that walk tiles
+    (64, 32, 64, 48, 3, 32, True),    # w32's 64x48 branch, walking
+    (128, 32, 64, 48, 3, 32, False),  # blocks of 256 rows, walking
+    (5, 128, 16, 12, 3, 128, True),   # an M tail
+    (7, 256, 8, 6, 3, 256, False),    # deep K, NT halved, an M tail
+    (3, 32, 9, 7, 1, 26, True),       # 1x1, Cout 26
+    (2, 26, 11, 13, 1, 256, False),   # 1x1 from C = 26 to 256
+    (3, 64, 9, 7, 1, 2048, True),     # 1x1, Cout 2048: chunks of 256
+    (35, 64, 64, 48, 1, 256, True),   # 1x1, NT = 256, walking
+    (1, 27, 5, 7, 3, 40, True),       # odd C (2-byte loads), one tile
+    (2, 52, 6, 5, 5, 64, True),       # 5x5, halo of 12
+]
+
+
+@pytest.mark.parametrize("case", ENGINE_CASES,
+                         ids=lambda c: "x".join(map(str, c[:6])))
+def test_int8_conv_engine_equals_three_step_path(cuda, case):
+    """The Hopper engine (``csrc/int8_conv_sm90.cu``) equals the
+    three-step card path and the plain version bit for bit, at C = 26,
+    27, 32, 52, 64, 128 and 256, 1×1, 3×3 and 5×5, Cout 26 to 2048, M
+    tails, blocks that walk tiles and the halo of a 64×48 map; each case
+    asserts the route ``fused_tiling`` gives it (the engine but for 1×1
+    convs, where the engine is forced) and that it
+    launched on the engine once, and PR 6's design at the same shape
+    gives the same bits."""
+    from udp_pose_tpu_torch.models.quantize import Int8Conv2d
+    from udp_pose_tpu_torch.ops import int8_conv as ic
+    N, C, H, W, k, O, bias = case
+    g = torch.Generator().manual_seed(sum(case[:6]))
+    x = (torch.randn(N, C, H, W, generator=g) * 3).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last).to(cuda)
+    conv = torch.nn.Conv2d(C, O, k, 1, k // 2, bias=bias)
+    layer = Int8Conv2d(conv, float(x.float().abs().amax()) * 0.8).to(cuda)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    tiling = ic.fused_tiling(x.shape, O, (k, k), (1, 1), (k // 2, k // 2),
+                             ic._loads(x), x.dtype, sms)
+    routed = tiling.route == "wgmma"
+    assert routed == (k > 1)
+    M = N * H * W
+    a = ic.quant_im2col(x, layer.inv_s_a, (k, k), (1, 1), (k // 2, k // 2),
+                        layer.k_pad)
+    want = ic.dequant_epilogue(ic.int8_gemm(a, layer.w_gemm), layer.scale,
+                               layer.bias, x.dtype, M, O)
+    before = dict(ic.int8_conv_fused.launches_by_route)
+    out = layer(x) if routed else ic.int8_conv_fused(x, layer, route="wgmma")
+    torch.cuda.synchronize()
+    after = ic.int8_conv_fused.launches_by_route
+    assert {r: after[r] - before[r] for r in after} == dict(
+        dict.fromkeys(after, 0), wgmma=1)
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(out.permute(0, 2, 3, 1).reshape(M, O), want)
+    assert torch.equal(out, ic.int8_conv_fused_reference(x, layer))
+    pr6 = ic.fused_tiling(x.shape, O, (k, k), (1, 1), (k // 2, k // 2),
+                          ic._loads(x), x.dtype, sms, wgmma=False)
+    old = ic.int8_conv_fused(x, layer, route=pr6.route)
+    assert torch.equal(old, out)

@@ -1,8 +1,8 @@
 """The port's int8 conv as the serving path runs it: the plain version of
-the fused implicit-GEMM kernel (``ops/int8_conv.int8_conv_fused_reference``)
-against the JAX package's ``_quantized_conv`` bit for bit, the kernel's
-tiling at every int8 site of full-width HRNet-w32 and of YOLOv5n, and the
-CPU route of ``int8_conv2d``.  The kernel itself runs only on the card
+the fused kernels (``ops/int8_conv.int8_conv_fused_reference``) against
+the JAX package's ``_quantized_conv`` bit for bit, the route and tiling at
+every int8 site of full-width HRNet-w32, YOLOv5n, ``pose_resnet50``,
+``rsn18`` and the five mobile nets, and the CPU route of ``int8_conv2d``.  The kernel itself runs only on the card
 (``tests/test_torch_cuda_kernels.py``, ``chip_smoke.py`` phase 9a), where
 it is held bit for bit against the three-step path and the plain version.
 """
@@ -108,26 +108,64 @@ def test_fused_tiles_are_the_kernels():
     # blocks of twice the rows where two of them an SM remain: 240 of
     # them are enough on 114 SMs, not on 132
     assert [ic.fused_tiling((20, 64, 64, 48), 64, (3, 3), (1, 1), (1, 1),
-                            "dense", torch.bfloat16, sms).block_m
+                            "dense", torch.bfloat16, sms, wgmma=False).block_m
             for sms in (132, 114)] == [128, 256]
+
+
+def test_wgmma_tiles_are_the_kernels():
+    """``WGMMA_TILES`` and the engine's constants are ``kWgTilings`` and
+    the ``constexpr int`` values of ``csrc/int8_conv_sm90.cu``; every N
+    tile a weight is packed at has a block of 128 rows and one of 64, and
+    half of it (the plan's split of a 128- or 256-wide chunk) too; 256
+    rows only at NT <= 64; the stage steps divide ``kStepAlign``."""
+    src = (REPO / "udp_pose_tpu_torch/csrc/int8_conv_sm90.cu").read_text()
+    table = re.search(r"kWgTilings\[\] = \{(.*?)\};", src, re.S).group(1)
+    tiles = [(int(bm), int(bn)) for bm, bn in
+             re.findall(r"\{(\d+), (\d+)\}", table)]
+    assert tiles == list(ic.WGMMA_TILES)
+    for name, value in ic.WGMMA_CONST.items():
+        assert f"constexpr int {name} = {value};" in src
+    assert "NT >= 256 ? 2 : 4;" in src
+    for nt in (32, 64, 128, 256):
+        assert (128, nt) in tiles and (64, nt) in tiles
+        assert ic.WGMMA_CONST["kStepAlign"] % ic.wgmma_stage_steps(nt) == 0
+        if nt == 256:
+            assert (128, nt // 2) in tiles and (64, nt // 2) in tiles
+    # 256 rows: two warpgroups of two m64 tiles, A from shared memory
+    assert {bn for bm, bn in tiles if bm == 256} == {32, 64}
+    assert [ic.wgmma_n_tile(c) for c in (1, 26, 32, 33, 52, 64, 65, 104,
+                                         129, 256, 257, 2048)] == [
+        32, 32, 32, 64, 64, 64, 128, 128, 256, 256, 256, 256]
 
 
 def test_wrappers_find_their_launchers():
     """Every launcher the wrappers bind is an ``extern "C"`` function of
-    the source (a missing one would fail only on the card)."""
-    src = (REPO / "udp_pose_tpu_torch/csrc/int8_conv.cu").read_text()
-    exported = set(re.findall(r'extern "C" int (\w+)\(', src))
+    the source it is bound from (a missing one would fail only on the
+    card)."""
+    csrc = REPO / "udp_pose_tpu_torch/csrc"
+    exported = {name: set(re.findall(r'extern "C" int (\w+)\(',
+                                     (csrc / f"{name}.cu").read_text()))
+                for name in ("int8_conv", "int8_conv_sm90")}
     wrappers = (REPO / "udp_pose_tpu_torch/ops/int8_conv.py").read_text()
     bound = set(re.findall(r'_kernel\("(\w+)"', wrappers))
     assert bound == {"int8_conv_fused_launch", "quant_im2col_launch",
-                     "dequant_epilogue_launch"}
-    assert bound <= exported
+                     "dequant_epilogue_launch", "int8_conv_wgmma_launch"}
+    assert bound - {"int8_conv_wgmma_launch"} <= exported["int8_conv"]
+    assert exported["int8_conv_sm90"] == {"int8_conv_wgmma_launch"}
+    assert re.search(r'_kernel\("int8_conv_wgmma_launch", \w+, '
+                     r'"int8_conv_sm90"\)', wrappers)
 
 
 def test_fused_args_mirror_the_c_struct():
-    """``FusedArgs`` has the fields of ``struct FusedArgs`` in the source,
-    in order and of the same C types."""
-    src = (REPO / "udp_pose_tpu_torch/csrc/int8_conv.cu").read_text()
+    """``FusedArgs`` has the fields of ``struct FusedArgs`` in both
+    sources (``int8_conv.cu``'s launcher and the Hopper engine's), in
+    order and of the same C types."""
+    for source in ("int8_conv", "int8_conv_sm90"):
+        _fused_args_mirror(
+            (REPO / f"udp_pose_tpu_torch/csrc/{source}.cu").read_text())
+
+
+def _fused_args_mirror(src):
     body = re.search(r"struct FusedArgs \{(.*?)\};", src, re.S).group(1)
     ctype = {"long long": ctypes.c_longlong, "const void*": ctypes.c_void_p,
              "int": ctypes.c_int, "float": ctypes.c_float}
@@ -141,29 +179,49 @@ def test_fused_args_mirror_the_c_struct():
     assert ic.FusedArgs._fields_ == fields
 
 
+NET_YAMLS = {
+    "w32": "hrnet_w32_256x192_udp_offset",
+    "rsn18": "rsn18_256x192",
+    "pose_resnet50": "resnet50_256x192_gaussian",
+    "mobilenetv3_small": "mobilenetv3_small_256x192",
+    "mobilevit_s": "mobilevit_s_256x192_pixel_shuffle",
+    "mobilevitv2_05": "mobilevitv2_05_256x192_pixel_shuffle",
+    "shufflenetv2_10x": "shufflenetv2_10x_256x192_pixel_shuffle",
+    "shufflenetv2_plus_small": "shufflenetv2_plus_small_256x192",
+}
+
+
 @lru_cache(maxsize=None)
 def _sites(net):
-    """(conv, input shape) of each int8 site, in call order, of a B=1
-    forward of the full-width net on the CPU in float32 (the shapes are
-    the bf16 net's; ``chip_smoke.int8_sites``'s hooks: the sites
-    ``DEFAULT_SKIP`` leaves in int8)."""
+    """(conv, input shape, ``_loads`` of its input) of each dense int8
+    site, in call order, of a B=1 forward of the full-width net on the
+    CPU in float32 (the shapes and layouts are the bf16 net's;
+    ``chip_smoke.int8_sites``'s hooks: the sites ``DEFAULT_SKIP`` leaves
+    in int8; depthwise sites have their own kernel).  YOLOv5n's float
+    model is NCHW; its int8 convs hand on channels-last outputs, so every
+    site but the stem sees a dense channels-last input: all are taken as
+    "dense", as on the card."""
     from udp_pose_tpu_torch.config import load_config
     from udp_pose_tpu_torch.models import build_detector, build_model
     from udp_pose_tpu_torch.utils.convert import conv_sites
-    if net == "w32":
-        cfg = load_config(str(REPO / "configs/coco/"
-                              "hrnet_w32_256x192_udp_offset.yaml"))
-        cfg.TPU.DTYPE = "float32"
-        model = build_model(cfg, device="cpu")
-        x = torch.zeros(1, 3, 256, 192)
-    else:
+    if net == "yolov5n":
         model = build_detector("yolov5n", device="cpu")
         x = torch.zeros(1, 3, 384, 640)
+    else:
+        cfg = load_config(str(REPO / f"configs/coco/{NET_YAMLS[net]}.yaml"))
+        cfg.TPU.DTYPE = "float32"
+        model = build_model(cfg, device="cpu")
+        w, h = cfg.MODEL.IMAGE_SIZE
+        x = torch.zeros(1, 3, h, w).contiguous(
+            memory_format=torch.channels_last)
     sites, seen, hooks = conv_sites(model), [], []
     for name, mod in model.named_modules():
-        if name in sites and not tq._matches(sites[name], tq.DEFAULT_SKIP):
+        if (name in sites and not tq._matches(sites[name], tq.DEFAULT_SKIP)
+                and not tq.is_depthwise(mod)):
             hooks.append(mod.register_forward_pre_hook(
-                lambda m, args: seen.append((m, tuple(args[0].shape)))))
+                lambda m, args: seen.append((m, tuple(args[0].shape),
+                                             "dense" if net == "yolov5n"
+                                             else ic._loads(args[0])))))
     try:
         with torch.inference_mode():
             model(x)
@@ -173,67 +231,164 @@ def _sites(net):
     return seen
 
 
-@pytest.mark.parametrize("net,batch,dtype,sms,routes", [
-    ("w32", 256, torch.bfloat16, 132,
-     {"gather": 1, "vec": 79, "shift": 213, "wide": 124}),
-    ("w32", 128, torch.bfloat16, 114,
-     {"gather": 1, "vec": 79, "shift": 213, "wide": 68}),
-    ("w32", 16, torch.bfloat16, 132,
-     {"gather": 1, "vec": 79, "shift": 213, "wide": 0}),
-    ("yolov5n", 1, torch.float32, 132, {"gather": 1, "vec": 56, "wide": 0})])
-def test_fused_tiling_takes_every_int8_site(net, batch, dtype, sms, routes):
-    """Every int8 site of the two nets, as the card runs them (dense
-    channels-last activations, w32 in bf16 at the fold batch and at one
-    frame's 16 crops, YOLOv5n in float32), gets a tiling and a route of
-    the kernel and a weight prepared as the launcher wants it (K_pad a
-    multiple of 32 and at least K, N_pad at least Cout), so that no shape
-    of theirs raises on the card: w32's 3×3 stride-1 convs take the shift
-    route, in wide blocks where there are two of them an SM (132 SMs on
-    an H100 SXM, 114 on a PCIe card), the C=3 stems the scalar gather."""
+W32_PR6 = {"gather": 1, "vec": 79, "shift": 213}
+# the engine walks w32's 64x48 and, at 256 crops, 32x24 3x3 convs; where
+# it would not walk, those stay on the shift route
+W32_FOLD = {"gather": 1, "vec": 79, "shift": 1, "wgmma": 212, "walks": 132}
+W32_128 = {"gather": 1, "vec": 79, "shift": 65, "wgmma": 148, "walks": 68}
+W32_FRAME = {"gather": 1, "vec": 79, "shift": 133, "wgmma": 80}
+
+
+def _case(net, batch, dtype, sms, routes, pr6, id=None):
+    return pytest.param(net, batch, dtype, sms, routes, pr6, id=id or
+                        f"{net}-{batch}-{str(dtype)[6:]}-{sms}")
+
+
+BF16 = torch.bfloat16
+
+
+@pytest.mark.parametrize("net,batch,dtype,sms,routes,pr6", [
+    _case("w32", 256, BF16, 132, W32_FOLD, dict(W32_PR6, wide=124),
+          "w32-256-dtype0-132-routes0"),
+    _case("w32", 128, BF16, 114, W32_128, dict(W32_PR6, wide=68),
+          "w32-128-dtype1-114-routes1"),
+    _case("w32", 16, BF16, 132, W32_FRAME, dict(W32_PR6, wide=0),
+          "w32-16-dtype2-132-routes2"),
+    _case("yolov5n", 1, torch.float32, 132, {"gather": 1, "vec": 56},
+          {"gather": 1, "vec": 56, "wide": 0},
+          "yolov5n-1-dtype3-132-routes3"),
+    _case("w32", 32, BF16, 132, W32_FRAME, dict(W32_PR6, wide=4)),
+    _case("pose_resnet50", 128, BF16, 132,
+          {"gather": 1, "vec": 39, "wgmma": 13, "walks": 3},
+          {"gather": 1, "vec": 39, "shift": 13, "wide": 11}),
+    _case("rsn18", 256, BF16, 132,
+          {"gather": 9, "vec": 30, "wgmma": 72, "walks": 36},
+          {"gather": 54, "vec": 57, "wide": 0}),
+    _case("mobilenetv3_small", 256, BF16, 132,
+          {"gather": 1, "vec": 40},
+          {"gather": 1, "vec": 40, "wide": 0}),
+    _case("mobilevit_s", 256, BF16, 132,
+          {"gather": 20, "vec": 11, "shift": 1},
+          {"gather": 20, "vec": 11, "shift": 1, "wide": 1}),
+    _case("mobilevitv2_05", 256, BF16, 132,
+          {"gather": 14, "vec": 9},
+          {"gather": 14, "vec": 9, "wide": 0}),
+    _case("shufflenetv2_10x", 256, BF16, 132,
+          {"gather": 28, "vec": 10, "wgmma": 3, "walks": 1},
+          {"gather": 28, "vec": 10, "shift": 3, "wide": 3}),
+    _case("shufflenetv2_plus_small", 256, BF16, 132,
+          {"gather": 39, "vec": 33},
+          {"gather": 39, "vec": 33, "wide": 0})])
+def test_fused_tiling_takes_every_int8_site(net, batch, dtype, sms, routes,
+                                            pr6):
+    """Every dense int8 site of the nets, as the card runs them (their
+    inputs' layouts, bf16 at the fold batch, w32 also at 128 crops on a
+    114-SM card and at one frame's 16 crops with the flip, YOLOv5n in
+    float32), gets a route and tiling of the kernels and the weights the
+    launchers want (K_pad a multiple of 32 and at least K, N_pad at least
+    Cout; the packed weight where the conv has the Hopper engine's
+    geometry), so that no shape of theirs raises on the card: the
+    stride-1 "same" convs larger than 1×1 of dense channels-last bf16
+    activations, any C, take the engine ("walks": blocks that walk
+    tiles), RSN's C = 26 and 52 3×3 convs among them, but for the shapes
+    of ``WGMMA_SLOWER`` and, at NT <= 64, where the older kernel's shift
+    route would take them and the engine's blocks would not walk; the
+    rest the older kernel; ``pr6``: the routes PR 6's design takes without
+    the engine ("wide": its shift route's blocks of twice the rows)."""
     got = dict.fromkeys(routes, 0)
-    for conv, (_, C, H, W) in _sites(net):
-        t = ic.fused_tiling((batch, C, H, W), conv.out_channels,
-                            conv.kernel_size, conv.stride, conv.padding,
-                            "dense", dtype, sms)
-        assert (t.block_m, t.block_n) == ic.FUSED_TILES[t.tile]
+    old = dict.fromkeys(pr6, 0)
+    got.setdefault("walks", 0)
+    for conv, (_, C, H, W), loads in _sites(net):
+        geometry = (conv.out_channels, conv.kernel_size, conv.stride,
+                    conv.padding, loads, dtype, sms)
+        t = ic.fused_tiling((batch, C, H, W), *geometry)
+        p = ic.fused_tiling((batch, C, H, W), *geometry, wgmma=False)
+        assert (p.block_m, p.block_n) == ic.FUSED_TILES[p.tile]
         # the narrowest block that holds Cout, up to 128 columns
-        assert t.block_n == min(bn for _, bn in ic.FUSED_TILES
+        assert p.block_n == min(bn for _, bn in ic.FUSED_TILES
                                 if bn >= min(conv.out_channels, 128))
-        wide = (t.block_m // 2, t.block_n) in ic.FUSED_TILES
-        if t.route == "shift":
+        wide = (p.block_m // 2, p.block_n) in ic.FUSED_TILES
+        if p.route == "shift":
             assert conv.padding[0] * W + conv.padding[1] <= ic.MAX_HALO \
                 and conv.stride == (1, 1) and C % 32 == 0
         else:
             assert not wide
-        got[t.route] += 1
-        got["wide"] += wide
+        old[p.route] += 1
+        old["wide"] += wide
         layer = tq.Int8Conv2d(conv, 1.0)
         K = C * conv.kernel_size[0] * conv.kernel_size[1]
         assert layer.w_gemm.shape == (ic.gemm_pad(conv.out_channels),
                                       ic.k_tile_pad(K))
         assert layer.k_pad % ic.K_TILE == 0 and layer.k_pad % 8 == 0
-    assert got == routes
+        if t.route == "wgmma":
+            assert ic.wgmma_takes(C, conv.kernel_size, conv.stride,
+                                  conv.padding, loads, dtype)
+            assert (t.block_m, t.block_n) == ic.WGMMA_TILES[t.tile]
+            plan = ic.wgmma_plan((batch, C, H, W), conv.out_channels,
+                                 conv.kernel_size, sms)
+            assert plan[:5] == (t.tile, t.block_m, t.block_n, t.ring,
+                                t.tiles_per_block)
+            assert plan.smem <= ic.WGMMA_CONST["kMaxSmem"]
+            pack = ic.wgmma_n_tile(conv.out_channels)
+            assert layer.w_packed.numel() == (
+                -(-conv.out_channels // pack) * pack * ic.K_TILE
+                * ic.wgmma_k_steps(C, conv.kernel_size))
+            got["walks"] += t.tiles_per_block > 1
+            assert not (p.route == "shift" and t.block_n <= 64
+                        and t.tiles_per_block == 1)
+        else:
+            assert t == p
+        got[t.route] += 1
+    assert got == dict({"walks": 0}, **routes)
+    assert old == pr6
     # an NCHW input (the detector's letterboxed canvas) takes the gather,
-    # a channels-last view that is not dense the 16-byte loads
+    # a channels-last view that is not dense the 16-byte loads, float32
+    # the older kernel
     def route(C, loads, dtype=torch.bfloat16):
         return ic.fused_tiling((2, C, 30, 40), 32, (3, 3), (1, 1), (1, 1),
                                loads, dtype, 132).route
 
     assert route(16, "scalar") == "gather"
     assert route(32, "vec") == "vec"
+    assert route(26, "dense") == "wgmma"
+    # C % 32 == 0 at NT 32: the shift route, unless the engine's blocks
+    # walk tiles (a map of many tiles)
     assert route(32, "dense") == "shift"
+    assert ic.fused_tiling((256, 32, 64, 48), 32, (3, 3), (1, 1), (1, 1),
+                           "dense", BF16, 132).route == "wgmma"
     assert route(32, "dense", torch.float32) == "vec"
+    assert route(26, "dense", torch.float32) == "gather"
+    # 1x1 convs and the shapes measured slower stay on PR 6's routes
+    assert ic.fused_tiling((2, 64, 30, 40), 256, (1, 1), (1, 1), (0, 0),
+                           "dense", BF16, 132).route == "vec"
+    for C, Cout, kh, kw, H, W in ic.WGMMA_SLOWER:
+        assert ic.fused_tiling((256, C, H, W), Cout, (kh, kw), (1, 1),
+                               (kh // 2, kw // 2), "dense", BF16,
+                               132).route == "shift"
 
 
 def test_loads_of_a_layout():
-    """``_loads`` tells dense channels-last from other channels-last views
-    and from NCHW."""
+    """``_loads`` tells dense channels-last (any C, dims of size 1 in any
+    stride, a 16-byte aligned base) from other channels-last views and
+    from NCHW."""
     x = torch.zeros(2, 32, 6, 5)
     assert ic._loads(x) == "scalar"
     cl = x.contiguous(memory_format=torch.channels_last)
     assert ic._loads(cl) == "dense"
     assert ic._loads(cl[:, :, 1:5]) == "vec"
     assert ic._loads(cl[:, 3:]) == "scalar"
+    odd = torch.zeros(2, 26, 6, 5).contiguous(
+        memory_format=torch.channels_last)
+    assert ic._loads(odd) == "dense"
+    assert ic._loads(odd[:, :, 1:5]) == "scalar"
+    pooled = torch.zeros(4, 40, 1, 1).as_strided((4, 40, 1, 1),
+                                                 (40, 1, 1, 1))
+    assert ic._loads(pooled) == "dense"
+    buf = torch.zeros(2 * 6 * 5 * 32 + 4)
+    assert ic._loads(buf[4:].view(2, 6, 5, 32).permute(0, 3, 1, 2)) \
+        == "dense"
+    assert ic._loads(buf[2:-2].view(2, 6, 5, 32).permute(0, 3, 1, 2)) \
+        == "scalar"
 
 
 def _counters():

@@ -955,7 +955,9 @@ extern "C" int dequant_epilogue_launch(
 
 // The arguments of a fused launch other than the activation and output
 // pointers and the stream, packed by the wrapper once per layer and input
-// layout (ops/int8_conv.FusedArgs mirrors it field for field).
+// layout (ops/int8_conv.FusedArgs mirrors it field for field; the same
+// struct as csrc/int8_conv_sm90.cu's, whose fields past `route` this
+// launcher does not read).
 struct FusedArgs {
   long long sN, sC, sH, sW;  // the activation's element strides
   const void* w;             // (n_pad, k_pad) int8 weight
@@ -966,6 +968,10 @@ struct FusedArgs {
   int n_pad, k_pad, cout;
   float inv;                 // 1 / s_a as a float32
   int tile, route;
+  const void* w_packed;      // the weight as pack_wgmma_weight lays it out
+  int pack_n;                // its chunk width
+  int ring;                  // weight stages in shared memory
+  int tiles_per_block;       // consecutive M tiles a block walks
 };
 
 // The whole int8 conv of one layer: the (batch, C, H, W) activation x

@@ -42,7 +42,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.int8_conv import gemm_pad, int8_conv2d, k_tile_pad
+from ..ops.int8_conv import (gemm_pad, int8_conv2d, k_tile_pad,
+                              pack_wgmma_weight, wgmma_geometry,
+                              wgmma_n_tile)
 from ..ops.int8_dwconv import int8_dwconv, pack_weights
 from ..utils.convert import conv_sites
 
@@ -274,7 +276,11 @@ class _Int8Site(nn.Module):
 class Int8Conv2d(_Int8Site):
     """The w8a8 replacement of one ``nn.Conv2d`` (``_quantized_conv``):
     the int8 weight in the GEMM layout (N_pad, K_pad) with K in (kh, kw,
-    cin) order and zero columns up to the fused kernel's K tile, run by
+    cin) order and zero columns up to the fused kernel's K tile
+    (``w_gemm``: the plain version's and the older kernel's), and, for a
+    conv of the Hopper engine's geometry, packed once into the order that
+    engine reads it (``w_packed``, see
+    :func:`..ops.int8_conv.pack_wgmma_weight`; None otherwise), run by
     :func:`..ops.int8_conv.int8_conv2d`."""
 
     def __init__(self, conv: nn.Conv2d, amax: float):
@@ -287,6 +293,10 @@ class Int8Conv2d(_Int8Site):
                         device=w_i8.device)
         w[:O, :K] = w_i8.permute(0, 2, 3, 1).reshape(O, K)
         self.register_buffer("w_gemm", w, persistent=False)
+        self.register_buffer("w_packed", pack_wgmma_weight(
+            w, self.in_channels, self.kernel_size, wgmma_n_tile(O))
+            if wgmma_geometry(self.kernel_size, self.stride, self.padding)
+            else None, persistent=False)
 
     def forward(self, x):
         return int8_conv2d(x, self)

@@ -22,7 +22,17 @@ plain version composes the three steps of the GEMM lowering:
 * :func:`dequant_epilogue`: ``float(acc) * scale[c] + bias[c]`` → the
   output dtype, two roundings as in the JAX package.
 
-On the card those three are the slice-5 path (two kernels of the same
+On the card the fused kernel takes one of two sources by the route that
+:func:`fused_tiling` picks: the stride-1 "same" convs larger than 1×1 of
+a dense channels-last bf16 activation, any C, go to the Hopper engine of
+``csrc/int8_conv_sm90.cu`` (``"wgmma"``: warpgroup MMAs, the extended
+tile quantised once for every tap and every output channel, the weight
+packed once by :func:`pack_wgmma_weight`), but for the shapes measured
+slower there (:func:`wgmma_routes`); the rest (1×1 and stride-2 convs,
+other layouts, float32, the C = 3 stems) to the implicit GEMM of
+``csrc/int8_conv.cu`` (``"gather"``, ``"vec"``, ``"shift"``).
+
+On the card the three steps are the slice-5 path (two kernels of the same
 source around ``_int_mm``), which no serving path runs any more: the card
 checks hold the fused kernel against it bit for bit and time the two.
 ``_int_mm`` wants more than 16 rows and K and N multiples of 8: the
@@ -54,7 +64,8 @@ GEMM_MIN_ROWS = 17     # _int_mm: more than 16 rows
 GEMM_N_ALIGN = 32      # int8_gemm's weight rows, which cuBLASLt takes
 K_TILE = 32            # the fused kernel's K tile (bytes of int8)
 # the launcher's ``route``: scalar gather, 16-byte loads, shifted taps
-ROUTES = ("gather", "vec", "shift")
+# (csrc/int8_conv.cu), and the Hopper engine (csrc/int8_conv_sm90.cu)
+ROUTES = ("gather", "vec", "shift", "wgmma")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -87,20 +98,236 @@ def _kernel_table():
 FUSED_TILES, MAX_HALO = _kernel_table()
 
 
+def _wgmma_table():
+    """The Hopper engine's tilings, (BM, NT) in the order of its
+    launcher's ``tile`` index, and its constants (``kWgTilings`` and the
+    ``constexpr int`` values of ``csrc/int8_conv_sm90.cu``, read from the
+    source, not built)."""
+    src = (_build.CSRC_DIR / "int8_conv_sm90.cu").read_text()
+    table = re.search(r"constexpr WgTiling kWgTilings\[\] = \{(.*?)\};", src,
+                      re.S).group(1)
+    tiles = tuple((int(bm), int(bn)) for bm, bn in re.findall(
+        r"\{(\d+), (\d+)\}", table))
+    const = {name: int(value) for name, value in re.findall(
+        r"constexpr int (k\w+) = (\d+);", src)}
+    return tiles, const
+
+
+WGMMA_TILES, WGMMA_CONST = _wgmma_table()
+WGMMA_MAX_TAPS = 32                        # the tap mask's bits
+
+
+def wgmma_n_tile(cout: int) -> int:
+    """The N tile at which ``Int8Conv2d`` packs the engine's weight: the
+    narrowest of the engine's that holds ``cout`` columns, up to 256
+    (wider convs are cut in chunks of 256)."""
+    n = min(gemm_pad(cout), max(bn for _, bn in WGMMA_TILES))
+    return min(bn for _, bn in WGMMA_TILES if bn >= n)
+
+
+def wgmma_stage_steps(nt: int) -> int:
+    """K steps of 32 bytes in a weight stage at N tile ``nt`` (one MMA
+    commit group; ``StageSteps`` of the source)."""
+    return 2 if nt >= 256 else 4
+
+
+def wgmma_k_steps(C, kernel) -> int:
+    """K steps a chunk of the packed weight holds: kh·kw taps of
+    ceil(C / 32) steps, padded with zero steps to a multiple of
+    ``kStepAlign`` (so that every stage is whole)."""
+    kh, kw = kernel
+    align = WGMMA_CONST["kStepAlign"]
+    return -(-kh * kw * -(-C // K_TILE) // align) * align
+
+
+def _wgmma_vec(C):
+    """Channels a load of the engine's (16 bytes, 4, or 2)."""
+    return 8 if C % 8 == 0 else 2 if C % 2 == 0 else 1
+
+
+def _wgmma_groups(bm):
+    """(warpgroups, m64 tiles a warpgroup) of a block of ``bm`` rows."""
+    wgs = 2 if bm >= 128 else 1
+    return wgs, bm // 64 // wgs
+
+
+def wgmma_walks(bm, C) -> bool:
+    """Whether a block of ``bm`` rows may walk consecutive M tiles: the
+    next tile's new rows, in flight in registers across the MMAs, must
+    fit in ``kPrefetchWords`` words a thread for each m64 tile of its
+    warpgroup."""
+    vec = _wgmma_vec(C)
+    per_row = -(-C // K_TILE) * K_TILE // vec
+    wgs, mt = _wgmma_groups(bm)
+    words = -(-bm * per_row // (128 * wgs)) * (4 if vec == 8 else 1)
+    return words <= WGMMA_CONST["kPrefetchWords"] * mt
+
+
+def wgmma_positions(shape, kernel, nt):
+    """(positions, halo) of the engine's tiles at N tile ``nt``: at NT <=
+    64 (A from shared memory) each image padded by kh // 2 rows and kw //
+    2 columns of zeros on every side, else the pixels themselves; the
+    extended tile's rows on either side of a block's."""
+    N, _, H, W = shape
+    kh, kw = kernel
+    ph, pw = (kh // 2, kw // 2) if nt <= 64 else (0, 0)
+    wp = W + 2 * pw
+    return N * (H + 2 * ph) * wp, kh // 2 * wp + kw // 2
+
+
+def wgmma_smem(bm, nt, C, halo, ring, walks):
+    """Bytes of dynamic shared memory of one block (the launcher's sum):
+    the weight ring, the extended tile's int8 planes of 32 channels (two
+    tiles where the block walks tiles), the warps' epilogue staging, the
+    chunk's float32 scales and biases, the barriers."""
+    rows = (bm + 2 * halo) * (2 if walks else 1)
+    return (ring * wgmma_stage_steps(nt) * nt * K_TILE
+            + rows * -(-C // K_TILE) * K_TILE
+            + 4 * _wgmma_groups(bm)[0] * WGMMA_CONST["kStageBytes"]
+            + 2 * nt * 4
+            + 2 * WGMMA_CONST["kMaxRing"] * 8)
+
+
+def wgmma_geometry(kernel, stride, padding) -> bool:
+    """A stride-1 "same" conv with an odd kernel of at most 32 taps: the
+    geometry the engine takes (``Int8Conv2d`` packs its weight for it)."""
+    (kh, kw), (ph, pw) = kernel, padding
+    return (tuple(stride) == (1, 1) and kh % 2 == 1 and kw % 2 == 1
+            and (ph, pw) == (kh // 2, kw // 2)
+            and kh * kw <= WGMMA_MAX_TAPS)
+
+
+def wgmma_takes(C, kernel, stride, padding, loads, dtype) -> bool:
+    """Whether the engine can take the conv: :func:`wgmma_geometry` on a
+    dense channels-last bf16 activation."""
+    return (loads == "dense" and dtype == torch.bfloat16 and C >= 1
+            and wgmma_geometry(kernel, stride, padding))
+
+
+#: (C, Cout, kh, kw, H, W) of convs the engine takes that measured slower
+#: than PR 6's design in the same turns (``chip_smoke.py`` 9a, one H100
+#: 80GB HBM3 at 700 W): ``fused_tiling`` leaves them to the older kernel
+WGMMA_SLOWER = frozenset({
+    (96, 96, 3, 3, 32, 24),     # mobilevit_s: 134.6 against 129.8 us
+})
+
+
+def wgmma_routes(C, Cout, kernel, H, W) -> bool:
+    """Whether ``fused_tiling`` may route a conv the engine can take to
+    it: every kernel larger than 1×1 but the shapes of ``WGMMA_SLOWER``.
+    1×1 convs stay on PR 6's routes: their blocks load, then multiply,
+    then store, where PR 6's tiles pipeline the loads along K, and 114 of
+    the 137 1×1 shapes of the nets measured slower on the engine (9a).
+    ``fused_tiling`` also keeps PR 6's shift route where the engine's
+    blocks at NT <= 64 would not walk tiles (:func:`wgmma_plan`)."""
+    return tuple(kernel) != (1, 1) and (
+        C, Cout, *kernel, H, W) not in WGMMA_SLOWER
+
+
+class WgmmaPlan(NamedTuple):
+    tile: int           # index into WGMMA_TILES
+    block_m: int
+    block_n: int        # NT: the columns a block computes
+    ring: int           # weight stages in shared memory
+    tiles_per_block: int
+    smem: int
+
+
+def wgmma_plan(shape, Cout, kernel, sms):
+    """The engine's tiling for a conv of the (N, C, H, W) activation
+    ``shape`` to ``Cout`` channels that :func:`wgmma_takes`, or None where
+    no block fits in shared memory.
+
+    At the packed N tile, a block walks consecutive tiles, keeping the
+    quantised halo and the weight, where the next tile's rows fit the
+    prefetch (:func:`wgmma_walks`), Cout fits one chunk, every weight
+    stage fits in shared memory and the map gives at least four tiles a
+    block the card holds at once (``BlocksPerSm``): blocks of 256 rows
+    (two m64 tiles a warpgroup, two blocks an SM) at NT <= 64 where C
+    loads 16 bytes at a time, else of 128 (three an SM at NT 32, two at
+    64, one above).  Otherwise a block takes one tile of 128 rows and one
+    chunk of NT columns (128 of a 256-wide packed chunk where that leaves
+    fewer than two blocks an SM; 64 rows where there is still less than
+    one), with a ring of at most four weight stages."""
+    C = shape[1]
+    pack = wgmma_n_tile(Cout)
+    stages = wgmma_k_steps(C, kernel) // wgmma_stage_steps(pack)
+    positions, halo = wgmma_positions(shape, kernel, pack)
+    walking = [(256, 2)] if pack <= 64 and _wgmma_vec(C) == 8 else []
+    walking.append((128, {32: 3, 64: 2}.get(pack, 1)))
+    for bm, per_sm in walking:          # BlocksPerSm
+        tiles = -(-positions // bm)
+        if (wgmma_walks(bm, C) and Cout <= pack
+                and tiles >= 4 * sms * per_sm
+                and stages <= WGMMA_CONST["kMaxRing"]):
+            smem = wgmma_smem(bm, pack, C, halo, stages, True)
+            if smem <= WGMMA_CONST["kMaxSmem"]:
+                return WgmmaPlan(WGMMA_TILES.index((bm, pack)), bm, pack,
+                                 stages, -(-tiles // (sms * per_sm)), smem)
+    nt, bm = pack, 128
+    if -(-positions // bm) * -(-Cout // nt) < 2 * sms and nt == 256:
+        nt //= 2
+    positions, halo = wgmma_positions(shape, kernel, nt)
+    if -(-positions // bm) * -(-Cout // nt) < sms:
+        bm = 64
+    stages = wgmma_k_steps(C, kernel) // wgmma_stage_steps(nt)
+    for bm in (bm, 64) if bm == 128 else (bm,):
+        for ring in range(min(stages, 4), 0, -1):
+            if ring == 1 < stages:      # streamed stages need two slots
+                break
+            smem = wgmma_smem(bm, nt, C, halo, ring, False)
+            if smem <= WGMMA_CONST["kMaxSmem"]:
+                return WgmmaPlan(WGMMA_TILES.index((bm, nt)), bm, nt, ring,
+                                 1, smem)
+    return None
+
+
+def pack_wgmma_weight(w_gemm, C, kernel, nt):
+    """The (n_pad, k_pad) GEMM weight, K in (tap, c) order, packed for the
+    engine at chunk width ``nt``: for each chunk of ``nt`` output channels
+    and each K step of 32 bytes (K in (tap, c_pad32) order: each tap's
+    channels zero-padded to a multiple of 32; zero steps up to
+    :func:`wgmma_k_steps`), an ``nt`` × 32-byte run in the canonical
+    K-major no-swizzle layout of the MMA's B operand (core matrices of 8
+    rows × 16 bytes: byte (n, k) of a step at (n // 8)·256 + (k // 16)·128
+    + (n % 8)·16 + k % 16, so that the first ``nt / 2`` rows of a step are
+    one run too).  A flat int8 tensor; channels past n_pad are zeros."""
+    n_pad = w_gemm.shape[0]
+    kh, kw = kernel
+    taps, planes = kh * kw, -(-C // K_TILE)
+    steps = wgmma_k_steps(C, kernel)
+    chunks = -(-n_pad // nt)
+    w = torch.zeros((chunks * nt, steps * K_TILE), dtype=torch.int8,
+                    device=w_gemm.device)
+    w[:n_pad, :taps * planes * K_TILE].view(n_pad, taps, -1)[:, :, :C] = (
+        w_gemm[:, :taps * C].reshape(n_pad, taps, C))
+    w = w.view(chunks, nt // 8, 8, steps, 2, 16)
+    return w.permute(0, 3, 1, 4, 2, 5).contiguous().view(-1)
+
+
 class FusedTiling(NamedTuple):
-    tile: int       # index into FUSED_TILES
+    tile: int       # index into FUSED_TILES (WGMMA_TILES on "wgmma")
     block_m: int
     block_n: int
     route: str      # one of ROUTES
+    ring: int = 0               # "wgmma" only: WgmmaPlan's
+    tiles_per_block: int = 1
 
 
 def fused_tiling(shape, Cout, kernel, stride, padding, loads, dtype,
-                 sms) -> FusedTiling:
+                 sms, wgmma=True) -> FusedTiling:
     """The fused kernel's tiling and route for a conv of the (N, C, H, W)
     activation ``shape`` to ``Cout`` channels whose layout allows
-    ``loads`` (``"dense"``: dense channels-last; ``"vec"``: channel stride
-    1 and 16-byte aligned chunks; ``"scalar"``: anything else), on a card
-    of ``sms`` streaming multiprocessors.
+    ``loads`` (``"dense"``: dense channels-last, 16-byte aligned;
+    ``"vec"``: channel stride 1 and 16-byte aligned chunks; ``"scalar"``:
+    anything else), on a card of ``sms`` streaming multiprocessors.
+
+    ``"wgmma"`` (the Hopper engine, :func:`wgmma_plan`) wherever
+    :func:`wgmma_takes` the conv, :func:`wgmma_routes` sends it there, a
+    block fits and, where the older kernel would take its shift route, the
+    engine's blocks at NT <= 64 walk tiles (a single tile lost to the
+    shift kernel, 9a); unless ``wgmma`` is False.  Otherwise the older
+    kernel's choice below (PR 6's design).
 
     The block covers as many output channels as it can (the first tiling
     whose BLOCK_N holds min(Cout, 128)), so that each activation byte is
@@ -134,6 +361,13 @@ def fused_tiling(shape, Cout, kernel, stride, padding, loads, dtype,
         route = "vec"
     else:
         route = "gather"
+    if (wgmma and wgmma_takes(C, kernel, stride, padding, loads, dtype)
+            and wgmma_routes(C, Cout, kernel, H, W)):
+        plan = wgmma_plan(shape, Cout, kernel, sms)
+        if plan is not None and not (route == "shift" and plan.block_n <= 64
+                                     and plan.tiles_per_block == 1):
+            return FusedTiling(plan.tile, plan.block_m, plan.block_n,
+                               "wgmma", plan.ring, plan.tiles_per_block)
     return FusedTiling(tile, *FUSED_TILES[tile], route)
 
 
@@ -219,8 +453,9 @@ def int8_conv_fused_reference(x, layer):
 # ------------------------------------------------------------- the kernels
 
 @lru_cache(maxsize=None)
-def _kernel(name, argtypes):
-    fn = getattr(_build.load("int8_conv"), name)
+def _kernel(name, argtypes, source="int8_conv"):
+    """Launcher ``name`` of ``csrc/{source}.cu`` (built at first use)."""
+    fn = getattr(_build.load(source), name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
@@ -322,18 +557,20 @@ dequant_epilogue.launches = 0
 def _loads(x):
     """What the layout of the (N, C, H, W) activation ``x`` lets the
     kernel load (see :func:`fused_tiling`): ``"dense"`` for a dense
-    channels-last tensor, ``"vec"`` where 8 channels of one tap are one
-    aligned 16-byte load (channel stride 1, the other strides of dims
-    longer than 1 multiples of 8 elements, a 16-byte aligned base),
-    ``"scalar"`` otherwise."""
+    channels-last tensor (the strides of dims longer than 1 those of the
+    (N, H, W, C) array, any C) with a 16-byte aligned base, ``"vec"``
+    where 8 channels of one tap are one aligned 16-byte load (channel
+    stride 1, the other strides of dims longer than 1 multiples of 8
+    elements, a 16-byte aligned base), ``"scalar"`` otherwise."""
     N, C, H, W = x.shape
-    if not (x.stride(1) == 1 and x.data_ptr() % 16 == 0
-            and all(x.stride(d) % 8 == 0 for d in (0, 2, 3)
-                    if x.shape[d] > 1)):
+    if x.stride(1) != 1 and C > 1 or x.data_ptr() % 16:
         return "scalar"
-    dense = (x.stride(3) == C and x.stride(2) == W * C
-             and (N == 1 or x.stride(0) == H * W * C))
-    return "dense" if dense else "vec"
+    if all(x.stride(d) == want for d, want in ((0, H * W * C), (2, W * C),
+                                               (3, C)) if x.shape[d] > 1):
+        return "dense"
+    if all(x.stride(d) % 8 == 0 for d in (0, 2, 3) if x.shape[d] > 1):
+        return "vec"
+    return "scalar"
 
 
 class FusedArgs(ctypes.Structure):
@@ -346,12 +583,19 @@ class FusedArgs(ctypes.Structure):
                     "dtype", "batch", "C", "H", "W", "kh", "kw", "sh", "sw",
                     "ph", "pw", "Ho", "Wo", "n_pad", "k_pad", "cout")]
                 + [("inv", ctypes.c_float), ("tile", ctypes.c_int),
-                   ("route", ctypes.c_int)])
+                   ("route", ctypes.c_int), ("w_packed", ctypes.c_void_p)]
+                + [(n, ctypes.c_int) for n in (
+                    "pack_n", "ring", "tiles_per_block")])
 
 
-def _plan(x, layer):
+def _plan(x, layer, route=None):
     """Check ``x`` and ``layer`` against what the kernel takes and pack
-    the launch: (FusedArgs, output shape (N, Cout, Ho, Wo))."""
+    the launch: (FusedArgs, output shape (N, Cout, Ho, Wo)).  ``route``:
+    the route to take instead of :func:`fused_tiling`'s: "wgmma" wherever
+    the engine can take the conv (:func:`wgmma_takes`, also at shapes
+    :func:`wgmma_routes` leaves to the older kernel), or one of the older
+    kernel's, tiled as PR 6's design tiles it.  Raises where the conv
+    cannot take that route."""
     if x.dtype not in _DTYPES or x.dim() != 4:
         raise TypeError(f"activation must be (N, C, H, W) float32 or "
                         f"bfloat16, got {x.dtype} {tuple(x.shape)}")
@@ -380,16 +624,39 @@ def _plan(x, layer):
                               or t.numel() != Cout):
             raise ValueError(f"{name} must be a contiguous float32 vector "
                              f"of {Cout} on {x.device}")
-    t = fused_tiling(x.shape, Cout, layer.kernel_size, layer.stride,
-                     layer.padding, _loads(x), x.dtype,
-                     torch.cuda.get_device_properties(
-                         x.device).multi_processor_count)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = (wgmma_plan(x.shape, Cout, layer.kernel_size, sms)
+            if route == "wgmma" and wgmma_takes(
+                C, layer.kernel_size, layer.stride, layer.padding,
+                _loads(x), x.dtype) else None)
+    t = (FusedTiling(plan.tile, plan.block_m, plan.block_n, "wgmma",
+                     plan.ring, plan.tiles_per_block) if plan is not None
+         else fused_tiling(x.shape, Cout, layer.kernel_size, layer.stride,
+                           layer.padding, _loads(x), x.dtype, sms,
+                           wgmma=route is None))
+    if route is not None and t.route != route:
+        raise ValueError(f"int8 conv of x {tuple(x.shape)} strides "
+                         f"{x.stride()} {x.dtype}, kernel "
+                         f"{layer.kernel_size}, stride {layer.stride}: no "
+                         f"{route!r} route (its route is {t.route!r})")
+    packed = None
+    if t.route == "wgmma":
+        packed = getattr(layer, "w_packed", None)
+        pack_n = wgmma_n_tile(Cout)
+        if (packed is None or packed.device != x.device
+                or packed.numel() != -(-Cout // pack_n) * pack_n
+                * wgmma_k_steps(C, layer.kernel_size) * K_TILE):
+            raise ValueError(f"int8 conv of {C} -> {Cout} channels, kernel "
+                             f"{layer.kernel_size}: no weight packed for "
+                             f"the wgmma route at N tile {t.block_n} on "
+                             f"{x.device}")
     args = FusedArgs(
         *x.stride(), w.data_ptr(), layer.scale.data_ptr(),
         None if layer.bias is None else layer.bias.data_ptr(),
         _DTYPES[x.dtype], N, C, H, W, kh, kw, sh, sw, ph, pw, Ho, Wo,
         w.shape[0], layer.k_pad, Cout, float(layer.inv_s_a), t.tile,
-        ROUTES.index(t.route))
+        ROUTES.index(t.route), None if packed is None else
+        packed.data_ptr(), wgmma_n_tile(Cout), t.ring, t.tiles_per_block)
     return args, (N, Cout, Ho, Wo)
 
 
@@ -400,42 +667,54 @@ def _current_stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def int8_conv_fused(x, layer, tile=None):
+def int8_conv_fused(x, layer, tile=None, route=None):
     """The int8 conv of ``layer`` (see :func:`int8_conv2d`) in one launch
-    of the fused kernel on a CUDA tensor (``int8_conv_fused.launches``).
+    of the fused kernel on a CUDA tensor (``int8_conv_fused.launches``):
+    the Hopper engine of ``csrc/int8_conv_sm90.cu`` on the ``"wgmma"``
+    route, the implicit GEMM of ``csrc/int8_conv.cu`` on the others.
     Raises on a device, dtype or shape that the kernel does not take.
-    ``tile``: another tiling than :func:`fused_tiling`'s (an index into
-    ``FUSED_TILES``), for the card checks that time tilings against each
-    other.
+    ``route``: another route than :func:`fused_tiling`'s (one of
+    ``ROUTES``; an older one is tiled as PR 6's design tiles it), and
+    ``tile``: another tiling of an older route (an index into
+    ``FUSED_TILES``), for the card checks that time designs and tilings
+    against each other.
 
     The checks and the packed launch arguments are kept per input layout
-    in ``layer.launch_plans`` where the layer has that dict (each
-    ``Int8Conv2d``), keyed with the addresses of its weight, scale and
-    bias, so that a serving forward pays them once: the host's cost of a
-    launch is what paces the small-batch paths."""
+    and route in ``layer.launch_plans`` where the layer has that dict
+    (each ``Int8Conv2d``), keyed with the addresses of its weights, scale
+    and bias, so that a serving forward pays them once: the host's cost
+    of a launch is what paces the small-batch paths."""
     plans = getattr(layer, "launch_plans", None)
+    packed = getattr(layer, "w_packed", None)
     key = (x.shape, x.stride(), x.dtype, x.device, x.data_ptr() % 16 == 0,
            layer.w_gemm.data_ptr(), layer.scale.data_ptr(),
-           None if layer.bias is None else layer.bias.data_ptr())
+           None if layer.bias is None else layer.bias.data_ptr(),
+           None if packed is None else packed.data_ptr(), route)
     plan = None if plans is None else plans.get(key)
     if plan is None:
-        plan = _plan(x, layer)
+        plan = _plan(x, layer, route)
         if plans is not None:
             if len(plans) >= 64:        # many layouts: start again
                 plans.clear()
             plans[key] = plan
     args, shape = plan
+    wg = args.route == ROUTES.index("wgmma")
     if tile is not None:
+        if wg:
+            raise ValueError("tile= is for the older routes; the wgmma "
+                             "route tiles by wgmma_plan")
         args = FusedArgs.from_buffer_copy(args)
         args.tile = tile
     out = torch.empty(shape, dtype=x.dtype, device=x.device,
                       memory_format=torch.channels_last)
     if out.numel() == 0:
         return out
-    fn = _kernel("int8_conv_fused_launch", (ctypes.c_void_p,
-                                            ctypes.c_void_p,
-                                            ctypes.POINTER(FusedArgs),
-                                            ctypes.c_void_p))
+    argtypes = (ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(FusedArgs),
+                ctypes.c_void_p)
+    if wg:
+        fn = _kernel("int8_conv_wgmma_launch", argtypes, "int8_conv_sm90")
+    else:
+        fn = _kernel("int8_conv_fused_launch", argtypes)
     if x.device.index == torch.cuda.current_device():
         status = fn(x.data_ptr(), out.data_ptr(), ctypes.byref(args),
                     _current_stream(x.device))
@@ -445,10 +724,13 @@ def int8_conv_fused(x, layer, tile=None):
                         _current_stream(x.device))
     _raise_on(status, "int8_conv_fused")
     int8_conv_fused.launches += 1
+    int8_conv_fused.launches_by_route[ROUTES[args.route]] += 1
     return out
 
 
 int8_conv_fused.launches = 0
+#: the same launches by route ("wgmma": the Hopper engine)
+int8_conv_fused.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def int8_conv2d(x, layer):
