@@ -87,11 +87,24 @@ rolling backend of ``TPU.CKPT_BACKEND orbax`` over three saves (13b);
 (13c); an ``rsn18`` step with and without ``TPU.REMAT`` (13d);
 ``MODEL.PRETRAINED`` grafting a backbone-only file (13e); the same
 weights as ``.msgpack`` and ``.pth`` served bit for bit (13f); the
-``DEBUG.DEBUG`` images of one epoch (13g).  The kernels' launches
+``DEBUG.DEBUG`` images of one epoch (13g).  Phase 14, the serving surface
+and export (right after phase 12): w32 ``UdpPosePipeline.infer_pose``
+with the crops warped on the card, fp32 card vs CPU on 8 persons of a
+720p frame, then bf16 at 1, 8 and 64 persons timed beside the host-crop
+path (14a); ``/v1/pose`` with ``--pad-on-device`` against the same
+requests without it, and the crop bytes each batch uploaded (14b);
+``rsn18`` through the pipeline in bf16 and self-calibrated int8 against
+``make_rsn_infer_fn`` on the same crops, crops/s (14c); the export CLI
+for w32 and ``--yolo yolov5n`` on the card, a w32 export held by
+``check_model`` and timed beside the model's forward, served as
+``.onnx`` weights bit for bit as its ``.pth``, the standalone engine
+over it, and an ``rsn18`` export served by ``python -m
+udp_pose_tpu_torch.serve --pad-on-device`` in a process of its own and
+run by the infer CLI (14d).  The kernels' launches
 count phases 6, 7 and 8, each path in one window, and the two int8
 paths (9b-9c, 9d) in windows around each of their own calls: the bf16
 engines timed in turns with them and the card-vs-CPU checks run
-outside; phases 10, 11, 12 and 13's paths likewise.  Any failed check
+outside; phases 10, 11, 12, 13 and 14's paths likewise.  Any failed check
 exits nonzero before the last line, which is ``{"ok": true, "device":
 {...}}``.  Without a CUDA card it exits 1.  Imports nothing of JAX or of
 the JAX package.
@@ -861,7 +874,8 @@ def requests_for(n_requests, frame_hw, seed=7):
 
 def phase_server(cfg, device="cuda", n_requests=4, frame_hw=(720, 1280)):
     """Returns each kernel's launches while serving the requests."""
-    from udp_pose_tpu_torch.engine.server import PoseServer, PoseService
+    from udp_pose_tpu_torch.engine.server import (PoseServer, PoseService,
+                                                  host_crops)
 
     service = PoseService(cfg, device=device, seed=0, window_ms=50.0)
     server = PoseServer(service, host="127.0.0.1", port=0)
@@ -906,18 +920,20 @@ def phase_server(cfg, device="cuda", n_requests=4, frame_hw=(720, 1280)):
               "serving never launched the fused decode kernel")
 
         # each request alone, through the server and straight through the
-        # pipeline: the same bucket shapes, so the same numbers
+        # pipeline on the same host crops (the batcher's, as in the JAX
+        # server): the same bucket shapes, so the same numbers
         worst = 0.0
         for frame, boxes in reqs:
             status, body, _ = post_pose(server.port, frame, boxes)
             check(status == 200, f"/v1/pose answered {status}: {body}")
-            kp, sc = service.pipe.infer_pose(frame, boxes)
+            kp, sc = service.pipe.infer_crops(*host_crops(
+                frame, boxes, service.pipe.input_wh))
             worst = max(worst,
                         float(np.abs(kp - body["keypoints"]).max()),
                         float(np.abs(sc - body["scores"]).max()))
         log(f"[serve] each request alone, served vs UdpPosePipeline."
-            f"infer_pose: max abs difference {worst:.3g}")
-        check(worst <= 1e-3, "served results != UdpPosePipeline.infer_pose")
+            f"infer_crops of the host crops: max abs difference {worst:.3g}")
+        check(worst <= 1e-3, "served results != UdpPosePipeline.infer_crops")
         status, _ = get(server.port, "/healthz")
         check(status == 200, f"/healthz answered {status}")
         status, text = get(server.port, "/metrics")
@@ -1530,6 +1546,41 @@ def check_decode_calls(calls, rows, what):
     return f"{tuple(net.shape)} {layout_of(net)}"
 
 
+def pose_stage_errors(hm, hm_cpu, packed, packed_cpu, preds, p_cpu, scale):
+    """The card's pose stage against the CPU's on the same crops (8c,
+    14a): the heatmaps ``hm`` (offset heads) and their decode ``packed``
+    and keypoints ``preds`` on each.  Returns the heatmaps' largest
+    difference and value, (B, J) masks of the maps whose peaks agree and
+    of those with a clear top-2 margin (and the margin), the (B, J) mask
+    of keypoints past their limit where the peaks agree, the largest
+    keypoint difference there, and the limits: where the peaks agree, a
+    keypoint moves by at most its offset maps' difference x kpd (the
+    blur's weights sum to 1) in heatmap pixels, times the frame pixels a
+    heatmap pixel spans (transform_preds), plus KP_ATOL px."""
+    from udp_pose_tpu_torch.ops import peak_offset as po
+    hm, packed, preds = hm.cpu(), packed.cpu(), preds.cpu()
+    hm_cpu, packed_cpu, p_cpu = hm_cpu.cpu(), packed_cpu.cpu(), p_cpu.cpu()
+    hm_max = float(hm_cpu.abs().max())
+    diff = (hm - hm_cpu).abs()
+    B, H, W = hm.shape[0], hm.shape[-2], hm.shape[-1]
+    blurred = po.blurred_offset_maps(hm_cpu, KPD)[0].flatten(1)
+    top2 = blurred.topk(2, dim=1).values
+    margin = 1e-5 * float(hm_cpu[:, 0::3].abs().max())
+    clear = ((top2[:, 0] - top2[:, 1] > margin)
+             & (top2[:, 0].abs() > margin)).view(B, -1)
+    agree = peak_index(packed, W) == peak_index(packed_cpu, W)
+    off_err = torch.stack([diff[:, 1::3].amax((-2, -1)),
+                           diff[:, 2::3].amax((-2, -1))], -1)   # (B, J, 2)
+    span = (torch.as_tensor(scale).cpu().float() * 200.0
+            / torch.tensor([W - 1.0, H - 1.0]))[:, None, :]     # (B, 1, 2)
+    kp_limit = off_err * KPD * span + KP_ATOL
+    kp_err = (preds - p_cpu).abs()
+    over = (kp_err > kp_limit).any(-1) & agree
+    kp_max = float(kp_err.amax(-1)[agree].max())
+    return (float(diff.max()), hm_max, agree, clear, margin, over, kp_max,
+            kp_limit)
+
+
 def check_card_vs_cpu(card, cfg_fn=w32_cfg, device="cuda"):
     """8c, the card against the CPU: ``infer_frame`` of one 720p frame
     with the stubbed head, the pose model in fp32 with TF32 off, on an
@@ -1546,7 +1597,6 @@ def check_card_vs_cpu(card, cfg_fn=w32_cfg, device="cuda"):
     path's."""
     from udp_pose_tpu_torch.engine.fused import FusedDetectPose
     from udp_pose_tpu_torch.ops import affine
-    from udp_pose_tpu_torch.ops import peak_offset as po
     set_tf32(False)
     frame = detect_frames(1, seed=88)[0]
     engines, runs = {}, {}
@@ -1586,28 +1636,9 @@ def check_card_vs_cpu(card, cfg_fn=w32_cfg, device="cuda"):
         p_cpu = engines["cpu"]._pose.infer_fn(
             crops_in.cpu(), center.cpu(), scale.cpu())[0]
     hm_cpu, _, packed_cpu = dec.calls[0]
-    hm, packed, preds = dec_call[0].cpu(), dec_call[2].cpu(), preds.cpu()
-    hm_max = float(hm_cpu.abs().max())
-    diff = (hm - hm_cpu).abs()
-    hm_err = float(diff.max())
-    B, H, W = hm.shape[0], hm.shape[-2], hm.shape[-1]
-    blurred = po.blurred_offset_maps(hm_cpu, KPD)[0].flatten(1)
-    top2 = blurred.topk(2, dim=1).values
-    margin = 1e-5 * float(hm_cpu[:, 0::3].abs().max())
-    clear = ((top2[:, 0] - top2[:, 1] > margin)
-             & (top2[:, 0].abs() > margin)).view(B, -1)
-    agree = peak_index(packed, W) == peak_index(packed_cpu, W)
-    # where the peaks agree, a keypoint moves by at most its offset maps'
-    # difference x kpd (the blur's weights sum to 1) in heatmap pixels,
-    # times the frame pixels a heatmap pixel spans (transform_preds)
-    off_err = torch.stack([diff[:, 1::3].amax((-2, -1)),
-                           diff[:, 2::3].amax((-2, -1))], -1)   # (B, J, 2)
-    span = (scale.cpu().float() * 200.0
-            / torch.tensor([W - 1.0, H - 1.0]))[:, None, :]     # (B, 1, 2)
-    kp_limit = off_err * KPD * span + KP_ATOL
-    kp_err = (preds - p_cpu).abs()
-    over = (kp_err > kp_limit).any(-1) & agree
-    kp_max = float(kp_err.amax(-1)[agree].max())
+    hm_err, hm_max, agree, clear, margin, over, kp_max, kp_limit = (
+        pose_stage_errors(dec_call[0], hm_cpu, dec_call[2], packed_cpu,
+                          preds, p_cpu, scale))
     kp_e2e = float(np.abs(out["keypoints"] - out_cpu["keypoints"]).max())
     log(f"[detect] 8c card vs CPU, w32 fp32 TF32 off, stubbed head, one 720p "
         f"frame: boxes equal {boxes_equal}; crop matrices {mat_err:.3g} "
@@ -5013,6 +5044,561 @@ def phase_resume(tmp, device="cuda", cfg_fn=w32_cfg, rsn_yaml=RSN18_YAML,
     return paths
 
 
+# ---------------------------------------------------------------- phase 14
+SERVE_PERSONS = (1, 8, 64)       # 14a: persons a frame, timed
+RSN_PERSONS = 64                 # 14c: persons a frame, one bucket
+
+
+def person_boxes(n, seed, hw=DETECT_HW):
+    """``n`` seeded xyxy person boxes on an (H, W) frame, some of them
+    reaching past its edges."""
+    rng = np.random.default_rng(seed)
+    H, W = hw
+    x1 = rng.uniform(-0.05 * W, 0.85 * W, n)
+    y1 = rng.uniform(-0.05 * H, 0.6 * H, n)
+    return np.stack([x1, y1, x1 + rng.uniform(0.04, 0.2, n) * W,
+                     y1 + rng.uniform(0.2, 0.45, n) * H], 1).astype(np.float32)
+
+
+def card_crops(card, device="cuda", cfg_fn=w32_cfg, persons=SERVE_PERSONS,
+               n_check=8, iters=10, hw=DETECT_HW):
+    """14a: ``UdpPosePipeline.infer_pose`` with the crops warped on the
+    card.  fp32 with TF32 off on ``n_check`` persons of one frame, a
+    pipeline on the card and one on the CPU with the same weights: the
+    crop matrices to MAT_REL_TOL, the card's crops against the CPU's
+    ``crop_boxes`` from the card's matrices to CROP_ATOL, the CPU's pose
+    stage on the card's crops as in 8c (:func:`pose_stage_errors`), and
+    the card's one decode bit-equal to its plain version.  Then bf16: one
+    call at each of ``persons`` in a window of the path's launches (one
+    fused decode a call), and the latency of a call beside the host-crop
+    path (``host_crops`` + ``infer_crops``) in turns card, host, host,
+    card.  Returns (the path's launches, {persons: (card ms, host ms)})."""
+    from udp_pose_tpu_torch.engine.pose_engine import UdpPosePipeline
+    from udp_pose_tpu_torch.engine.server import host_crops
+    from udp_pose_tpu_torch.ops import affine
+    frame = detect_frames(1, seed=140, hw=hw)[0]
+    boxes = person_boxes(n_check, 141, hw)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    set_tf32(False)
+    pipe = UdpPosePipeline(cfg_fn("float32"), device=device, seed=0)
+    cpu = UdpPosePipeline(cfg_fn("float32"), device="cpu", weights={
+        k: v.cpu() for k, v in pipe.model.state_dict().items()})
+    runs = {}
+    for dev, p in ((device, pipe), ("cpu", cpu)):
+        with CallRecorder(p, "crop_frame") as crop, DecodeRecorder() as dec:
+            kp, sc = p.infer_pose(frame, boxes)
+        check(len(crop.calls) == 1, f"14a {dev}: {len(crop.calls)} crop "
+              "calls for one infer_pose")
+        runs[dev] = (kp, sc, crop.calls[0], dec.calls)
+    (kp, _, (_, center, scale, crops), dec_calls), (kp_cpu, _, crop_cpu,
+                                                   _) = (runs[device],
+                                                         runs["cpu"])
+    shape = check_decode_calls(dec_calls, n_check, "14a infer_pose")
+    w, h = pipe.input_wh
+    mats = affine.classic_affine_matrix(
+        torch.as_tensor(center, device=device),
+        torch.as_tensor(scale, device=device), 0.0, (w, h), inv=True).cpu()
+    mats_cpu = affine.classic_affine_matrix(
+        torch.as_tensor(center), torch.as_tensor(scale), 0.0, (w, h),
+        inv=True)
+    mat_err = float((mats - mats_cpu).abs().max())
+    mat_max = float(mats_cpu.abs().max())
+    crops = crops.cpu()
+    crop_err = float((crops - affine.crop_boxes(
+        torch.from_numpy(frame), mats, (h, w))).abs().max())
+    crop_e2e = float((crops - crop_cpu[3]).abs().max())
+    with DecodeRecorder() as dec:
+        p_cpu = cpu.infer_fn(crops, center, scale)[0]
+    hm_err, hm_max, agree, clear, margin, over, kp_max, kp_limit = (
+        pose_stage_errors(dec_calls[0][0], dec.calls[0][0], dec_calls[0][2],
+                          dec.calls[0][2], torch.from_numpy(kp), p_cpu,
+                          scale))
+    kp_e2e = float(np.abs(kp - kp_cpu).max())
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = flags
+    log(f"[serve] 14a infer_pose, crops on the card, w32 fp32 TF32 off, "
+        f"{n_check} persons of one {hw[0]}p frame (boxes past its edges): "
+        f"one decode {shape} bit-equal to its plain version; crop matrices "
+        f"card vs CPU {mat_err:.3g} apart (limit {MAT_REL_TOL:g} x "
+        f"{mat_max:.3g}); card crops vs the CPU's crop_boxes from the same "
+        f"matrices {crop_err:.3g} (limit {CROP_ATOL:.3g} of 255), vs the "
+        f"CPU pipeline's own {crop_e2e:.3g}; the CPU's pose stage on the "
+        f"card's crops: heatmaps {hm_err:.3g} (limit {HEATMAP_REL_TOL:g} x "
+        f"{hm_max:.3g}), peaks equal on {int((agree & clear).sum())} of the "
+        f"{int(clear.sum())} maps with a top-2 margin > {margin:.3g}, "
+        f"keypoints {kp_max:.3g} px apart where the peaks agree, "
+        f"{int(over.sum())} over their limit (at most "
+        f"{float(kp_limit.max()):.3g} px); each pipeline its own crops: "
+        f"keypoints {kp_e2e:.3g} px apart | {card}")
+    check(mat_err <= MAT_REL_TOL * mat_max, "14a crop matrices: card vs CPU "
+          "over the limit")
+    check(crop_err <= CROP_ATOL, "14a crops: card vs the CPU's crop_boxes "
+          "from the same matrices over the limit")
+    check(hm_err <= HEATMAP_REL_TOL * hm_max, "14a heatmaps: card vs CPU "
+          "over the limit")
+    check(bool(agree[clear].all()), "14a: maps with a clear top-2 margin "
+          "peak elsewhere on the card than on the CPU")
+    check(not bool(over.any()), "14a keypoints: card vs CPU over the limit "
+          "where the peaks agree")
+    del pipe, cpu, runs
+    torch.cuda.empty_cache()
+
+    pipe = UdpPosePipeline(cfg_fn("bfloat16"), device=device, seed=0)
+    path = PathLaunches("infer_pose_card_crops")
+    times = {}
+    for n in persons:
+        b = person_boxes(n, 142 + n, hw)
+        kp, sc = path.run(pipe.infer_pose, frame, b)
+        path.served(1, 0)
+        check(kp.shape == (n, pipe.num_joints, 2) and np.isfinite(kp).all()
+              and np.isfinite(sc).all(), f"14a: {n} persons -> keypoints "
+              f"{kp.shape}, finite {np.isfinite(kp).all()}")
+        fns = {"card": lambda: pipe.infer_pose(frame, b),
+               "host": lambda: pipe.infer_crops(*host_crops(
+                   frame, b, pipe.input_wh))}
+        got = {k: [] for k in fns}
+        for k in ("card", "host", "host", "card"):
+            got[k].append(host_ms(fns[k], iters))
+        times[n] = tuple(float(np.mean(got[k])) for k in ("card", "host"))
+        log(f"[serve] 14a w32 bf16 flip, {n} persons of a {hw[0]}p frame: "
+            f"infer_pose (crops on the card) {times[n][0]:.2f} ms, the "
+            f"host-crop path (native warp, u8) {times[n][1]:.2f} ms "
+            f"(mean of 2 turns of {iters} calls each) | {card}")
+    check(path.counts == path.want, f"14a infer_pose: launches "
+          f"{path.counts}, want {path.want}")
+    del pipe
+    torch.cuda.empty_cache()
+    return path.counts, times
+
+
+def pad_on_device_http(card, device="cuda", cfg_fn=w32_cfg, n_requests=4,
+                       hw=DETECT_HW):
+    """14b: ``/v1/pose`` of a server with ``pad_on_device`` and one
+    without, same weights: ``n_requests`` concurrent requests to the
+    first in a window of its launches (one decode a batch), then each
+    request alone to both: keypoints and scores of the two within 1e-3,
+    and the crop bytes each batch uploaded (``CropBatcher.upload_log``):
+    the real rows with the flag, the whole bucket without.  Returns the
+    path's launches."""
+    from udp_pose_tpu_torch.engine.pose_engine import _next_bucket
+    from udp_pose_tpu_torch.engine.server import PoseServer, PoseService
+    services = {on: PoseService(cfg_fn("bfloat16"), device=device, seed=0,
+                                window_ms=50.0, pad_on_device=on)
+                for on in (False, True)}
+    servers = {on: PoseServer(s, host="127.0.0.1", port=0)
+               for on, s in services.items()}
+    threads = [s.serve_in_thread() for s in servers.values()]
+    path = PathLaunches("pose_serving_pad_on_device")
+    try:
+        reqs = requests_for(n_requests, hw, seed=17)
+        results = [None] * n_requests
+        gate = threading.Barrier(n_requests)
+
+        def client(i):
+            gate.wait()
+            results[i] = post_pose(servers[True].port, *reqs[i])
+
+        def concurrent():
+            clients = [threading.Thread(target=client, args=(i,))
+                       for i in range(n_requests)]
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join(timeout=600)
+            check(not any(c.is_alive() for c in clients), "a client hung")
+
+        path.run(concurrent)
+        batches = services[True].batcher.log_snapshot()
+        path.served(len(batches), 0)
+        check(all(r[0] == 200 for r in results), f"14b: /v1/pose answered "
+              f"{[r[0] for r in results]}")
+        check(path.counts == path.want, f"14b pad_on_device: launches "
+              f"{path.counts}, want {path.want} ({len(batches)} batches)")
+        logs = {on: len(s.batcher.upload_log) for on, s in services.items()}
+        worst, lat = 0.0, {False: [], True: []}
+        for frame, boxes in reqs:
+            bodies = {}
+            for on in (False, True):
+                status, body, secs = post_pose(servers[on].port, frame, boxes)
+                check(status == 200, f"14b: /v1/pose answered {status}")
+                bodies[on] = body
+                lat[on].append(secs * 1e3)
+            worst = max(worst, *(float(np.abs(
+                np.asarray(bodies[True][k]) - bodies[False][k]).max())
+                for k in ("keypoints", "scores")))
+        w, h = services[True].pipe.input_wh
+        row = w * h * 3
+        up = {on: list(s.batcher.upload_log)[logs[on]:]
+              for on, s in services.items()}
+        want = {True: [len(b) * row for _, b in reqs],
+                False: [_next_bucket(len(b)) * row for _, b in reqs]}
+        log(f"[serve] 14b /v1/pose --pad-on-device, {n_requests} concurrent "
+            f"{hw[0]}p requests ({[len(b) for _, b in reqs]} boxes): all "
+            f"200 in batches {list(batches)}, launches {path.counts}; each "
+            f"alone to both servers: keypoints and scores {worst:.3g} "
+            f"apart; crop bytes uploaded a batch {up[True]} with the flag, "
+            f"{up[False]} without; latency "
+            f"{[round(v, 1) for v in lat[True]]} ms with, "
+            f"{[round(v, 1) for v in lat[False]]} ms without | {card}")
+        check(worst <= 1e-3, "14b: --pad-on-device answers != host tiling")
+        check(up == want, f"14b upload bytes {up}, want {want}")
+    finally:
+        for s in servers.values():
+            s.shutdown()
+        for t in threads:
+            t.join(timeout=30)
+    del services, servers
+    torch.cuda.empty_cache()
+    return path.counts
+
+
+def rsn_pipeline(card, device="cuda", yaml=RSN18_YAML, persons=RSN_PERSONS,
+                 iters=10, hw=DETECT_HW):
+    """14c: ``rsn18_256x192`` uncut through ``UdpPosePipeline`` in bf16
+    and in int8 (self-calibrating on its first frame): ``infer_pose``
+    (crops on the card) and ``infer_crops`` (the batcher's host crops) of
+    ``persons`` persons against ``make_rsn_infer_fn`` of the same model
+    on the same crops in BGR order, keypoints to RSN_KP_ATOL px, each
+    call in a window of its path's launches: no fused decode, and in
+    int8 one ``int8_conv_fused`` launch a conv site (one forward a batch,
+    the flip folded), the Hopper engine among them.  Crops/s of
+    ``infer_pose``.  Returns ({path: launches}, {dtype: crops/s})."""
+    from udp_pose_tpu_torch.core.rsn import make_rsn_infer_fn_from_cfg
+    from udp_pose_tpu_torch.engine.pose_engine import UdpPosePipeline
+    from udp_pose_tpu_torch.engine.server import host_crops
+    from udp_pose_tpu_torch.models.quantize import (Int8Conv2d,
+                                                    Int8DepthwiseConv2d)
+    from udp_pose_tpu_torch.ops.boxes import xyxy_to_cs
+    cfg = yaml_cfg(yaml, "bfloat16")
+    frame = detect_frames(1, seed=150, hw=hw)[0]
+    boxes = person_boxes(persons, 151, hw)
+    center, scale = xyxy_to_cs(boxes, cfg.MODEL.IMAGE_SIZE)
+    paths, rates = {}, {}
+    for mode in ("", "int8"):
+        name = "rsn18_int8_pipeline" if mode else "rsn18_pipeline"
+        pipe = UdpPosePipeline(cfg, device=device, seed=0, quantize=mode,
+                               calib_batches=1)
+        host = host_crops(frame, boxes, pipe.input_wh)
+        if mode:
+            pipe.infer_pose(frame, boxes)         # calibrates, serves bf16
+            check(pipe.int8.table is not None, "14c: no int8 table")
+        path = PathLaunches(name)
+        got = {"infer_pose": path.run(pipe.infer_pose, frame, boxes),
+               "batcher crops": path.run(pipe.infer_crops, *host)}
+        model = pipe.int8.active()
+        sites = [sum(isinstance(m, k) for m in model.modules())
+                 for k in (Int8Conv2d, Int8DepthwiseConv2d)]
+        path.served(0, 2 * sites[0], 2 * sites[1])
+        ref = make_rsn_infer_fn_from_cfg(model, cfg, pipe.flip_pairs)
+        crops = {"infer_pose": pipe.crop_frame(frame, center, scale),
+                 "batcher crops": host[0]}
+        errs = {}
+        for k, x in crops.items():
+            bgr = x.flip(-1) if torch.is_tensor(x) else x[..., ::-1].copy()
+            preds, maxvals, _ = ref(bgr, center, scale)
+            errs[k] = (float(np.abs(got[k][0] - preds.cpu().numpy()).max()),
+                       float(np.abs(got[k][1] - maxvals.cpu().numpy()).max()))
+        if mode:
+            path.check(engine=True)
+        else:
+            check(path.counts == path.want, f"14c {name}: launches "
+                  f"{path.counts}")
+        ms = float(np.median([host_ms(lambda: pipe.infer_pose(
+            frame, boxes), iters) for _ in range(3)]))
+        rates[mode or "bf16"] = persons / ms * 1e3
+        log(f"[serve] 14c {os.path.basename(yaml)} {mode or 'bf16'} through "
+            f"UdpPosePipeline, {persons} persons of a {hw[0]}p frame: "
+            f"keypoints, scores vs make_rsn_infer_fn on the same BGR crops "
+            + ", ".join(f"{k} {a:.3g} px, {b:.3g}" for k, (a, b) in
+                        errs.items())
+            + f" (limit {RSN_KP_ATOL:g} px); {sites[0]} int8 conv sites, "
+            f"{sites[1]} depthwise; launches {path.counts}; infer_pose "
+            f"{ms:.2f} ms (median of 3 runs of {iters} calls) = "
+            f"{rates[mode or 'bf16']:.1f} crops/s | {card}")
+        check(max(a for a, _ in errs.values()) <= RSN_KP_ATOL,
+              f"14c {name}: keypoints != make_rsn_infer_fn's")
+        check(all(np.isfinite(g[0]).all() for g in got.values()),
+              f"14c {name}: non-finite keypoints")
+        paths[name] = path.counts
+        del pipe, model, ref
+        torch.cuda.empty_cache()
+    log(f"[serve] 14c rsn18 int8 / bf16 crops/s "
+        f"{rates['int8'] / rates['bf16']:.3f} | {card}")
+    return paths, rates
+
+
+def serve_cli(tmp, card, yaml, weights, frame, boxes, device="cuda"):
+    """``python -m udp_pose_tpu_torch.serve --cfg yaml --weights weights
+    --pad-on-device --port 0`` in a process of its own: one ``/v1/pose``
+    request, its answer against ``UdpPosePipeline`` with the same weights
+    on the request's host crops (1e-3), then SIGTERM.  Returns the
+    seconds from the start to the answer."""
+    import signal
+    from udp_pose_tpu_torch.config import load_config
+    from udp_pose_tpu_torch.engine.pose_engine import UdpPosePipeline
+    from udp_pose_tpu_torch.engine.server import host_crops
+    err_path = os.path.join(tmp, "serve_cli.err")
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "udp_pose_tpu_torch.serve", "--cfg", yaml,
+             "--weights", weights, "--pad-on-device", "--port", "0",
+             "--device", device], cwd=REPO, stdout=subprocess.PIPE,
+            stderr=err_file, text=True)
+    try:
+        line = proc.stdout.readline()
+        if not line.startswith("serving on http://"):
+            proc.wait(timeout=30)
+            with open(err_path) as f:
+                check(False, f"serve CLI printed {line!r}, exit "
+                      f"{proc.returncode}: {f.read()[-1500:]}")
+        port = int(line.strip().rsplit(":", 1)[1])
+        status, body, _ = post_pose(port, frame, boxes)
+        secs = time.perf_counter() - t0
+        check(status == 200, f"serve CLI /v1/pose answered {status}: {body}")
+        status, state = get(port, "/healthz")
+        state = json.loads(state)
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    pipe = UdpPosePipeline(load_config(yaml), weights=weights, device=device)
+    kp, sc = pipe.infer_crops(*host_crops(frame, boxes, pipe.input_wh))
+    err = max(float(np.abs(kp - body["keypoints"]).max()),
+              float(np.abs(sc - body["scores"]).max()))
+    log(f"[serve] 14d serve CLI --cfg {os.path.basename(yaml)} --weights "
+        f"{os.path.basename(weights)} --pad-on-device: /healthz model "
+        f"{state['model']} on {state['device']}; {len(boxes)} boxes "
+        f"answered in {secs:.1f} s from the process's start; vs "
+        f"UdpPosePipeline on the host crops {err:.3g} apart | {card}")
+    check(state["model"] == "rsn" and state["platform"] == device,
+          f"serve CLI /healthz {state}")
+    check(err <= 1e-3, "14d serve CLI answer != UdpPosePipeline's")
+    del pipe
+    return secs
+
+
+def infer_cli(tmp, card, yaml, weights, frame, device="cuda"):
+    """``python -m udp_pose_tpu_torch.infer`` (in this process) with no
+    detector, so one box covers the frame, and ``--save-pose-txt``: the
+    label file's keypoints and scores against ``UdpPosePipeline.
+    infer_pose`` of the same weights (the file's six decimals)."""
+    import cv2
+    from udp_pose_tpu_torch import infer as infer_cli_mod
+    from udp_pose_tpu_torch.config import load_config
+    from udp_pose_tpu_torch.engine.pose_engine import UdpPosePipeline
+    src = os.path.join(tmp, "infer_src")
+    out = os.path.join(tmp, "infer_out")
+    os.makedirs(src, exist_ok=True)
+    cv2.imwrite(os.path.join(src, "f.png"), frame[..., ::-1])
+    infer_cli_mod.main(["--source", src, "--pose-cfg", yaml, "--pose-weights",
+                        weights, "--save-dir", out, "--save-pose-txt",
+                        "--device", device])
+    got = np.loadtxt(os.path.join(out, "f.txt"), ndmin=2)
+    H, W = frame.shape[:2]
+    pipe = UdpPosePipeline(load_config(yaml), weights=weights, device=device)
+    kp, sc = pipe.infer_pose(frame, np.array([[0, 0, W - 1, H - 1]],
+                                             np.float32))
+    want = np.concatenate([kp[0, :13] / [W, H], sc[0, :13]], 1)
+    err = float(np.abs(got - want).max())
+    log(f"[serve] 14d infer CLI --pose-cfg {os.path.basename(yaml)} "
+        f"--pose-weights {os.path.basename(weights)}: one box over the "
+        f"frame, the label file vs UdpPosePipeline.infer_pose {err:.3g} "
+        f"apart; wrote {sorted(os.listdir(out))} | {card}")
+    check(got.shape == (13, 3) and err <= 1e-6,
+          "14d infer CLI keypoints != UdpPosePipeline.infer_pose")
+    del pipe
+
+
+def export_paths(tmp, card, device="cuda", cfg_fn=w32_cfg, yaml=W32_YAML,
+                 rsn_yaml=RSN18_YAML, det_size=DET_SIZE, batch=8,
+                 n_serve=SERVE_BATCH, hw=DETECT_HW):
+    """14d: ``python -m udp_pose_tpu_torch.export`` on the card for the
+    w32 yaml (its bytes = the library's of the same seeded model; with
+    ``--format pth`` its state dict) and for ``--yolo yolov5n`` (each
+    ``.onnx`` held by ``check_model`` on the card against the model's
+    forward); a w32 export of ``batch`` held by
+    ``check_model`` on the card, its export and one evaluator batch timed
+    beside the model's own forward; that ``.onnx`` served as weights
+    (``n_serve`` crops bit-equal to the ``.pth`` of the same weights, a
+    window of launches each); ``StandalonePoseEngine`` over it against
+    the same engine over the model's forward; and an ``rsn18`` export
+    served by the serve CLI and run by the infer CLI.  Returns
+    ({path: launches}, figures)."""
+    from udp_pose_tpu_torch.engine.pose_engine import UdpPosePipeline
+    from udp_pose_tpu_torch.engine.standalone import (StandalonePoseEngine,
+                                                      onnx_model_fn)
+    from udp_pose_tpu_torch.export import (check_model, export_onnx_from_cfg,
+                                           load_model)
+    from udp_pose_tpu_torch.export.__main__ import main as export_main
+    from udp_pose_tpu_torch.export.onnx_eval import fp32_exact, run_graph
+    from udp_pose_tpu_torch.export.onnx_yolo import export_yolov5
+    from udp_pose_tpu_torch.models import build_detector, build_model
+    from udp_pose_tpu_torch.utils.checkpoint import save_weights
+    figures, paths = {}, {}
+    cfg = cfg_fn("float32")
+    w, h = cfg.MODEL.IMAGE_SIZE
+    # (1) the CLI, in this process, on the card
+    t0 = time.perf_counter()
+    cli_out = export_main(["--cfg", yaml, "--out",
+                           os.path.join(tmp, "cli_w32.onnx"), "--device",
+                           device])
+    figures["cli_w32_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    export_main(["--yolo", "yolov5n", "--det-size", str(det_size), "--out",
+                 os.path.join(tmp, "yolov5n.onnx"), "--device", device])
+    figures["cli_yolov5n_s"] = time.perf_counter() - t0
+    pth = export_main(["--cfg", yaml, "--format", "pth", "--out",
+                       os.path.join(tmp, "cli_w32.pth"), "--device", device])
+    model = build_model(cfg, device=device, seed=0)
+    with open(cli_out, "rb") as f:
+        check(f.read() == export_onnx_from_cfg(model, cfg, batch=1),
+              "14d: the export CLI's w32 bytes != the library's of the same "
+              "seeded model")
+    sd = torch.load(pth, weights_only=True)
+    check(sd.keys() == model.state_dict().keys() and all(
+        torch.equal(sd[k], v.cpu()) for k, v in model.state_dict().items()),
+        "14d: the export CLI's .pth != the seeded model's state dict")
+    # (2) w32 at ``batch``, timed, held on the card
+    t0 = time.perf_counter()
+    blob = export_onnx_from_cfg(model, cfg, batch=batch)
+    figures["export_w32_s"] = time.perf_counter() - t0
+    graph = load_model(blob)
+    x = np.random.default_rng(0).normal(size=(batch, 3, h, w)).astype(
+        np.float32)
+    xd = torch.from_numpy(x).to(device)
+    with torch.inference_mode(), fp32_exact(device):
+        y = model(xd).float()
+        err = check_model(graph, x, y.cpu().numpy(), rtol=1e-2, atol=max(
+            1e-3, 1e-5 * float(y.abs().max())), device=device)
+        figures["evaluator_w32_ms"] = host_ms(
+            lambda: run_graph(graph, {"images": xd}, device), 5)
+        figures["forward_w32_ms"] = host_ms(lambda: model(xd), 5)
+    yolo = build_detector("yolov5n", device=device)
+    t0 = time.perf_counter()
+    yblob = export_yolov5(yolo, "n", image_hw=(det_size, det_size))
+    figures["export_yolov5n_s"] = time.perf_counter() - t0
+    ygraph = load_model(yblob)
+    yx = torch.rand((1, 3, det_size, det_size), generator=torch.Generator()
+                    .manual_seed(1)).to(device)
+    with torch.inference_mode(), fp32_exact(device):
+        yerr = check_model(ygraph, yx.cpu().numpy(),
+                           yolo(yx).float().cpu().numpy(), rtol=1e-3,
+                           atol=2e-3, device=device)
+        figures["evaluator_yolov5n_ms"] = host_ms(
+            lambda: run_graph(ygraph, {"images": yx}, device), 5)
+    log(f"[serve] 14d export CLI on the card: w32 {figures['cli_w32_s']:.1f}"
+        f" s, yolov5n {figures['cli_yolov5n_s']:.1f} s (build, export, "
+        f"check_model); w32 bytes = the library's, its .pth the model's "
+        f"state dict.  w32 B={batch}: "
+        f"{len(blob)} bytes exported in {figures['export_w32_s']:.3f} s, "
+        f"check_model on the card {err:.3g} max abs err, one evaluator "
+        f"batch {figures['evaluator_w32_ms']:.2f} ms against the model's "
+        f"forward {figures['forward_w32_ms']:.2f} ms (fp32, TF32 off); "
+        f"yolov5n {det_size}: {len(yblob)} bytes in "
+        f"{figures['export_yolov5n_s']:.3f} s, check_model {yerr:.3g}, one "
+        f"evaluator batch {figures['evaluator_yolov5n_ms']:.2f} ms | {card}")
+    # (3) the .onnx as weights, against the .pth of the same weights
+    onnx_path = os.path.join(tmp, "w32.onnx")
+    pth_path = os.path.join(tmp, "w32.pth")
+    with open(onnx_path, "wb") as f:
+        f.write(blob)
+    save_weights(pth_path, model)
+    crops, center, scale = random_crops(n_serve, cfg, seed=19)
+    path = PathLaunches("onnx_weights_serving")
+    out = []
+    for p in (onnx_path, pth_path):
+        pipe = UdpPosePipeline(cfg_fn("bfloat16"), weights=p, device=device)
+        out.append(path.run(pipe.infer_crops, crops, center, scale))
+        path.served(1, 0)
+        del pipe
+    check(path.counts == path.want, f"14d onnx weights: launches "
+          f"{path.counts}")
+    check(all(np.array_equal(a, b) for a, b in zip(*out)),
+          "14d: the .onnx weights serve other keypoints than the .pth")
+    paths["onnx_weights_serving"] = path.counts
+    # (4) the standalone engine over the artifact
+    frame = detect_frames(1, seed=160, hw=hw)[0]
+    boxes = person_boxes(12, 161, hw)
+    path = PathLaunches("standalone_onnx")
+    eng = StandalonePoseEngine(onnx_model_fn(graph, device),
+                               input_wh=(w, h))
+
+    def torch_fn(x_nhwc):
+        x = torch.from_numpy(x_nhwc).to(device).permute(0, 3, 1, 2)
+        return model(x.contiguous()).permute(0, 2, 3, 1).cpu().numpy()
+
+    with torch.inference_mode(), fp32_exact(device):
+        kp, mv = path.run(eng.infer_pose, frame, boxes)
+        kp_t, mv_t = StandalonePoseEngine(torch_fn, (w, h)).infer_pose(
+            frame, boxes)
+        x = eng._preprocess(frame, boxes)[0]
+        maps, maps_t = eng.model_fn(x), torch_fn(x)
+        figures["standalone_ms"] = host_ms(
+            lambda: eng.infer_pose(frame, boxes), 3)
+    map_err = float(np.abs(maps - maps_t).max())
+    flat = maps_t.reshape(len(x), -1, maps_t.shape[-1])
+    top2 = -np.sort(-flat, axis=1)[:, :2]                # (N, 2, J)
+    clear = top2[:, 0] - top2[:, 1] > 2 * map_err
+    same = (kp == kp_t).all(-1)
+    mv_err = float(np.abs(mv - mv_t).max())
+    log(f"[serve] 14d StandalonePoseEngine over the w32 .onnx (graph batch "
+        f"{batch}), {len(boxes)} boxes: its maps vs the model's forward "
+        f"{map_err:.3g} apart (fp32, TF32 off), maxvals {mv_err:.3g}; "
+        f"keypoints equal on {int((same & clear).sum())} of the "
+        f"{int(clear.sum())} maps with a top-2 margin > twice that "
+        f"({int(same.sum())} of {same.size} in all); "
+        f"{figures['standalone_ms']:.1f} ms a frame; launches "
+        f"{path.counts} | {card}")
+    check(map_err <= HEATMAP_REL_TOL * float(np.abs(maps_t).max())
+          and mv_err <= map_err, "14d standalone: maps != the model's")
+    check(bool(same[clear].all()), "14d standalone: keypoints != the "
+          "model's on maps with a clear peak")
+    check(not any(path.counts.values()), "14d standalone: a hand kernel "
+          "launched")
+    paths["standalone_onnx"] = path.counts
+    del model, yolo, eng, graph, ygraph
+    torch.cuda.empty_cache()
+    # (5) an rsn18 export served by the serve CLI and run by the infer CLI
+    rcfg = yaml_cfg(rsn_yaml, "float32")
+    rsn = build_model(rcfg, device=device, seed=3)
+    rsn_path = os.path.join(tmp, "rsn18.onnx")
+    with open(rsn_path, "wb") as f:
+        f.write(export_onnx_from_cfg(rsn, rcfg))
+    del rsn
+    figures["serve_cli_s"] = serve_cli(tmp, card, rsn_yaml, rsn_path, frame,
+                                       boxes[:3], device)
+    infer_cli(tmp, card, rsn_yaml, rsn_path, frame, device)
+    return paths, figures
+
+
+def phase_serve(tmp, device="cuda"):
+    """Phase 14: the serving surface and export (14a-14d).  Returns the
+    launches by path."""
+    card = card_line()
+    t_phase = time.perf_counter()
+    paths, secs = {}, {}
+    t0 = time.perf_counter()
+    paths["infer_pose_card_crops"], _ = card_crops(card, device)
+    secs["14a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths["pose_serving_pad_on_device"] = pad_on_device_http(card, device)
+    secs["14b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths.update(rsn_pipeline(card, device)[0])
+    secs["14c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths.update(export_paths(tmp, card, device)[0])
+    secs["14d"] = time.perf_counter() - t0
+    log(f"[serve] phase 14 {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"{p} {v:.1f}" for p, v in secs.items()) + " s)")
+    return paths
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -5044,6 +5630,8 @@ def main(argv=None):
             rsn_paths, rsn_int8_kernel, _, profile_rsn = phase_rsn(tmp)
         with tempfile.TemporaryDirectory() as tmp:
             mobile_paths, dw_kernel, _, profile_mobile = phase_mobile(tmp)
+        with tempfile.TemporaryDirectory() as tmp:
+            serve_paths = phase_serve(tmp)
         # 3b's one-launch check reads the profiler's kernel list, which
         # has missed the ctypes-launched kernel in a process's later
         # profiler sessions: 3b holds the first one
@@ -5062,6 +5650,7 @@ def main(argv=None):
         paths.update(zoo_paths)
         paths.update(rsn_paths)
         paths.update(mobile_paths)
+        paths.update(serve_paths)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -147,5 +147,5 @@ def test_pipeline_loads_jax_variables_and_reference_pth(pair, tmp_path):
         for k in want:
             assert torch.equal(got[k], want[k]), k
     with pytest.raises(ValueError, match=".pth"):
-        UdpPosePipeline(cfg, weights=str(tmp_path / "w.onnx"),
+        UdpPosePipeline(cfg, weights=str(tmp_path / "w.bin"),
                         device="cpu")

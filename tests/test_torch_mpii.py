@@ -168,7 +168,8 @@ def test_mpii_train_test_serve_entry_points(mpii_root, tmp_path,
     from the yaml and those weights: 16 joints and the MPII skeleton."""
     from udp_pose_tpu_torch import test as test_cli
     from udp_pose_tpu_torch import train as train_cli
-    from udp_pose_tpu_torch.engine.server import PoseServer, PoseService
+    from udp_pose_tpu_torch.engine.server import (PoseServer, PoseService,
+                                                  host_crops)
     cfg = mpii_cfg(default_config, mpii_root)
     cfg.TRAIN.END_EPOCH = 1
     cfg.WORKERS = 0
@@ -203,7 +204,8 @@ def test_mpii_train_test_serve_entry_points(mpii_root, tmp_path,
         status, body = _post_npy(srv.port, frame, boxes)
         assert status == 200, body
         assert np.asarray(body["keypoints"]).shape == (2, 16, 2)
-        kp, _ = service.pipe.infer_pose(frame, boxes)
+        kp, _ = service.pipe.infer_crops(*host_crops(
+            frame, boxes, service.pipe.input_wh))
         np.testing.assert_allclose(body["keypoints"], kp, rtol=0, atol=1e-3)
     finally:
         srv.shutdown()

@@ -440,13 +440,114 @@ def test_conv_sites_name_the_jax_paths(nets):
                                   "res18_256x192", "4xrsn18_256x192",
                                   "4xrsn50_384x288"])
 def test_pose_pipeline_refuses_rsn(yaml):
-    """``UdpPosePipeline`` (so ``serve``, the infer CLI and the
-    detect-then-pose engine, which build on it) raises for RSN instead of
-    serving it through the generic graph's RGB constants and UDP decode;
-    RSN evaluates through ``test.run`` (``make_rsn_infer_fn``)."""
+    """``UdpPosePipeline`` (so ``serve`` and the infer CLI) serves RSN
+    through RSN's own inference (``make_rsn_infer_fn``: BGR crops, RSN's
+    constants and decode); what still refuses it is the detect-then-pose
+    graph, whose in-graph decode is the UDP offset kernel:
+    ``FusedDetectPose`` raises for every RSN yaml, built from the yaml or
+    from the pipeline."""
     from udp_pose_tpu_torch.config import load_config
+    from udp_pose_tpu_torch.engine.fused import FusedDetectPose
     from udp_pose_tpu_torch.engine.pose_engine import UdpPosePipeline
     cfg = load_config(os.path.join(REPO, "configs", "coco", f"{yaml}.yaml"))
     assert cfg.MODEL.NAME == "rsn"
+    pipe = UdpPosePipeline(cfg, device="cpu")
+    assert pipe.bgr and pipe.input_wh == tuple(cfg.MODEL.IMAGE_SIZE)
     with pytest.raises(NotImplementedError, match="not ported"):
-        UdpPosePipeline(cfg, device="cpu")
+        FusedDetectPose(pipe)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        FusedDetectPose(cfg, device="cpu")
+
+
+def test_pose_pipeline_serves_rsn_as_make_rsn_infer_fn(nets):
+    """RSN through ``UdpPosePipeline.infer_pose`` (crops warped on the
+    device) and through the ``CropBatcher`` of ``/v1/pose`` (host crops):
+    the JAX package's ``make_rsn_infer_fn`` on the JAX graph's crops of
+    the same boxes (``classic_affine_matrix`` and ``crop_boxes``; for the
+    batcher the host crops), in BGR order, bucket-padded by repeating the
+    first row.  Float32: maxvals (the blurred maps' peaks) to 1e-5,
+    keypoints to 1e-3 px (both agree to 1.5e-5 px here)."""
+    from udp_pose_tpu.core.infer import COCO_FLIP_PAIRS
+    from udp_pose_tpu.core.rsn import make_rsn_infer_fn as jax_rsn_infer
+    from udp_pose_tpu.engine.server import host_crops as jax_host_crops
+    from udp_pose_tpu.ops import affine as jax_affine
+    from udp_pose_tpu.ops.boxes import xyxy_to_cs
+    from udp_pose_tpu_torch.data.rsn import RSN_COCO
+    from udp_pose_tpu_torch.engine.pose_engine import UdpPosePipeline
+    from udp_pose_tpu_torch.engine.server import CropBatcher
+
+    jmodel, v, _, cfg = nets["base"]
+    cfg.TEST.FLIP_TEST = True
+    pipe = UdpPosePipeline(cfg, weights=v, device="cpu")
+    assert pipe.bgr
+    jinfer = jax_rsn_infer(
+        jmodel, flip_test=True, flip_pairs=COCO_FLIP_PAIRS,
+        kernel=RSN_COCO["test_gaussian_kernel"],
+        shifts=tuple(RSN_COCO["test_shift_ratios"]), input_size_hw=(H, W))
+    rng = np.random.default_rng(31)
+    frame = rng.integers(0, 256, (80, 100, 3), dtype=np.uint8)
+    boxes = np.array([[-8, 4, 40, 70], [30, 10, 110, 75], [5, 20, 45, 60]],
+                     np.float32)
+    center, scale = xyxy_to_cs(boxes, (W, H))
+    cp, sp = (np.concatenate([a, a[:1]]) for a in (center, scale))
+    mats = jax.vmap(lambda c, s: jax_affine.classic_affine_matrix(
+        c, s, 0.0, (W, H), inv=True))(cp, sp)
+    crops = np.asarray(jax_affine.crop_boxes(
+        jnp.asarray(frame, jnp.float32), mats, (H, W)))
+    host = jax_host_crops(frame, boxes, (W, H))[0]
+    host = np.concatenate([host, host[:1]])
+    batcher = CropBatcher(pipe, window_ms=1.0)
+    try:
+        got = {"infer_pose": pipe.infer_pose(frame, boxes),
+               "batcher": batcher.infer(*host_crops_of(frame, boxes))}
+    finally:
+        batcher.close()
+    for path, x in (("infer_pose", crops), ("batcher", host)):
+        preds, maxvals, hm = (np.asarray(a) for a in jinfer(
+            v, x[..., ::-1], cp, sp))
+        kp, sc = got[path]
+        assert kp.shape == (3, 17, 2) and sc.shape == (3, 17, 1)
+        np.testing.assert_allclose(sc, maxvals[:3], rtol=0, atol=1e-5,
+                                   err_msg=path)
+        np.testing.assert_allclose(kp, preds[:3], rtol=0, atol=1e-3,
+                                   err_msg=path)
+
+
+def host_crops_of(frame, boxes):
+    from udp_pose_tpu_torch.engine.server import host_crops
+    return host_crops(frame, boxes, (W, H))
+
+
+def test_int8_rsn_pipeline_calibrates_then_serves_quantized(nets):
+    """int8 RSN with PRM through ``UdpPosePipeline``: the first batch is
+    recorded (on the BGR crops, normalised with RSN's constants) and
+    served in float; the table then holds every conv site, and the next
+    call serves through ``QuantizedModel``, the 9×9 depthwise site through
+    ``int8_dwconv``: what ``make_rsn_infer_fn`` over
+    ``QuantizedModel(model, table)`` gives on the same device crops."""
+    from udp_pose_tpu_torch.core.rsn import make_rsn_infer_fn_from_cfg
+    from udp_pose_tpu_torch.engine.pose_engine import UdpPosePipeline
+    from udp_pose_tpu.ops.boxes import xyxy_to_cs
+    from udp_pose_tpu_torch.models.quantize import (Int8DepthwiseConv2d,
+                                                    QuantizedModel)
+
+    _, v, model, cfg = nets["prm"]
+    pipe = UdpPosePipeline(cfg, weights=v, device="cpu", quantize="int8",
+                           calib_batches=1, flip_test=True)
+    rng = np.random.default_rng(33)
+    frame = rng.integers(0, 256, (80, 100, 3), dtype=np.uint8)
+    boxes = np.array([[4, 4, 50, 70], [30, 10, 95, 75]], np.float32)
+    fp = pipe.infer_pose(frame, boxes)
+    assert pipe.int8.table is not None
+    assert set(pipe.int8.table) == set(conv_sites(pipe.model).values())
+    q = pipe.infer_pose(frame, boxes)
+    assert sum(isinstance(m, Int8DepthwiseConv2d)
+               for m in pipe.int8.qmodel.modules()) == 1
+    center, scale = xyxy_to_cs(boxes, (W, H))
+    crops = pipe.crop_frame(frame, center, scale).flip(-1)
+    want = make_rsn_infer_fn_from_cfg(
+        QuantizedModel(pipe.model, pipe.int8.table), cfg,
+        pipe.flip_pairs, flip_test=True)(crops, center, scale)
+    np.testing.assert_array_equal(q[0], want[0].numpy())
+    np.testing.assert_array_equal(q[1], want[1].numpy())
+    assert not np.array_equal(q[1], fp[1])

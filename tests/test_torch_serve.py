@@ -1,8 +1,8 @@
 """The port's serving path on the CPU, its device rule and its imports.
 
 A CPU ``PoseServer`` on the reduced HRNet answers concurrent
-``application/x-npy`` ``/v1/pose`` requests as ``UdpPosePipeline.infer_pose``
-does, and, with a detector, concurrent ``/v1/detect_pose`` requests as
+``application/x-npy`` ``/v1/pose`` requests as ``UdpPosePipeline.infer_crops``
+does on the same host crops, and, with a detector, concurrent ``/v1/detect_pose`` requests as
 ``FusedDetectPose.infer_frame`` does, their frames batched together;
 entry points called without ``device="cpu"`` raise on a host without
 CUDA; nothing in the port or in ``chip_smoke.py`` imports JAX or the JAX
@@ -101,7 +101,7 @@ def test_concurrent_npy_requests_match_pipeline(server):
     pipe = server.service.pipe
     for (frame, boxes), (status, body) in zip(reqs, out):
         assert status == 200, body
-        kp, sc = pipe.infer_pose(frame, boxes)
+        kp, sc = pipe.infer_crops(*host_crops(frame, boxes, pipe.input_wh))
         assert np.asarray(body["keypoints"]).shape == (len(boxes), 17, 2)
         assert np.asarray(body["scores"]).shape == (len(boxes), 17, 1)
         # other batch sizes (8 vs 2 and 4): CPU conv rounding may differ
@@ -209,12 +209,13 @@ def test_int8_server_calibrates_on_its_first_batches():
         boxes = np.array([[10, 5, 50, 80], [60, 20, 120, 90],
                           [0, 0, 40, 60]], np.float32)
         fp = UdpPosePipeline(cfg, device="cpu")
+        crops = host_crops(frame, boxes, fp.input_wh)
         for _ in range(2):
             status, body = _post_npy(srv.port, frame, boxes)
             assert status == 200, body
             np.testing.assert_array_equal(
                 np.asarray(body["keypoints"], np.float32),
-                fp.infer_pose(frame, boxes)[0])
+                fp.infer_crops(*crops)[0])
         state = json.loads(_request(srv.port, "GET", "/healthz")[1])
         assert state["calibrated"] is True
         table = service.pipe.int8.table
@@ -223,11 +224,105 @@ def test_int8_server_calibrates_on_its_first_batches():
         q = UdpPosePipeline(cfg, device="cpu", act_scales=table)
         np.testing.assert_array_equal(
             np.asarray(body["keypoints"], np.float32),
-            q.infer_pose(frame, boxes)[0])
+            q.infer_crops(*crops)[0])
         assert list(service.batcher.log_snapshot()) == [3, 3, 3]
     finally:
         srv.shutdown()
         thread.join(timeout=30)
+
+
+@pytest.mark.parametrize("target_type", ["offset", "gaussian"])
+def test_infer_pose_equals_jax(target_type):
+    """``UdpPosePipeline.infer_pose`` against the JAX package's, on the
+    reduced HRNet in float32 with bridged weights (seeded numpy
+    variables) and the flip test: a seeded frame, three boxes (a bucket
+    of 4) reaching past its edges.  The crops warped on the device,
+    normalised, equal the JAX graph's
+    ``_make_prep`` batch; the heatmaps agree to ``HM_ATOL``; keypoints
+    and scores are held at the decode's tolerances
+    (``test_torch_infer.py:53-74``: maxvals 1e-6, preds 1e-4 px offset
+    and 1e-3 px Gaussian) beyond the heatmaps' own difference, on the
+    joints whose peak that difference cannot move."""
+    import jax.numpy as jnp
+    from test_torch_infer import HM_ATOL, _ambiguous_joints
+    from test_torch_yolov5 import numpy_variables
+    from udp_pose_tpu.core.infer import make_infer_fn as jax_make_infer_fn
+    from udp_pose_tpu.engine.pose_engine import UdpPosePipeline as JaxPipe
+    from udp_pose_tpu.models import build_model as jax_build_model
+    from udp_pose_tpu.ops.boxes import xyxy_to_cs
+    from udp_pose_tpu_torch.core.infer import make_infer_fn, normalize_images
+
+    jcfg = reduced_cfg(jax_default_config, target_type)
+    cfg = reduced_cfg(default_config, target_type)
+    jmodel = jax_build_model(jcfg)
+    variables = numpy_variables(jmodel, (1, 64, 64, 3), seed=2)
+    rng = np.random.default_rng(21)
+    frame = rng.integers(0, 256, (90, 120, 3), dtype=np.uint8)
+    boxes = np.array([[-12, -6, 50, 70], [40, 20, 135, 100],
+                      [10, 30, 60, 85]], np.float32)
+    jpipe = JaxPipe(jcfg, weights=variables, flip_test=True)
+    pipe = UdpPosePipeline(cfg, weights=variables, flip_test=True,
+                           device="cpu")
+    gold = jpipe.infer_pose(frame, boxes)
+    got = pipe.infer_pose(frame, boxes)
+
+    center, scale = xyxy_to_cs(boxes, (64, 64))
+    cp, sp = (np.concatenate([a, a[:1]]) for a in (center, scale))
+    x = np.asarray(jpipe._make_prep()(jnp.asarray(frame), cp, sp))
+    crops = pipe.crop_frame(frame, cp, sp)
+    assert crops.dtype == torch.float32 and crops.shape == (4, 64, 64, 3)
+    np.testing.assert_allclose(normalize_images(crops).numpy(), x, rtol=0,
+                               atol=1e-6)
+    opts = dict(target_type=target_type, flip_test=True,
+                post_process=jcfg.TEST.POST_PROCESS, kpd=jcfg.LOSS.KPD)
+    hm_gold = np.asarray(jax_make_infer_fn(jmodel, normalize=False, **opts)(
+        variables, x, cp, sp)[2])
+    hm = make_infer_fn(pipe.model, **opts)(crops, cp, sp)[2].numpy()
+    hm_err = float(np.abs(hm - hm_gold).max())
+    assert hm_err <= HM_ATOL
+    amb = _ambiguous_joints(hm_gold, hm_err, target_type, cp, sp)[:3]
+    assert amb.sum() <= amb.size // 4
+    assert got[0].shape == (3, 17, 2) and got[1].shape == (3, 17, 1)
+    np.testing.assert_allclose(got[1], gold[1], rtol=0, atol=1e-6 + hm_err)
+    np.testing.assert_allclose(
+        got[0][~amb], gold[0][~amb], rtol=0,
+        atol=1e-4 if target_type == "offset" else 1e-3)
+
+
+def test_pad_on_device_equals_host_tiling():
+    """``CropBatcher(pad_on_device=True)`` uploads the real rows only and
+    zero-pads to the bucket on the device: the same keypoints as the
+    host-tiled batch, ``upload_log`` counting 3 rows of a bucket of 4
+    against 4; while int8 calibrates it tiles on the host, so the table
+    equals the host-tiled pipeline's."""
+    from udp_pose_tpu_torch.engine.server import CropBatcher
+    cfg = _cfg()
+    rng = np.random.default_rng(17)
+    frame = rng.integers(0, 256, (96, 128, 3), dtype=np.uint8)
+    boxes = np.array([[10, 5, 50, 80], [60, 20, 120, 90], [0, 0, 40, 60]],
+                     np.float32)
+    crops, center, scale = host_crops(frame, boxes, (64, 64))
+    row = crops[0].nbytes
+    for quantize in ("", "int8"):
+        pipes = [UdpPosePipeline(cfg, device="cpu", quantize=quantize,
+                                 calib_batches=1) for _ in range(2)]
+        batchers = [CropBatcher(p, window_ms=1.0, pad_on_device=on)
+                    for p, on in zip(pipes, (False, True))]
+        try:
+            for _ in range(2):
+                host, dev = (b.infer(crops, center, scale) for b in batchers)
+                for a, b in zip(host, dev):
+                    np.testing.assert_array_equal(a, b)
+            logs = [list(b.upload_log) for b in batchers]
+        finally:
+            for b in batchers:
+                b.close()
+        assert logs[0] == [4 * row, 4 * row]
+        # int8: the first batch calibrates, tiled on the host
+        assert logs[1] == ([4 * row, 3 * row] if quantize else
+                           [3 * row, 3 * row])
+        if quantize:
+            assert pipes[0].int8.table == pipes[1].int8.table
 
 
 def test_host_crops_and_buckets_equal_jax():
@@ -323,6 +418,11 @@ def test_port_imports_nothing_of_jax():
     files = sorted((REPO / "udp_pose_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
+    port = REPO / "udp_pose_tpu_torch"
+    assert {port / "engine/standalone.py", port / "export/__main__.py"} | {
+        port / "export" / f"onnx_{m}.py" for m in (
+            "pb", "build", "families", "mobile", "rsn", "yolo", "eval")
+    } <= set(files)
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

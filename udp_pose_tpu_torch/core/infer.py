@@ -1,12 +1,14 @@
-"""Inference pipeline: u8 crops → keypoints on the device.
+"""Inference pipeline: crops → keypoints on the device.
 
 Port of ``udp_pose_tpu/core/infer.py`` (and the normalisation of
 ``core/train.py``): normalise, cast to the compute dtype, the HRNet
 forward with the flip test folded into the batch (``fold``) or run as a
 second forward (``two_pass``), the flip un-permute, and the decode of
 :mod:`..ops.decode`.  Public layouts are the JAX package's: (B, H, W, 3)
-u8 crops in, (B, J, 2) preds, (B, J, 1) maxvals and a (B, C, Ht, Wt)
-heatmap out; the model runs NCHW inside.
+crops in, u8 from the host warp or float32 from the device warp (not
+rounded, as the JAX pipeline's graph makes them), (B, J, 2) preds,
+(B, J, 1) maxvals and a (B, C, Ht, Wt) heatmap out; the model runs NCHW
+inside.
 """
 
 from __future__ import annotations
@@ -71,7 +73,9 @@ def make_infer_fn(model, *, target_type: str = "gaussian",
     """Build ``infer(images, center, scale) -> (preds, maxvals, hm|None)``.
 
     ``images``: (B, H, W, 3) crops (numpy or torch) — raw [0, 255] if
-    ``normalize`` (with ``mean`` and ``std``) else already normalised;
+    ``normalize`` (with ``mean`` and ``std``), u8 (the host warp's) or
+    float32 (``ops.affine.crop_boxes`` on the device, unrounded), else
+    already normalised;
     ``center``/``scale`` (B, 2).  Inputs move to the model's device;
     outputs are tensors there, with coords in source-image space.
     ``flip_mode``: ``"fold"`` runs one forward on the 2B concat of the

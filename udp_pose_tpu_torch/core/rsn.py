@@ -137,15 +137,17 @@ def make_rsn_infer_fn(model, *, flip_test=True, flip_pairs: Sequence,
                          std=RSN_BGR_STD, decode=decode)
 
 
-def make_rsn_infer_fn_from_cfg(model, cfg, flip_pairs):
+def make_rsn_infer_fn_from_cfg(model, cfg, flip_pairs, flip_test=None):
     """:func:`make_rsn_infer_fn` with the test kernel and shifts of the
     dataset (``RSN_MPII`` for MPII, else ``RSN_COCO``), the input size
-    and flip options of ``cfg`` (``udp_pose_tpu/core/validate.py:43-53``)."""
+    and flip options of ``cfg`` (``udp_pose_tpu/core/validate.py:43-53``);
+    ``flip_test``, where given, overrides ``TEST.FLIP_TEST``."""
     from ..data.rsn import RSN_COCO, RSN_MPII
     attr = RSN_MPII if cfg.DATASET.DATASET == "mpii" else RSN_COCO
     w, h = cfg.MODEL.IMAGE_SIZE
     return make_rsn_infer_fn(
-        model, flip_test=cfg.TEST.FLIP_TEST, flip_pairs=flip_pairs,
+        model, flip_test=(cfg.TEST.FLIP_TEST if flip_test is None
+                          else flip_test), flip_pairs=flip_pairs,
         kernel=attr["test_gaussian_kernel"],
         shifts=tuple(attr["test_shift_ratios"]), input_size_hw=(h, w),
         flip_mode=cfg.TEST.get("FLIP_MODE", "fold"))

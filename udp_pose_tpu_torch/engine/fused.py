@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from .errors import EngineStateError
+from .pose_engine import tile_first, upload
 
 
 def _not_ported(what):
@@ -92,6 +93,13 @@ class FusedDetectPose:
                                          seed=seed, quantize=quantize,
                                          act_scales=pose_act_scales)
         cfg = self._pose.cfg
+        if self._pose.bgr:
+            # the single-dispatch graph decodes with the fused UDP offset
+            # kernel; RSN's BGR crops and its own decode are served by the
+            # two-stage path (UdpPosePipeline.infer_pose)
+            raise _not_ported("RSN (MODEL.NAME rsn) in the detect-then-pose "
+                              "graph; the two-stage infer --detector "
+                              "without --fused serves it")
         self.device = self._pose.device
         self.num_joints = self._pose.num_joints
         self.max_persons = int(max_persons)
@@ -126,7 +134,7 @@ class FusedDetectPose:
         """Record each detector conv's input amax on one host-letterboxed
         (h, w, 3) u8 canvas; after ``TPU.QUANTIZE_CALIB_BATCHES`` canvases
         the table freezes, and the frame that froze it serves int8."""
-        x = self._upload(canvas_u8).permute(2, 0, 1)[None].float() / 255.0
+        x = upload(canvas_u8, self.device).permute(2, 0, 1)[None].float() / 255.0
         self.det_int8.record(x)
 
     def _require_pose_calibrated(self, mode):
@@ -209,15 +217,6 @@ class FusedDetectPose:
                            (by[..., 1] + pad).clamp_max(float(H))], -1)
         return out, sc, valid
 
-    def _upload(self, array):
-        """A host u8 array onto the device without waiting for it: staged
-        in pinned memory when the device is a card, then copied on the
-        current stream."""
-        t = torch.from_numpy(np.ascontiguousarray(array))
-        if self.device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
-
     def _detect(self, canvases):
         """(F, 3, h, w) float canvases in [0, 255] → raw predictions."""
         yolo = self.det_int8.active() if self.det_int8.quantize else self.yolo
@@ -241,7 +240,7 @@ class FusedDetectPose:
         M, J = self.max_persons, self.num_joints
         pw, ph = self._pose.input_wh
         g = self._letterbox_geom(H, W)
-        frames = self._upload(frames_u8)
+        frames = upload(frames_u8, self.device)
         mark("upload")
         canvases = self._letterbox(frames.float(), g)
         mark("letterbox")
@@ -337,7 +336,7 @@ class FusedDetectPose:
             # record this canvas; the frame serves in float until the
             # table freezes
             self._calibrate_det(canvas)
-        x = self._upload(canvas).permute(2, 0, 1)[None]
+        x = upload(canvas, self.device).permute(2, 0, 1)[None]
         pred = self._detect(x.float())
         det = self._det_post(pred, self._letterbox_geom(H, W), H, W)
         return tuple(t[0] for t in det), canvas.nbytes
@@ -365,9 +364,7 @@ class FusedDetectPose:
         pw, ph = self._pose.input_wh
         bucket = min(1 << (n - 1).bit_length(), self.max_persons)
         center, scale = xyxy_to_cs(boxes[:n], (pw, ph))
-        pad = bucket - n
-        center = np.concatenate([center, np.tile(center[:1], (pad, 1))])
-        scale = np.concatenate([scale, np.tile(scale[:1], (pad, 1))])
+        center, scale = tile_first(bucket - n, center, scale)
         crops = warp_affine_batch(np.ascontiguousarray(frame),
                                   classic_affine_mats_np(center, scale,
                                                          (pw, ph)), (ph, pw))

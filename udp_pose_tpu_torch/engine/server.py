@@ -112,15 +112,25 @@ class CropBatcher:
     most ``window_ms`` after the first job so a lone request is not held
     hostage), runs ONE bucket-padded batch through the pipeline, and
     scatters the results back.  ``batch_log`` keeps the crops of each
-    dispatch."""
+    dispatch, ``upload_log`` the crop bytes it sent to the device.
 
-    def __init__(self, pipe, max_batch=64, window_ms=3.0):
+    ``pad_on_device=True`` uploads only the real crop rows and zero-pads
+    them to the bucket on the device (``udp_pose_tpu/engine/
+    server.py:203-223``), so the host → device copy carries no padding;
+    the padded rows are decoded and dropped (no row's result depends on
+    another's).  While int8 calibrates, the batch is tiled on the host instead,
+    so that the table records only real rows."""
+
+    def __init__(self, pipe, max_batch=64, window_ms=3.0,
+                 pad_on_device=False):
         self.pipe = pipe
         self.max_batch = int(max_batch)
         self.window_s = float(window_ms) / 1e3
+        self.pad_on_device = bool(pad_on_device)
         self._q = queue.Queue()
         self._closed = False
         self.batch_log = deque(maxlen=4096)   # crops per dispatch
+        self.upload_log = deque(maxlen=4096)  # crop bytes sent per dispatch
         self._log_lock = threading.Lock()
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="pose-batcher")
@@ -165,15 +175,25 @@ class CropBatcher:
                     j.event.set()
 
     def _dispatch(self, batch, total):
-        # the pipeline pads to the bucket; while it calibrates int8 it
-        # records and serves the padded batch in float (server.py:196-240
-        # there)
+        # the pipeline pads a host batch to the bucket; while it calibrates
+        # int8 it records and serves the padded batch in float
+        # (server.py:196-240 there)
+        from .pose_engine import _next_bucket, tile_first, upload
+        pipe = self.pipe
         crops = np.concatenate([j.crops for j in batch])
         center = np.concatenate([j.center for j in batch])
         scale = np.concatenate([j.scale for j in batch])
+        pad = _next_bucket(total) - total
+        rows = total + pad
+        if pad and self.pad_on_device and not pipe.int8.calibrating:
+            x = upload(crops, pipe.device)
+            crops = torch.cat([x, x.new_zeros((pad, *x.shape[1:]))])
+            center, scale = tile_first(pad, center, scale)
+            rows = total
         with self._log_lock:
             self.batch_log.append(total)
-        preds, maxvals = self.pipe.infer_crops(crops, center, scale)
+            self.upload_log.append(rows * crops[0].nbytes)
+        preds, maxvals = pipe.infer_crops(crops, center, scale)
         off = 0
         for j in batch:
             j.preds = preds[off:off + j.n]
@@ -329,7 +349,8 @@ class Metrics:
 
 class PoseService:
     """The engine bundle behind the HTTP layer: a ``UdpPosePipeline`` on
-    ``device`` fronted by a :class:`CropBatcher` for /v1/pose and, with a
+    ``device`` fronted by a :class:`CropBatcher` (``pad_on_device``) for
+    /v1/pose and, with a
     ``detector`` (``yolov5n`` … ``yolov5l``), a
     :class:`.fused.FusedDetectPose` fronted by a :class:`FrameBatcher`
     for /v1/detect_pose.  ``det_kwargs`` go to ``FusedDetectPose``
@@ -338,7 +359,8 @@ class PoseService:
     def __init__(self, cfg, weights=None, flip_test=None, max_batch=64,
                  window_ms=3.0, device="cuda", seed=0, detector="",
                  detector_weights=None, max_persons=16, max_frames=8,
-                 det_kwargs=None, quantize=None, act_scales=None):
+                 det_kwargs=None, quantize=None, act_scales=None,
+                 pad_on_device=False):
         from .pose_engine import UdpPosePipeline
 
         self.pipe = UdpPosePipeline(cfg, weights, flip_test=flip_test,
@@ -355,7 +377,8 @@ class PoseService:
             if self.pipe.int8.quantize:
                 _build.load("int8_conv")
         self.batcher = CropBatcher(self.pipe, max_batch=max_batch,
-                                   window_ms=window_ms)
+                                   window_ms=window_ms,
+                                   pad_on_device=pad_on_device)
         self.metrics = Metrics()
         self.fused = self.frame_batcher = None
         if detector:

@@ -35,9 +35,9 @@ def parse_args(argv=None):
                         "'webcam:<id>'")
     p.add_argument("--pose-cfg", required=True)
     p.add_argument("--pose-weights", default="",
-                   help="reference .pth pose weights, or a .msgpack of "
-                        "the JAX package's variables (default: seeded "
-                        "random init)")
+                   help="reference .pth pose weights, a .msgpack of the "
+                        "JAX package's variables, or an .onnx artifact of "
+                        "the exporter (default: seeded random init)")
     p.add_argument("--bbox-dir", default="",
                    help="YOLO label dir (pose-labelling mode)")
     p.add_argument("--detector", default="", type=detector_name,

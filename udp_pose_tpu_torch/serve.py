@@ -8,7 +8,12 @@ detect-then-pose chunk), ``/healthz`` and ``/metrics`` over
 
     python -m udp_pose_tpu_torch.serve \
         --cfg configs/coco/hrnet_w32_256x192_udp_offset.yaml --port 0 \
-        [--detector yolov5n] [--quantize int8 [--act-scales t.json]]
+        [--detector yolov5n] [--quantize int8 [--act-scales t.json]] \
+        [--pad-on-device] [--weights w.pth|w.msgpack|w.onnx]
+
+RSN yamls (``MODEL.NAME rsn``) serve ``/v1/pose`` through RSN's own
+inference; ``--detector`` with an RSN yaml is refused (the fused graph's
+decode is the UDP kernel).
 """
 
 from __future__ import annotations
@@ -23,9 +28,10 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--cfg", required=True, help="pose model yaml")
     p.add_argument("--weights", default="",
-                   help="reference .pth pose weights, or a .msgpack of the "
-                        "JAX package's variables (default: seeded random "
-                        "init, smoke mode)")
+                   help="reference .pth pose weights, a .msgpack of the "
+                        "JAX package's variables, or an .onnx artifact of "
+                        "the exporter (default: seeded random init, smoke "
+                        "mode)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080,
                    help="0 picks a free port (printed on startup)")
@@ -35,6 +41,10 @@ def parse_args(argv=None):
                    help="force flip-test off")
     p.add_argument("--max-batch", type=int, default=64,
                    help="max crops per device batch")
+    p.add_argument("--pad-on-device", action="store_true",
+                   help="upload only the real crop rows of a batch and "
+                        "zero-pad them to the bucket on the device (host "
+                        "tiling while int8 calibrates)")
     p.add_argument("--window-ms", type=float, default=3.0,
                    help="micro-batch collection window after the first "
                         "request")
@@ -74,7 +84,8 @@ def main(argv=None):
         detector=args.detector,
         detector_weights=args.detector_weights or None,
         max_persons=args.max_persons, max_frames=args.max_frames,
-        quantize=args.quantize, act_scales=args.act_scales or None)
+        quantize=args.quantize, act_scales=args.act_scales or None,
+        pad_on_device=args.pad_on_device)
     server = PoseServer(service, host=args.host, port=args.port)
 
     def stop(signum, frame):

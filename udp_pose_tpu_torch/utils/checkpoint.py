@@ -228,17 +228,21 @@ def load_pretrained(model, pretrained, cfg):
     Keys the model does not have, and BatchNorm's ``num_batches_tracked``
     (which the JAX package has not), are ignored; a leaf whose shape
     differs from the model's is skipped and logged.  ``pretrained``: a
-    ``.pth`` path or a state dict; a ``.msgpack`` of the JAX package's
-    variables goes through :func:`load_weights_tolerant`.  A missing
-    file raises.  Returns the number of leaves grafted."""
-    from .convert import load_torch_state_dict, state_dict_to_torch
+    ``.pth`` path, an ``.onnx`` artifact of the exporter (its
+    initializers, as a ``.pth``'s keys) or a state dict; a ``.msgpack`` of
+    the JAX package's variables goes through :func:`load_weights_tolerant`.
+    A missing file raises.  Returns the number of leaves grafted."""
+    from .convert import (load_torch_state_dict, onnx_initializers,
+                          state_dict_to_torch)
     if isinstance(pretrained, (str, os.PathLike)):
         if not os.path.isfile(pretrained):
             raise ValueError(f"{pretrained} does not exist "
                              "(pose_hrnet.py:503-505 semantics)")
         if str(pretrained).endswith(".msgpack"):
             return load_weights_tolerant(pretrained, model, cfg)
-        sd = load_torch_state_dict(pretrained)
+        sd = (onnx_initializers(pretrained)
+              if str(pretrained).endswith(".onnx")
+              else load_torch_state_dict(pretrained))
     else:
         sd = dict(pretrained)
     name = cfg.MODEL.NAME

@@ -22,8 +22,8 @@ corenet's combined ``qkv_proj`` (rows q; k; v) and ``out_proj``.
 The same mappings walked the other way (:func:`state_dict_to_variables`,
 the JAX package's forward ``Converter``) give flax variables of a port
 state dict, which :func:`write_msgpack_weights` writes as the JAX
-package's ``save_weights`` does; :func:`read_weights` reads either kind
-of weight file.
+package's ``save_weights`` does; :func:`read_weights` reads each kind
+of weight file (``.pth``, ``.msgpack``, and the exporter's ``.onnx``).
 """
 
 from __future__ import annotations
@@ -712,18 +712,36 @@ def state_dict_to_variables(sd, cfg):
     return {"params": cv.params, "batch_stats": cv.stats}
 
 
+def onnx_initializers(path) -> Dict[str, np.ndarray]:
+    """{name: array} of the initializers of the ``.onnx`` file at
+    ``path``: the exporter's weights under their reference keys, and the
+    graph's own constants."""
+    from ..export.onnx_pb import load_model
+    with open(path, "rb") as f:
+        return {t.name: t.array for t in load_model(f.read()).graph
+                .initializers}
+
+
 def read_weights(path, cfg) -> Dict[str, np.ndarray]:
     """The pose weights of the file at ``path`` as the port's state dict:
     a ``.msgpack`` of the JAX package's variables (its ``save_weights``,
     or :func:`write_msgpack_weights`) through
     :func:`variables_to_state_dict`, else a reference ``.pth``/``.pt``
-    (:func:`load_torch_state_dict`)."""
+    (:func:`load_torch_state_dict`), or an ``.onnx`` artifact of the
+    exporter, whose initializers carry the reference keys: they go
+    through the same mapping, which keeps the model's weights and leaves
+    the graph's own constants (``udp_pose_tpu/engine/pose_engine.py:167-178``
+    there)."""
     if str(path).endswith(".msgpack"):
         from .msgpack import read_file
         return variables_to_state_dict(read_file(path), cfg)
+    if str(path).endswith(".onnx"):
+        return variables_to_state_dict(
+            state_dict_to_variables(onnx_initializers(path), cfg), cfg)
     if not str(path).endswith((".pth", ".pt", ".tar")):
         raise ValueError(f"weights {path!r}: a .pth, .pt or .tar torch "
-                         "file, or a .msgpack of flax variables")
+                         "file, a .msgpack of flax variables or an .onnx "
+                         "artifact")
     return load_torch_state_dict(path)
 
 
