@@ -100,11 +100,25 @@ for w32 and ``--yolo yolov5n`` on the card, a w32 export held by
 ``.onnx`` weights bit for bit as its ``.pth``, the standalone engine
 over it, and an ``rsn18`` export served by ``python -m
 udp_pose_tpu_torch.serve --pad-on-device`` in a process of its own and
-run by the infer CLI (14d).  The kernels' launches
+run by the infer CLI (14d).  Phase 15, data parallelism on NCCL (right
+after phase 13): w32 fp32 B=32 trained through ``train.run`` for 4 steps
+and a validation without a process group, then this process joins a
+world-1 NCCL group on ``cuda:0``; the global-batch BatchNorm against
+``layers.BatchNorm2d`` at every BN input shape of a w32 step, fp32 and
+bf16, and one DDP step's all-reduces counted (15a); the same run inside
+the group against the first, weights, samples/s and the fused decode of
+a validation batch (15b); ``test.run`` in the group, and
+``UdpPosePipeline(mesh=)`` over the cards (a power of two of them),
+each card's rows bit-equal to no mesh on those rows, on a
+64-person 720p frame; on two or more cards, 2 spawned NCCL ranks at
+B=32 against one process at B=64, held within limits that a control
+run with each rank's BatchNorm over its own rows must exceed, and
+``test.run`` on 2 ranks against one (15c; on one card a line says what
+did not run).  The kernels' launches
 count phases 6, 7 and 8, each path in one window, and the two int8
 paths (9b-9c, 9d) in windows around each of their own calls: the bf16
 engines timed in turns with them and the card-vs-CPU checks run
-outside; phases 10, 11, 12, 13 and 14's paths likewise.  Any failed check
+outside; phases 10, 11, 12, 13, 14 and 15's paths likewise.  Any failed check
 exits nonzero before the last line, which is ``{"ok": true, "device":
 {...}}``.  Without a CUDA card it exits 1.  Imports nothing of JAX or of
 the JAX package.
@@ -1150,19 +1164,24 @@ def repeated_batch_steps(cfg, batch, card, n_steps=8, device="cuda",
     return secs
 
 
-def profile_train(cfg, model, batch, card, n=3, device="cuda"):
+def profile_train(cfg, model, batch, card, n=3, device="cuda", ddp=False):
     """Where a bf16 step's time goes: ``n`` steps of ``model`` (fresh Adam
     state) on one pre-built batch under torch.profiler, after two
     unprofiled ones; host and device ms a step of the ``train/*`` ranges
     of :mod:`udp_pose_tpu_torch.core.train`, device-busy share, kernels
-    a step and the top kernels.  Run last: a profiler session slows the
-    process's later launches."""
+    a step and the top kernels.  With ``ddp`` the step runs through
+    :func:`udp_pose_tpu_torch.parallel.data_parallel` (a process group
+    must exist).  Run last: a profiler session slows the process's later
+    launches."""
     from torch.profiler import ProfilerActivity, profile
 
     from udp_pose_tpu_torch.core.loss import make_loss_fn
     from udp_pose_tpu_torch.core.train import (create_train_state,
                                                make_train_step, upload_batch)
     state = create_train_state(cfg, model, steps_per_epoch=1)
+    if ddp:
+        from udp_pose_tpu_torch.parallel import data_parallel
+        state.ddp = data_parallel(state.model)
     step_fn = make_train_step(make_loss_fn(cfg))
 
     def one():
@@ -1194,7 +1213,8 @@ def profile_train(cfg, model, batch, card, n=3, device="cuda"):
         for e in sorted(events, key=lambda e: e.key)
         if e.key.startswith("train/") and e.device_type != cuda)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    log(f"[train] profile, bf16 B={len(batch['image'])} step from one "
+    log(f"[train] profile, bf16 B={len(batch['image'])} step "
+        f"{'(DDP, NCCL world 1) ' if ddp else ''}from one "
         f"pre-built batch: {wall:.2f} ms wall a step, card busy "
         f"{busy:.2f} ms (idle share {1 - busy / wall:.3f}), "
         f"{sum(e.count for e in kernels) / n:.0f} device kernels a step; "
@@ -1507,8 +1527,9 @@ def host_path_boxes(pred, conf_thres, hw, canvas_hw):
 
 class CallRecorder:
     """Keeps the positional arguments and the result of every call of
-    ``owner.name`` while it is active, as ``args + (result,)``; the calls
-    go to the function as before (a wrapper's launch count included)."""
+    ``owner.name`` while it is active, as ``args + (result,)``; the calls,
+    keyword arguments and all, go to the function as before (a wrapper's
+    launch count included)."""
 
     def __init__(self, owner, name):
         self._owner, self._name, self.calls = owner, name, []
@@ -1516,8 +1537,8 @@ class CallRecorder:
     def __enter__(self):
         real = self._real = getattr(self._owner, self._name)
 
-        def record(*args):
-            out = real(*args)
+        def record(*args, **kwargs):
+            out = real(*args, **kwargs)
             self.calls.append(args + (out,))
             return out
         setattr(self._owner, self._name, record)
@@ -5599,6 +5620,666 @@ def phase_serve(tmp, device="cuda"):
     return paths
 
 
+# ---------------------------------------------------------------- phase 15
+DDP_TRAIN_IMAGES, DDP_VAL_IMAGES = 64, 16    # 128 / 32 crops: 4 steps
+# 15b, world 1 against no group: x the norm of the run's change; w32
+# amplifies fp32 rounding step by step (4.3e-3 after 4 steps on an
+# H100), and a wrong reduction moves it to the order of 1.  15a holds
+# the BN formulas themselves, at 1e-4 of each output's max
+DDP_WEIGHT_TOL = 5e-2
+DDP_LOSS_RTOL = 1e-4             # the first step's loss (same weights)
+DDP_STEPS_LOSS_RTOL = 1e-2       # every step's (1.33e-3 at the 4th)
+# 15c, 2 ranks x B=32 against one process at B=64: its own limits, set
+# between the sound run and the control with each rank's BatchNorm over
+# its own rows (torch DDP's default, the fault global BN avoids): on two
+# H100s the sound run read 1.22e-4 of the change and losses <= 6.55e-6
+# apart, the control 1.23e-2 and 3.0e-4; the check fails if the control
+# stays inside them
+DP2_WEIGHT_TOL = 1e-3            # x the norm of the change
+DP2_LOSS_RTOL = 5e-5             # every step's loss
+BN_TOL = {torch.float32: 1e-4,   # x max |plain|, TF32 off (15a)
+          torch.bfloat16: 2e-2}  # bf16 outputs: an ulp is 2^-8
+MESH_PERSONS = 64                # 15c: persons on one 720p frame
+
+
+def free_port():
+    """A free TCP port on this host (the rendezvous of a process group)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def rank_env(rank, world, port):
+    """torchrun's variables for ``rank`` of ``world`` on this host."""
+    return {"RANK": str(rank), "WORLD_SIZE": str(world),
+            "LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": str(world),
+            "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+
+
+def ddp_data(tmp, name="coco", n_train=DDP_TRAIN_IMAGES,
+             n_val=DDP_VAL_IMAGES):
+    """Phase 15's seeded synthetic mini-COCO: the root and the frames (a
+    rank of 15c makes the same ones from the seed)."""
+    rng = np.random.default_rng(51)
+    root = os.path.join(tmp, name)
+    return root, {"train2017": synthetic_coco(root, "train2017", n_train,
+                                              rng),
+                  "val2017": synthetic_coco(root, "val2017", n_val, rng)}
+
+
+def ddp_cfg(root, out_dir, cfg_fn=w32_cfg, batch=32):
+    """15b's run: w32 fp32, one epoch, WORKERS 2, deterministic cuDNN,
+    SGD at the yaml's LR.  SGD and not the yaml's Adam: Adam's first
+    steps move each weight by about the LR whatever the size of its
+    gradient, so two runs whose gradients differ in the last bits can
+    move a near-zero component in opposite directions; under SGD the
+    runs' weights differ as their gradients do."""
+    cfg = train_cfg(root, out_dir, "float32", cfg_fn)
+    cfg.TRAIN.END_EPOCH = 1
+    cfg.TRAIN.OPTIMIZER = "sgd"
+    cfg.TRAIN.BATCH_SIZE_PER_GPU = batch
+    cfg.WORKERS = 2
+    cfg.CUDNN.DETERMINISTIC, cfg.CUDNN.BENCHMARK = True, False
+    os.makedirs(out_dir, exist_ok=True)
+    return cfg
+
+
+def bn_shapes(cfg, batch, device="cuda"):
+    """The input shape of each of w32's BatchNorms in a train forward at
+    ``batch`` rows, in the order they run."""
+    from udp_pose_tpu_torch.models import build_model
+    from udp_pose_tpu_torch.models.layers import BatchNorm2d
+    model = build_model(cfg, device=device, train=True)
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    shapes = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, args: shapes.append(tuple(args[0].shape))) for m in bns]
+    w, h = cfg.MODEL.IMAGE_SIZE
+    with torch.no_grad():
+        model(torch.zeros(batch, 3, h, w, device=device).to(
+            memory_format=torch.channels_last))
+    for hk in hooks:
+        hk.remove()
+    return shapes
+
+
+def bn_layers_ms(shapes, cls, dtype, device="cuda"):
+    """Milliseconds of a train forward and backward of one ``cls``
+    BatchNorm at each of ``shapes`` in turn (a w32 step's BatchNorms
+    alone, ``dtype`` inputs, bf16 under autocast), host clock to the
+    card's end, after one such pass."""
+    C = sorted({s[1] for s in shapes})
+    bns = {c: cls(c).to(device).train() for c in C}
+    g = torch.Generator(device).manual_seed(7)
+    xs = [torch.randn(s, generator=g, device=device).to(dtype).to(
+        memory_format=torch.channels_last).requires_grad_(True)
+        for s in shapes]
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for x in xs:
+            with torch.autocast("cuda", dtype=torch.bfloat16,
+                                enabled=dtype == torch.bfloat16):
+                out = bns[x.shape[1]](x)
+            out.backward(out)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def bn_versus_plain(shape, dtype, seed, device="cuda"):
+    """``GlobalBatchNorm2d`` (in this process's group) against
+    ``layers.BatchNorm2d`` on one channels-last input of ``shape`` in
+    train mode, ``dtype`` the input's (bf16 under autocast): each of the
+    output, the input's, scale's and bias's gradients and the running
+    stats as max |global - plain| / max |plain|."""
+    from udp_pose_tpu_torch.models.layers import BatchNorm2d
+    from udp_pose_tpu_torch.parallel import GlobalBatchNorm2d
+    g = torch.Generator(device).manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device=device) * 1.5 + 0.3).to(
+        dtype).to(memory_format=torch.channels_last)
+    dy = torch.randn(shape, generator=g, device=device).to(dtype).to(
+        memory_format=torch.channels_last)
+    C = shape[1]
+    runs = []
+    for cls in (BatchNorm2d, GlobalBatchNorm2d):
+        bn = cls(C).to(device).train()
+        with torch.no_grad():
+            bn.weight.copy_(torch.linspace(0.5, 1.5, C))
+            bn.bias.copy_(torch.linspace(-0.2, 0.2, C))
+        xi = x.detach().clone().requires_grad_(True)
+        with torch.autocast("cuda", dtype=torch.bfloat16,
+                            enabled=dtype == torch.bfloat16):
+            out = bn(xi)
+        out.backward(dy)
+        runs.append({"out": out.float(), "dx": xi.grad.float(),
+                     "dweight": bn.weight.grad, "dbias": bn.bias.grad,
+                     "running_mean": bn.running_mean,
+                     "running_var": bn.running_var})
+    plain, glob = runs
+    return {k: float((glob[k] - v).abs().max() / v.abs().max())
+            for k, v in plain.items()}
+
+
+def check_global_bn(cfg, card, device="cuda", batch=32):
+    """15a: at every BN input shape of a w32 train step at ``batch``,
+    ``GlobalBatchNorm2d`` of the world-1 NCCL group against
+    ``layers.BatchNorm2d``, fp32 with TF32 off and bf16 under autocast.
+    Returns the number of BatchNorms."""
+    from udp_pose_tpu_torch.models.layers import BatchNorm2d
+    from udp_pose_tpu_torch.parallel import GlobalBatchNorm2d
+    set_tf32(False)
+    layers = bn_shapes(cfg, batch, device)
+    n_bn = len(layers)
+    shapes = sorted(set(layers), key=lambda s: (-s[2] * s[3], s[1]))
+    worst = {}
+    for dtype, tol in BN_TOL.items():
+        errs = {}
+        for i, shape in enumerate(shapes):
+            for k, e in bn_versus_plain(shape, dtype, 100 + i,
+                                        device).items():
+                errs[k] = max(errs.get(k, 0.0), e)
+        name = str(dtype).split(".")[1]
+        check(all(e <= tol for e in errs.values()),
+              f"15a global BN {name} against layers.BatchNorm2d: {errs} "
+              f"(limit {tol:g} x max)")
+        worst[name] = errs
+    # the step's BatchNorms alone, plain and global, in turns
+    ms = {}
+    for dtype in BN_TOL:
+        for cls in (BatchNorm2d, GlobalBatchNorm2d, GlobalBatchNorm2d,
+                    BatchNorm2d):
+            ms.setdefault((dtype, cls), []).append(
+                bn_layers_ms(layers, cls, dtype, device))
+    set_tf32(True)
+    torch.cuda.empty_cache()
+    for name, errs in worst.items():
+        log(f"[ddp] 15a GlobalBatchNorm2d (NCCL world 1) vs "
+            f"layers.BatchNorm2d at the {len(shapes)} BN input shapes of a "
+            f"w32 B={batch} train step ({shapes[0]} ... {shapes[-1]}), "
+            f"{name}{' TF32 off' if name == 'float32' else ' autocast'}: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f" x max (limit {BN_TOL[getattr(torch, name)]:g}) | {card}")
+    for dtype in BN_TOL:
+        plain, glob = (min(ms[dtype, c]) for c in (BatchNorm2d,
+                                                   GlobalBatchNorm2d))
+        log(f"[ddp] 15a the {n_bn} BatchNorms of a w32 B={batch} step "
+            f"alone, forward + backward, {str(dtype).split('.')[1]}: "
+            f"layers.BatchNorm2d {plain:.1f} ms, GlobalBatchNorm2d "
+            f"{glob:.1f} ms (+{glob - plain:.1f} ms a step; best of two "
+            f"turns) | {card}")
+    return n_bn
+
+
+def count_all_reduces(cfg, batch, card, device="cuda"):
+    """15a: the all-reduces of one w32 DDP train step (global BN forward
+    and backward, the loss's mean over the ranks, DDP's gradient
+    buckets, counted through a comm hook that calls the default one)."""
+    import torch.distributed as dist
+    from torch.distributed.algorithms.ddp_comm_hooks import default_hooks
+
+    from udp_pose_tpu_torch.core.loss import make_loss_fn
+    from udp_pose_tpu_torch.core.train import (create_train_state,
+                                               make_train_step, upload_batch)
+    from udp_pose_tpu_torch.models import build_model
+    from udp_pose_tpu_torch.parallel import GlobalBatchNorm2d, data_parallel
+    model = build_model(cfg, device=device, train=True)
+    state = create_train_state(cfg, model, steps_per_epoch=1)
+    state.ddp = data_parallel(state.model)
+    n_bn = sum(isinstance(m, GlobalBatchNorm2d) for m in model.modules())
+    buckets, calls = [0], [0]
+
+    def hook(process_group, bucket):
+        buckets[0] += 1
+        return default_hooks.allreduce_hook(process_group, bucket)
+
+    state.ddp.register_comm_hook(None, hook)
+    real = dist.all_reduce
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    dist.all_reduce = counted
+    try:
+        make_train_step(make_loss_fn(cfg))(state, upload_batch(batch,
+                                                               device))
+        torch.cuda.synchronize()
+    finally:
+        dist.all_reduce = real
+    others = calls[0] - buckets[0]
+    check(others == 2 * n_bn + 1 and buckets[0] >= 1,
+          f"15a: {calls[0]} all-reduces in a step, {buckets[0]} of them "
+          f"DDP buckets, for {n_bn} BatchNorms")
+    # what the BN all-reduces cost alone: as many, of a 2C+1 float32
+    # vector each, back to back and then waited for
+    packed = torch.zeros(2 * 64 + 1, device=device)
+    for _ in range(20):
+        dist.all_reduce(packed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2 * n_bn):
+        dist.all_reduce(packed)
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[ddp] 15a one w32 bf16 B={len(batch['image'])} DDP step (NCCL "
+        f"world 1): {calls[0]} all-reduces = {2 * n_bn} global BN ({n_bn} "
+        f"BatchNorms, forward and backward) + 1 loss mean + {buckets[0]} "
+        f"DDP gradient buckets; {2 * n_bn} all-reduces of 129 floats alone: "
+        f"{enqueue_ms:.1f} ms to enqueue, {total_ms:.1f} ms to finish "
+        f"({total_ms / (2 * n_bn) * 1e3:.1f} us each) | {card}")
+    del state, model
+    torch.cuda.empty_cache()
+    return calls[0]
+
+
+def weight_errors(got, want, init):
+    """Two runs' weights and running stats from ``init``: the norm of
+    their difference over the norm of ``want``'s change (all float
+    tensors as one vector), and per tensor max |got - want| / max |want -
+    init|."""
+    keys = [k for k in want if want[k].is_floating_point()]
+    diff = {k: got[k].double() - want[k].double() for k in keys}
+    change = {k: want[k].double() - init[k].double() for k in keys}
+    total = float(sum(d.square().sum() for d in diff.values()).sqrt()
+                  / sum(c.square().sum() for c in change.values()).sqrt())
+    return total, {k: float(diff[k].abs().max()
+                            / max(float(change[k].abs().max()), 1e-30))
+                   for k in keys}
+
+
+def samples_per_s(record, batch):
+    """Global samples a second over the steps after the first (median
+    iteration)."""
+    iters = [s["iter_s"] for s in record["steps"][1:]] or [
+        record["steps"][0]["iter_s"]]
+    return batch / float(np.median(iters))
+
+
+def ddp_run(tmp, name, root, frames, device="cuda", cfg_fn=w32_cfg):
+    """15b: ``train.run`` of a fresh seeded w32 of :func:`ddp_cfg` under
+    ``<tmp>/<name>``, the kernels' counts read just around it."""
+    from udp_pose_tpu_torch import train as train_cli
+    from udp_pose_tpu_torch.models import build_model
+    cfg = ddp_cfg(root, os.path.join(tmp, name), cfg_fn)
+    train_ds = in_memory_coco(cfg, frames["train2017"], True)
+    val_ds = in_memory_coco(cfg, frames["val2017"], False)
+    model = build_model(cfg, device=device, train=True)
+    zero_launches()
+    t0 = time.perf_counter()
+    record = train_cli.run(cfg, model, train_ds, val_ds, cfg.OUTPUT_DIR,
+                           device)
+    return {"record": record, "secs": time.perf_counter() - t0,
+            "launches": read_launches(), "model": model, "cfg": cfg,
+            "train_ds": train_ds, "val_ds": val_ds,
+            "weights": os.path.join(cfg.OUTPUT_DIR, "final_state.pth")}
+
+
+def check_ddp_runs(plain, ddp, card, device="cuda"):
+    """15b: the DP run (inside the world-1 group) against the plain one
+    (no group): the same steps, the first step's loss within
+    DDP_LOSS_RTOL and every step's within DDP_STEPS_LOSS_RTOL, the final weights and running stats within
+    DDP_WEIGHT_TOL of the
+    norm of the run's change, one decode launch a
+    validation batch, samples/s of both, and a validation batch of the
+    DP model through the fused decode bit-equal to its plain version.
+    Then 15c's evaluation in the group: ``test.run`` on the DP weights,
+    the run's AP.  Returns the evaluation's launches."""
+    from udp_pose_tpu_torch import test as test_cli
+    from udp_pose_tpu_torch.core.infer import make_infer_fn_from_cfg
+    from udp_pose_tpu_torch.core.validate import serving_copy
+    from udp_pose_tpu_torch.data.base import epoch_loader
+    from udp_pose_tpu_torch.models import build_model
+    from udp_pose_tpu_torch.ops import peak_offset as po
+    cfg, val_ds, record = ddp["cfg"], ddp["val_ds"], ddp["record"]
+    B = cfg.TRAIN.BATCH_SIZE_PER_GPU
+    steps = len(ddp["train_ds"]) // B
+    eval_batches = -(-len(val_ds) // cfg.TEST.BATCH_SIZE_PER_GPU)
+    init = build_model(cfg, device="cpu", train=True).state_dict()
+    final = {n: torch.load(r["weights"], map_location="cpu")
+             for n, r in (("plain", plain), ("ddp", ddp))}
+    total, errs = weight_errors(final["ddp"], final["plain"], init)
+    worst = max(errs, key=errs.get)
+    loss_rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in
+                zip(record["steps"], plain["record"]["steps"])]
+    launches = ddp["launches"]
+    losses = {n: ", ".join(f"{s['loss']:.6g}" for s in r["record"]["steps"])
+              for n, r in (("plain", plain), ("ddp", ddp))}
+    rates = {n: samples_per_s(r["record"], B)
+             for n, r in (("plain", plain), ("ddp", ddp))}
+    waits = {n: float(np.median([s["load_s"] for s in r["record"]["steps"][
+        1:]])) * 1e3 for n, r in (("plain", plain), ("ddp", ddp))}
+    # (c) one validation batch: the fused decode is its plain version
+    infer = make_infer_fn_from_cfg(
+        serving_copy(ddp["model"], build_model(cfg, device=device)), cfg,
+        flip_pairs=val_ds.flip_pairs)
+    vb = next(epoch_loader(val_ds, cfg.TEST.BATCH_SIZE_PER_GPU,
+                           shuffle=False, drop_last=False))
+    _, _, hm = infer(vb["image"], vb["center"], vb["scale"])
+    decode_ok = same_bits(po.udp_offset_decode_fused(hm, KPD),
+                          po.udp_offset_decode_reference(hm, KPD))
+    log(f"[ddp] 15b train.run w32 fp32 B={B} SGD, TF32 off, deterministic "
+        f"cuDNN, WORKERS 2, {steps} steps + validation: losses plain (no "
+        f"group) {losses['plain']}; DP (NCCL world 1: global BN, DDP) "
+        f"{losses['ddp']} (relative difference by step "
+        f"{', '.join(f'{v:.3g}' for v in loss_rel)}; limits "
+        f"{DDP_LOSS_RTOL:g} the first, {DDP_STEPS_LOSS_RTOL:g} each); final weights and running stats DP vs plain: "
+        f"|difference| / |change| {total:.3g} (limit {DDP_WEIGHT_TOL:g}), by "
+        f"tensor max |difference| / max |change| worst {worst} "
+        f"{errs[worst]:.3g}, median "
+        f"{float(np.median(list(errs.values()))):.3g}; samples/s plain "
+        f"{rates['plain']:.1f}, DP {rates['ddp']:.1f} "
+        f"(DP / plain {rates['ddp'] / rates['plain']:.3f}; median iteration "
+        f"after the first, of which waiting for the batch "
+        f"{waits['plain']:.1f} / {waits['ddp']:.1f} ms); train.run "
+        f"{plain['secs']:.1f} s / "
+        f"{ddp['secs']:.1f} s; validation batch {tuple(hm.shape)} "
+        f"({layout_of(hm)}) fused decode bit-equal to its plain version: "
+        f"{decode_ok} | {card}")
+    check(len(record["steps"]) == steps == len(plain["record"]["steps"]),
+          f"15b: {len(record['steps'])} DP steps, "
+          f"{len(plain['record']['steps'])} plain, want {steps}")
+    check(total <= DDP_WEIGHT_TOL and loss_rel[0] <= DDP_LOSS_RTOL
+          and max(loss_rel) <= DDP_STEPS_LOSS_RTOL,
+          f"15b DP vs plain: final weights {total:.3g} x the norm of the "
+          f"change (limit {DDP_WEIGHT_TOL:g}), losses by step "
+          f"{', '.join(f'{v:.3g}' for v in loss_rel)} (limits "
+          f"{DDP_LOSS_RTOL:g} the first, {DDP_STEPS_LOSS_RTOL:g} each)")
+    check(launches["udp_offset_decode_fused"] == eval_batches
+          and launches["fused_peak_offset"] == 0,
+          f"15b DP run launches {launches}, want {eval_batches} decodes")
+    check(decode_ok, "15b: fused decode of a DP validation batch != its "
+          "plain version")
+    zero_launches()
+    t0 = time.perf_counter()
+    _, perf = test_cli.run(cfg, ddp["weights"], val_ds, "", device)
+    test_s = time.perf_counter() - t0
+    eval_launches = read_launches()
+    check(eval_launches["udp_offset_decode_fused"] == eval_batches
+          and perf == record["validations"][-1]["perf"],
+          f"15c test.run in the group: launches {eval_launches}, AP {perf} "
+          f"vs the run's {record['validations'][-1]['perf']}")
+    log(f"[ddp] 15c test.run in the world-1 group on the DP weights: AP "
+        f"{perf:.4f} = the run's validation, {eval_batches} decode launches"
+        f", {test_s:.1f} s | {card}")
+    return eval_launches
+
+
+def mesh_serving(card, devices, device="cuda", cfg_fn=w32_cfg, iters=10):
+    """15c: ``UdpPosePipeline(mesh=)`` over ``devices`` (a power of two
+    of them) against no mesh (the pipeline's own one card) on a 64-person 720p
+    frame, fp32 with TF32 off: each card's rows of the mesh's answer bit
+    for bit the answer without a mesh on those rows alone (the same batch
+    size, so the same conv algorithms), and the whole frame's difference
+    from one batch of all the rows reported; then bf16 crops/s of both in
+    turns (no mesh, mesh, mesh, no mesh).  Returns the mesh path's
+    launches."""
+    from udp_pose_tpu_torch.engine.pose_engine import UdpPosePipeline
+    from udp_pose_tpu_torch.parallel import make_mesh, shard_rows
+    mesh, n_cards = make_mesh(devices), len(devices)
+    frame = detect_frames(1, seed=150)[0]
+    boxes = person_boxes(MESH_PERSONS, 151)
+    set_tf32(False)
+    pipes = {m: UdpPosePipeline(cfg_fn("float32"), device=device, seed=0,
+                                mesh=mesh if m else None)
+             for m in (False, True)}
+    kp, kp_mesh = (pipes[m].infer_pose(frame, boxes)[0] for m in (False,
+                                                                  True))
+    shards = [shard_rows(MESH_PERSONS, i, n_cards) for i in range(n_cards)]
+    same = [np.array_equal(kp_mesh[r], pipes[False].infer_pose(
+        frame, boxes[r])[0]) for r in shards]
+    diff = float(np.abs(kp - kp_mesh).max())
+    set_tf32(True)
+    check(kp_mesh.shape == (MESH_PERSONS, 17, 2) and all(same),
+          f"15c mesh of {n_cards} card(s): the rows of each card bit-equal "
+          f"to no mesh on those rows: {same}")
+    pipes = {m: UdpPosePipeline(cfg_fn("bfloat16"), device=device, seed=0,
+                                mesh=mesh if m else None)
+             for m in (False, True)}
+    for p in pipes.values():
+        p.infer_pose(frame, boxes)                  # warm-up
+    times = {False: [], True: []}
+    launches = dict.fromkeys(kernel_wrappers(), 0)
+    for m in (False, True, True, False):
+        if m:
+            zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            pipes[m].infer_pose(frame, boxes)
+        torch.cuda.synchronize()
+        times[m].append((time.perf_counter() - t0) / iters)
+        if m:
+            for k, n in read_launches().items():
+                launches[k] += n
+    check(launches["udp_offset_decode_fused"] == 2 * iters * n_cards,
+          f"15c mesh serving: {launches}, want {2 * iters * n_cards} "
+          "decodes")
+    rate = {m: MESH_PERSONS / float(np.median(t)) for m, t in times.items()}
+    log(f"[ddp] 15c UdpPosePipeline(mesh={n_cards} card(s)) vs no mesh, "
+        f"{MESH_PERSONS} persons of a 720p frame: fp32 TF32 off, each "
+        f"card's {MESH_PERSONS // n_cards} rows bit-equal to no mesh on "
+        f"them; against one batch of all {MESH_PERSONS} max |diff| "
+        f"{diff:.3g} px; bf16 crops/s no mesh {rate[False]:.1f}, "
+        f"mesh {rate[True]:.1f} ({iters} calls, in turns); decode launches "
+        f"{launches['udp_offset_decode_fused']} = {2 * iters} calls x "
+        f"{n_cards} card(s) | {card}")
+    return launches
+
+
+def ddp_rank(rank, world, port, tmp, weights, device, cfg_fn,
+             per_rank_bn=False):
+    """A rank of 15c's multi-card runs (``torch.multiprocessing.spawn``):
+    joins the NCCL group on ``cuda:rank`` (gloo for ``device`` "cpu"),
+    trains w32 at B=32 a rank on phase 15's records, evaluates
+    ``weights`` on its shard through ``test.run``, and saves its record,
+    AP and launches.  ``per_rank_bn``: the control, trained with each
+    rank's BatchNorm over its own rows (the global-batch conversion
+    skipped), which is not evaluated."""
+    from udp_pose_tpu_torch import test as test_cli
+    from udp_pose_tpu_torch import train as train_cli
+    from udp_pose_tpu_torch.models import build_model
+    from udp_pose_tpu_torch.parallel import batchnorm, process_group
+    import multiprocessing
+    # a spawned process would spawn its loader's workers too, which
+    # cannot take the in-memory dataset; a rank that torchrun starts forks
+    multiprocessing.set_start_method("fork", force=True)
+    os.environ.update(rank_env(rank, world, port))
+    if per_rank_bn:
+        # data_parallel imports the converter when it wraps the model
+        batchnorm.convert_batchnorm = lambda module, group=None: module
+    tag = "ddp2_per_rank_bn" if per_rank_bn else "ddp2"
+    # the frames again from the seed (their json goes to a copy of this
+    # rank's); the db is read from the parent's root, as every rank of
+    # a run reads one DATASET.ROOT
+    root, frames = os.path.join(tmp, "coco"), ddp_data(
+        tmp, f"coco{rank}")[1]
+    with process_group(device) as device:
+        set_tf32(False)
+        cfg = ddp_cfg(root, os.path.join(tmp, tag), cfg_fn)
+        train_cli.set_cudnn(cfg)
+        train_ds = in_memory_coco(cfg, frames["train2017"], True)
+        val_ds = in_memory_coco(cfg, frames["val2017"], False)
+        zero_launches()
+        record = train_cli.run(cfg, build_model(cfg, device=device,
+                                                train=True),
+                               train_ds, val_ds, cfg.OUTPUT_DIR, device)
+        perf = None if per_rank_bn else test_cli.run(
+            cfg, weights, val_ds, "", device)[1]
+        torch.save({"record": record, "perf": perf,
+                    "launches": read_launches()},
+                   os.path.join(tmp, f"{tag}-rank{rank}.pt"))
+
+
+def multi_card(tmp, root, frames, weights, card, device="cuda",
+               cfg_fn=w32_cfg):
+    """15c on two cards: 2 spawned ranks at B=32 each against this
+    process alone at B=64 on the same records (final weights within
+    DP2_WEIGHT_TOL of the norm of the change and every step's loss
+    within DP2_LOSS_RTOL, samples/s of each), the control (the ranks
+    again with per-rank BatchNorm) outside those limits, and the ranks'
+    ``test.run`` on their shards against this process's.  Returns the
+    sound ranks' launches summed."""
+    import torch.multiprocessing as torch_mp
+    from udp_pose_tpu_torch import test as test_cli
+    from udp_pose_tpu_torch import train as train_cli
+    from udp_pose_tpu_torch.models import build_model
+    world = 2
+    runs, ranks_s = {}, {}
+    for per_rank_bn in (False, True):
+        tag = "ddp2_per_rank_bn" if per_rank_bn else "ddp2"
+        t0 = time.perf_counter()
+        torch_mp.spawn(ddp_rank, args=(world, free_port(), tmp, weights,
+                                       device, cfg_fn, per_rank_bn),
+                       nprocs=world, join=True)
+        ranks_s[tag] = time.perf_counter() - t0
+        runs[tag] = [torch.load(os.path.join(tmp, f"{tag}-rank{r}.pt"),
+                                weights_only=False) for r in range(world)]
+    ranks = runs["ddp2"]
+    set_tf32(False)
+    cfg = ddp_cfg(root, os.path.join(tmp, "alone64"), cfg_fn, batch=64)
+    train_cli.set_cudnn(cfg)
+    train_ds = in_memory_coco(cfg, frames["train2017"], True)
+    val_ds = in_memory_coco(cfg, frames["val2017"], False)
+    record = train_cli.run(cfg, build_model(cfg, device=device, train=True),
+                           train_ds, val_ds, cfg.OUTPUT_DIR, device)
+    _, perf = test_cli.run(cfg, weights, val_ds, "", device)
+    set_tf32(True)
+    init = build_model(cfg, device="cpu", train=True).state_dict()
+    want = torch.load(os.path.join(tmp, "alone64", "final_state.pth"),
+                      map_location="cpu")
+    err = {}
+    for tag, rs in runs.items():
+        got = torch.load(os.path.join(tmp, tag, "final_state.pth"),
+                         map_location="cpu")
+        total, errs = weight_errors(got, want, init)
+        losses = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in
+                  zip(rs[0]["record"]["steps"], record["steps"])]
+        err[tag] = {"total": total, "worst": max(errs, key=errs.get),
+                    "errs": errs, "losses": losses,
+                    "steps": len(rs[0]["record"]["steps"])}
+
+    def reading(tag):
+        e = err[tag]
+        return (f"final weights |difference| / |change| {e['total']:.3g}, "
+                f"worst tensor {e['worst']} {e['errs'][e['worst']]:.3g} of "
+                f"its max change, loss by step "
+                f"{', '.join(f'{v:.3g}' for v in e['losses'])}")
+
+    two = samples_per_s(ranks[0]["record"], 64)
+    one = samples_per_s(record, 64)
+    log(f"[ddp] 15c w32 fp32 SGD: 2 ranks (NCCL, cuda:0 and cuda:1) x B=32 "
+        f"vs this process alone at B=64, {len(record['steps'])} steps on "
+        f"the same records: global BN {reading('ddp2')}; control with "
+        f"per-rank BN {reading('ddp2_per_rank_bn')} (limits "
+        f"{DP2_WEIGHT_TOL:g} of the change, {DP2_LOSS_RTOL:g} each loss); "
+        f"samples/s 2 cards {two:.1f}, 1 card {one:.1f} (scaling "
+        f"{two / one:.3f}); test.run 2 ranks AP {ranks[0]['perf']:.4f} = 1 "
+        f"process {perf:.4f}; ranks {ranks_s['ddp2']:.1f} s, control "
+        f"{ranks_s['ddp2_per_rank_bn']:.1f} s | {card}")
+    sound, control = err["ddp2"], err["ddp2_per_rank_bn"]
+    check(sound["total"] <= DP2_WEIGHT_TOL
+          and max(sound["losses"]) <= DP2_LOSS_RTOL
+          and sound["steps"] == len(record["steps"]),
+          f"15c 2 ranks x B=32 vs 1 x B=64: {reading('ddp2')} (limits "
+          f"{DP2_WEIGHT_TOL:g}, {DP2_LOSS_RTOL:g}); steps {sound['steps']} "
+          f"vs {len(record['steps'])}")
+    check(control["total"] > DP2_WEIGHT_TOL
+          or max(control["losses"]) > DP2_LOSS_RTOL,
+          f"15c: the control with per-rank BatchNorm passes the limits "
+          f"({reading('ddp2_per_rank_bn')}), which cannot tell it from "
+          "global BN")
+    check(all(abs(r["perf"] - perf) <= 1e-6 for r in ranks),
+          f"15c test.run on 2 ranks: AP {[r['perf'] for r in ranks]}, one "
+          f"process {perf}")
+    launches = dict.fromkeys(kernel_wrappers(), 0)
+    for r in ranks:
+        for k, n in r["launches"].items():
+            launches[k] += n
+    return launches
+
+
+def phase_distributed(tmp, device="cuda", cfg_fn=w32_cfg):
+    """Phase 15: data parallelism on NCCL.  15b's run without a process
+    group first; then this process joins a world-1 NCCL group on
+    ``cuda:0`` (env rendezvous at a free port): 15a holds the global
+    BatchNorm against ``layers.BatchNorm2d`` and counts one DDP step's
+    all-reduces, 15b trains inside the group and holds it against the
+    plain run, 15c evaluates in the group and serves over a mesh of
+    the most cards a power of two gives; on two or more cards 15c also
+    trains and evaluates on 2 ranks against one process.  Returns the launches by path."""
+    import torch.distributed as dist
+
+    from udp_pose_tpu_torch import train as train_cli
+    from udp_pose_tpu_torch.data.base import collate
+    from udp_pose_tpu_torch.parallel import initialize
+    card = card_line()
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    root, frames = ddp_data(tmp)
+    flags = (torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.deterministic)
+    paths, secs = {}, {}
+    try:
+        t0 = time.perf_counter()
+        set_tf32(False)
+        train_cli.set_cudnn(ddp_cfg(root, os.path.join(tmp, "flags")))
+        plain = ddp_run(tmp, "plain", root, frames, device, cfg_fn)
+        secs["15b plain"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dev = initialize("cuda", rank_env(0, 1, free_port()))
+        check(dev == torch.device("cuda", 0) and dist.get_backend() == "nccl"
+              and dist.get_world_size() == 1,
+              f"15a: group on {dev}, backend {dist.get_backend()}")
+        check_global_bn(cfg_fn("float32"), card, device)
+        cfg = train_cfg(root, tmp, "bfloat16", cfg_fn)
+        ds = in_memory_coco(cfg, frames["train2017"], True)
+        ds.seed(0)
+        batch = collate([ds[i] for i in range(32)])
+        count_all_reduces(cfg, batch, card, device)
+        # where a bf16 step's time goes, plain and DP, in one call
+        from udp_pose_tpu_torch.models import build_model
+        for ddp_step in (False, True):
+            profile_train(cfg, build_model(cfg, device=device, train=True),
+                          batch, card, device=device, ddp=ddp_step)
+        torch.cuda.empty_cache()
+        secs["15a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        set_tf32(False)
+        ddp = ddp_run(tmp, "ddp", root, frames, device, cfg_fn)
+        paths["ddp_training"] = ddp["launches"]
+        paths["sharded_eval"] = check_ddp_runs(plain, ddp, card, device)
+        set_tf32(True)
+        secs["15b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # a power of two of the cards, so that each card's rows of the
+        # frame's bucket are a bucket of their own
+        n_mesh = 1 << (max(n_cards, 1).bit_length() - 1)
+        paths["mesh_serving"] = mesh_serving(
+            card, [f"cuda:{i}" for i in range(n_mesh)] if device == "cuda"
+            else [device] * n_mesh, device, cfg_fn)
+        dist.destroy_process_group()
+        if n_cards >= 2:
+            paths["ddp_training_2_cards"] = multi_card(
+                tmp, root, frames, ddp["weights"], card, device, cfg_fn)
+        else:
+            log("[ddp] 15c checks not run: 2 ranks x B=32 against 1 x B=64, "
+                "test.run on 2 ranks against 1 and a mesh of 2+ cards need "
+                f"two cards, and torch.cuda.device_count() is {n_cards} (the "
+                f"mesh ran over its one card) | {card}")
+        secs["15c"] = time.perf_counter() - t0
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        (torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.deterministic) = flags
+        set_tf32(True)
+    log(f"[ddp] phase 15 {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"{p} {v:.1f}" for p, v in secs.items()) + " s)")
+    return paths
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -5646,6 +6327,8 @@ def main(argv=None):
             paths["training"] = phase_train(tmp)
         with tempfile.TemporaryDirectory() as tmp:
             paths.update(phase_resume(tmp))
+        with tempfile.TemporaryDirectory() as tmp:
+            paths.update(phase_distributed(tmp))
         paths.update(int8_paths)
         paths.update(zoo_paths)
         paths.update(rsn_paths)

@@ -210,7 +210,7 @@ def test_random_yolo_and_weights_forms_equal_jax(pose_vars):
 def test_refusals_and_the_device_rule(pose_vars):
     _, v, _ = pose_vars
     cfg = reduced_cfg(default_config)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="make_mesh"):
         FusedDetectPose(cfg, v, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="quantize mode"):
         FusedDetectPose(cfg, v, device="cpu", quantize="int4")

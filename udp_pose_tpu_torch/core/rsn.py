@@ -20,7 +20,7 @@ from torch.profiler import record_function
 from ..ops.rsn_decode import rsn_decode
 from .infer import RSN_BGR_MEAN, RSN_BGR_STD, make_infer_fn
 from .loss import rsn_multi_stage_loss
-from .train import TrainState, trained_model
+from .train import TrainState, global_means, step_forward, trained_model
 
 # what an RSN train step reads of a batch besides the image
 RSN_BATCH_KEYS = ("labels", "valid")
@@ -90,7 +90,8 @@ def make_rsn_train_step(stage_num: int, ohkm=True, topk=8,
     outputs, at least float32 for the loss), :func:`..core.loss.
     rsn_multi_stage_loss`, backward, an optimizer and a scheduler step;
     ``state`` is updated in place and ``metrics["loss"]`` is a device
-    tensor.  Profiler ranges as in :func:`.train.make_train_step`."""
+    tensor.  Profiler ranges and data parallelism as in
+    :func:`.train.make_train_step`."""
 
     def step(state: TrainState, batch):
         model = state.model
@@ -101,7 +102,7 @@ def make_rsn_train_step(stage_num: int, ohkm=True, topk=8,
                if dtype != torch.float32 else contextlib.nullcontext())
         with record_function("train/forward"):
             with ctx:
-                out = model(x)
+                out = step_forward(state)(x)
             outputs = [[o.to(torch.promote_types(o.dtype, torch.float32))
                         for o in stage] for stage in out]
             loss = rsn_multi_stage_loss(outputs, batch["valid"],
@@ -115,7 +116,7 @@ def make_rsn_train_step(stage_num: int, ohkm=True, topk=8,
             state.optimizer.step()
             state.scheduler.step()
         state.step += 1
-        return {"loss": loss.detach()}
+        return global_means(state, {"loss": loss.detach()})
 
     return step
 

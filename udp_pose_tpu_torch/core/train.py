@@ -55,11 +55,34 @@ def make_optimizer(cfg, params, steps_per_epoch: int):
 @dataclass
 class TrainState:
     """The model with its float32 master weights and BN running stats,
-    its optimizer and scheduler, and the number of steps taken."""
+    its optimizer and scheduler, and the number of steps taken.  Under
+    data parallelism ``ddp`` is ``model`` wrapped by :func:`..parallel.
+    data_parallel`, through which the step runs."""
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     scheduler: Any
     step: int = 0
+    ddp: Any = None
+
+
+def step_forward(state: TrainState):
+    """The module a train step calls: the DDP wrap where there is one."""
+    return state.model if state.ddp is None else state.ddp
+
+
+def global_means(state: TrainState, metrics):
+    """``metrics``' scalar device tensors as means over the ranks under
+    data parallelism (one all-reduce; each rank's loss is the mean over
+    its rows, and every rank holds as many, so the mean of the ranks'
+    is the global batch's); as they are otherwise."""
+    if state.ddp is None:
+        return metrics
+    import torch.distributed as dist
+    names = list(metrics)
+    packed = torch.stack([metrics[k] for k in names])
+    dist.all_reduce(packed, group=state.ddp.process_group)
+    packed /= dist.get_world_size(state.ddp.process_group)
+    return dict(zip(names, packed.unbind()))
 
 
 def trained_model(cfg, model):
@@ -109,7 +132,11 @@ def make_train_step(loss_fn, with_output: bool = False):
     metrics are device tensors (``loss`` and the loss's aux terms; with
     ``with_output`` also the NCHW output), read by the caller only when
     it needs them.  The phases run in ``torch.profiler`` ranges
-    ``train/forward``, ``train/backward`` and ``train/optimizer``.
+    ``train/forward``, ``train/backward`` and ``train/optimizer``.  Under
+    data parallelism (``state.ddp``) the forward runs through the DDP
+    wrap, which averages the gradients over the ranks, and the loss
+    metrics are the global batch's (:func:`global_means`); the output
+    holds this rank's rows.
     """
 
     def step(state: TrainState, batch):
@@ -121,7 +148,7 @@ def make_train_step(loss_fn, with_output: bool = False):
                if dtype != torch.float32 else contextlib.nullcontext())
         with record_function("train/forward"):
             with ctx:
-                out = model(x)
+                out = step_forward(state)(x)
             out = out.float()
             loss, aux = loss_fn(out, batch["target"], batch["target_weight"])
         state.optimizer.zero_grad(set_to_none=True)
@@ -131,8 +158,8 @@ def make_train_step(loss_fn, with_output: bool = False):
             state.optimizer.step()
             state.scheduler.step()
         state.step += 1
-        metrics = {"loss": loss.detach(),
-                   **{k: v.detach() for k, v in aux.items()}}
+        metrics = global_means(state, {
+            "loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}})
         if with_output:
             metrics["output"] = out.detach()
         return metrics

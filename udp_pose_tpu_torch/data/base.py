@@ -291,12 +291,15 @@ def epoch_batch_indices(dataset, batch_size, shuffle=True, seed=0,
 
 
 def epoch_plan_size(dataset, batch_size, shuffle=True, seed=0,
-                    drop_last=True, group_ids=None):
-    """The batches of epoch ``seed``'s plan, counted from the indices
-    alone: no sample is built (a resume skips whole epochs with it,
-    ``tools/train.py:312-320``)."""
+                    drop_last=True, group_ids=None, shard_index=0,
+                    num_shards=1):
+    """The batches of epoch ``seed``'s plan for this shard, counted from
+    the indices alone: no sample is built (a resume skips whole epochs
+    with it, ``tools/train.py:312-320``)."""
     return len(epoch_batch_indices(dataset, batch_size, shuffle=shuffle,
                                    seed=seed, drop_last=drop_last,
+                                   shard_index=shard_index,
+                                   num_shards=num_shards,
                                    group_ids=group_ids))
 
 

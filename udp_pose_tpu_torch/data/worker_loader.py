@@ -61,11 +61,14 @@ def _as_is(batch):
 
 def worker_loader(dataset, batch_size: int, *, seed: int = 0,
                   shuffle: bool = True, num_workers: int = 4,
+                  shard_index: int = 0, num_shards: int = 1,
                   multiprocessing_context=None, timeout: float = 0):
     """A ``DataLoader`` over epoch ``seed``'s batch plan of ``dataset``
     (:func:`.base.epoch_batch_indices` with the same arguments: full
-    batches only), whose ``num_workers`` processes each build whole
-    batches.
+    batches only, of shard ``shard_index`` of ``num_shards``), whose
+    ``num_workers`` processes each build whole batches.  Each record is
+    seeded by its index, so the shards of a data-parallel epoch build
+    the records a one-process epoch at the same global batch builds.
 
     ``multiprocessing_context``: how the workers start (None: the
     platform's default, ``fork`` on Linux, right for the trainer, which
@@ -73,7 +76,8 @@ def worker_loader(dataset, batch_size: int, *, seed: int = 0,
     is unsafe, which needs a dataset that pickles).  ``timeout``: seconds
     to wait for a batch before raising (0: forever)."""
     plan = epoch_batch_indices(dataset, batch_size, shuffle=shuffle,
-                               seed=seed)
+                               seed=seed, shard_index=shard_index,
+                               num_shards=num_shards)
     workers = int(num_workers)
     return torch.utils.data.DataLoader(
         PlannedBatches(dataset, plan, seed), batch_size=None,

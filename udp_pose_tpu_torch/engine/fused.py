@@ -25,6 +25,13 @@ int8 (``quantize="int8"``): the YOLOv5 and pose convs run w8a8 through
 the int8 conv kernels (:mod:`..models.quantize`); the detector calibrates
 itself on its first host-letterboxed canvases, the pose net on the
 low-bw stream's host crops or else from a given table.
+
+``mesh=`` (local cards, :func:`..parallel.make_mesh`): a chunk of
+:meth:`FusedDetectPose.infer_frames` is padded to a multiple of the
+mesh's size by repeating its last frame and split over the cards (the
+JAX engine's ``fused.py:577-597``), each running the whole path on its
+frames with replicas of the two models; the other modes run on the
+first card.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from .errors import EngineStateError
-from .pose_engine import tile_first, upload
+from .pose_engine import on_card, tile_first, upload
 
 
 def _not_ported(what):
@@ -56,6 +63,9 @@ class FusedDetectPose:
     None).  ``yolo_weights``: the JAX package's YOLOv5 variables, a state
     dict (the port's or ultralytics'), or a ``.pt`` / ``.pth`` path of an
     ultralytics state dict; None keeps the seeded random init.
+    ``mesh``: the local cards :meth:`infer_frames` splits a chunk over
+    (given to the pose pipeline, or that pipeline's own; by default its
+    one card).
     ``quantize="int8"``, ``pose_act_scales``, ``det_act_scales``: int8
     serving of the two subgraphs (tables as dicts or json paths).
     """
@@ -71,8 +81,6 @@ class FusedDetectPose:
         from ..utils.convert import load_yolov5_weights, state_dict_to_torch
         from .pose_engine import UdpPosePipeline
 
-        if mesh is not None:
-            raise _not_ported("mesh= (frames over several cards)")
         # int8 PTQ serving (models/quantize.py), per subgraph as in the
         # JAX package (fused.py:51-79 there): an explicit quantize= wins
         # ("" is off), else the subgraph's own table asks for int8, else
@@ -82,16 +90,17 @@ class FusedDetectPose:
         # the host, calibrates the pose net itself.
         if isinstance(pose_cfg, UdpPosePipeline):
             if (pose_weights is not None or flip_test is not None
-                    or pose_act_scales is not None):
-                raise ValueError("pose_weights, flip_test and "
-                                 "pose_act_scales belong to the given "
-                                 "UdpPosePipeline")
+                    or pose_act_scales is not None or mesh is not None):
+                raise ValueError("pose_weights, flip_test, "
+                                 "pose_act_scales and mesh belong to the "
+                                 "given UdpPosePipeline")
             self._pose = pose_cfg
         else:
             self._pose = UdpPosePipeline(pose_cfg, pose_weights,
                                          flip_test=flip_test, device=device,
                                          seed=seed, quantize=quantize,
-                                         act_scales=pose_act_scales)
+                                         act_scales=pose_act_scales,
+                                         mesh=mesh)
         cfg = self._pose.cfg
         if self._pose.bgr:
             # the single-dispatch graph decodes with the fused UDP offset
@@ -101,6 +110,7 @@ class FusedDetectPose:
                               "graph; the two-stage infer --detector "
                               "without --fused serves it")
         self.device = self._pose.device
+        self.mesh = self._pose.mesh
         self.num_joints = self._pose.num_joints
         self.max_persons = int(max_persons)
         self.det_size = int(det_size)
@@ -119,6 +129,8 @@ class FusedDetectPose:
         self.det_int8 = SelfCalibrating(
             self.yolo, quantize, det_act_scales,
             cfg.TPU.QUANTIZE_CALIB_BATCHES, default=cfg.TPU.QUANTIZE)
+        # the detector serving now, replicated on each mesh card
+        self._det_replicas = {}
 
     # ------------------------------------------------------------- int8
 
@@ -217,21 +229,40 @@ class FusedDetectPose:
                            (by[..., 1] + pad).clamp_max(float(H))], -1)
         return out, sc, valid
 
+    def _detector(self):
+        return self.det_int8.active() if self.det_int8.quantize else self.yolo
+
     def _detect(self, canvases):
         """(F, 3, h, w) float canvases in [0, 255] → raw predictions."""
-        yolo = self.det_int8.active() if self.det_int8.quantize else self.yolo
-        return yolo(canvases / 255.0)
+        return self._detector()(canvases / 255.0)
+
+    def _member(self, i):
+        """Mesh card ``i``'s (device, detector, pose graph): the first
+        card's the engine's own models, the others' replicas made at
+        first use (:func:`..parallel.replicate`; the pose pipeline's
+        through :meth:`.pose_engine.UdpPosePipeline.infer_fn`)."""
+        det = self._detector()
+        replicas = self._det_replicas.get(id(det))
+        if replicas is None:
+            from ..parallel import replicate
+            replicas = [det] + [replicate(det, d)
+                                for d in self.mesh.devices[1:]]
+            self._det_replicas = {id(det): replicas}
+        return (self.mesh.devices[i],
+                lambda canvases: replicas[i](canvases / 255.0),
+                lambda crops, center, scale: self._pose.infer_fn(
+                    crops, center, scale, card=i))
 
     # ---------------------------------------------------- the device path
 
     @torch.inference_mode()
-    def _run(self, frames_u8, mark=None):
+    def _run(self, frames_u8, mark=None, member=0):
         """(F, H, W, 3) u8 frames (numpy) → the device tensors of the
         result: preds (F, M, J, 2), maxvals (F, M, J, 1), boxes (F, M, 4),
-        scores (F, M), valid (F, M).  ``mark(stage)``, where given, is
-        called as each stage has been enqueued (a profiler's hook: upload,
-        letterbox, detector, nms, crop, pose; the pose stage ends with the
-        decode)."""
+        scores (F, M), valid (F, M), on mesh card ``member``.
+        ``mark(stage)``, where given, is called as each stage has been
+        enqueued (a profiler's hook: upload, letterbox, detector, nms,
+        crop, pose; the pose stage ends with the decode)."""
         from ..ops.affine import classic_affine_matrix, crop_boxes
         from ..ops.boxes import xyxy_to_cs
 
@@ -240,11 +271,12 @@ class FusedDetectPose:
         M, J = self.max_persons, self.num_joints
         pw, ph = self._pose.input_wh
         g = self._letterbox_geom(H, W)
-        frames = upload(frames_u8, self.device)
+        device, detect, pose = self._member(member)
+        frames = upload(frames_u8, device)
         mark("upload")
         canvases = self._letterbox(frames.float(), g)
         mark("letterbox")
-        pred = self._detect(canvases)
+        pred = detect(canvases)
         mark("detector")
         boxes, scores, valid = self._det_post(pred, g, H, W)
         mark("nms")
@@ -254,8 +286,8 @@ class FusedDetectPose:
         # gathered from the u8 frame, the same values in a quarter the bytes
         crops = crop_boxes(frames, mats.reshape(n_frames, M, 2, 3), (ph, pw))
         mark("crop")
-        preds, maxvals, _ = self._pose.infer_fn(
-            crops.reshape(n_frames * M, ph, pw, 3), center, scale)
+        preds, maxvals, _ = pose(crops.reshape(n_frames * M, ph, pw, 3),
+                                 center, scale)
         mark("pose")
         return (preds.reshape(n_frames, M, J, 2),
                 maxvals.reshape(n_frames, M, J, 1), boxes, scores, valid)
@@ -308,19 +340,31 @@ class FusedDetectPose:
     def infer_frames(self, frames):
         """Video chunks: frames (F, H, W, 3) RGB u8 → a list of F
         :meth:`infer_frame` dicts.  One detector batch of F canvases, one
-        batched NMS and one pose batch of F·``max_persons`` crops."""
+        batched NMS and one pose batch of F·``max_persons`` crops a mesh
+        card, F padded to a multiple of the mesh's size."""
         from ..ops.yolo import letterbox
         frames = np.asarray(frames)
-        if frames.shape[0] == 0:
+        n_frames = frames.shape[0]
+        if n_frames == 0:
             return []
         self._require_pose_calibrated("infer_frames")
         while self.det_int8.calibrating:
             # calibrate on the chunk's leading frames (cycling when the
             # chunk is shorter than the budget), then run it all int8
             self._calibrate_det(letterbox(
-                frames[self.det_int8.calib.seen % frames.shape[0]],
+                frames[self.det_int8.calib.seen % n_frames],
                 self.det_size))
-        return self._readback(self._run(frames))
+        from ..parallel import padded_rows, shard_rows
+        pad = padded_rows(n_frames, self.mesh.size) - n_frames
+        if pad:
+            frames = np.concatenate([frames, np.repeat(frames[-1:], pad, 0)])
+        handles = []
+        for i, dev in enumerate(self.mesh.devices):
+            with on_card(dev):
+                handles.append(self._run(
+                    frames[shard_rows(len(frames), i, self.mesh.size)],
+                    member=i))
+        return [out for h in handles for out in self._readback(h)][:n_frames]
 
     # ------------------------------------------------- low-bandwidth mode
 

@@ -13,10 +13,18 @@ make_rsn_infer_fn` on the crops in BGR order.  Box → crop geometry is
 the reference's: xyxy → center/scale with the model aspect ratio and
 ×1.25 (:55-63), then the classic 3-point affine
 (tools/infer_utils/utils.py:157-177).
+
+With ``mesh=`` (:func:`..parallel.make_mesh` over local cards) a batch
+is padded to a multiple of the mesh's size and split over its cards, as
+the JAX engine shards crop batches over the data axis
+(``udp_pose_tpu/engine/pose_engine.py:244-270``): each card holds a
+replica of the serving model and runs its rows' forward and decode on
+its own stream, and the host gathers the results.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
@@ -48,6 +56,14 @@ def tile_first(pad, *arrays):
                  for a in arrays)
 
 
+def on_card(device):
+    """``device`` made the current card for a block (its current stream
+    is then the one its work goes to); nothing for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 def upload(array, device):
     """A host array onto ``device`` without waiting for it: staged in
     pinned memory when the device is a card, then copied on the current
@@ -71,17 +87,35 @@ class UdpPosePipeline:
     ``quantize="int8"`` serves w8a8 convs (:mod:`..models.quantize`);
     ``act_scales`` is a calibration table (dict or json path), and without
     one the first ``calib_batches`` batches (default
-    ``TPU.QUANTIZE_CALIB_BATCHES``) calibrate it.
+    ``TPU.QUANTIZE_CALIB_BATCHES``) calibrate it.  ``mesh``: the local
+    cards (:func:`..parallel.make_mesh`) that :meth:`infer_pose` and
+    :meth:`infer_crops` split their batches over (default: ``device``
+    alone); the model lives on the first, which ``device`` must name (by
+    type), and the calibration batches of int8 serve there alone.
     """
 
     def __init__(self, cfg, weights=None, flip_test=None, device="cuda",
-                 seed=0, quantize=None, act_scales=None, calib_batches=None):
+                 seed=0, quantize=None, act_scales=None, calib_batches=None,
+                 mesh=None):
         from ..config import Node, load_config
         from ..core.infer import COCO_FLIP_PAIRS, MPII_FLIP_PAIRS
         from ..models import build_model
         from ..models.quantize import SelfCalibrating
+        from ..parallel import Mesh, make_mesh
 
         self.device = resolve_device(device)
+        if mesh is None:
+            mesh = make_mesh([self.device])
+        elif not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh={mesh!r}: give the local cards as "
+                            "parallel.make_mesh([...])")
+        elif mesh.devices[0].type != self.device.type:
+            raise ValueError(f"device {device!r} is not the mesh's "
+                             f"first card {mesh.devices[0]}")
+        self.mesh = mesh
+        self.device = mesh.devices[0]
+        # serving graphs of a model on each mesh card, by the model's id
+        self._mesh_infers = {}
         if not isinstance(cfg, Node):
             cfg = load_config(cfg)
         self.cfg = cfg
@@ -137,11 +171,53 @@ class UdpPosePipeline:
             self._infer_q = self._make_infer(model)
         return self._infer_q
 
-    def infer_fn(self, crops, center, scale):
+    def mesh_infers(self):
+        """The graph that serves now (:meth:`active_infer`) on each mesh
+        card, the first card's that graph itself, the others' over
+        replicas of its model (:func:`..parallel.replicate`) made at
+        first use."""
+        model = self.int8.active()
+        infers = self._mesh_infers.get(id(model))
+        if infers is None:
+            from ..parallel import replicate
+            infers = [self.active_infer()] + [
+                self._make_infer(replicate(model, d))
+                for d in self.mesh.devices[1:]]
+            self._mesh_infers = {id(model): infers}
+        return infers
+
+    def _bucket(self, n):
+        """The padded batch of ``n`` rows: its power-of-two bucket, a
+        multiple of the mesh's size."""
+        from ..parallel import padded_rows
+        return padded_rows(_next_bucket(n), self.mesh.size)
+
+    def _serve(self, rows_of, center, scale, n):
+        """Serve a bucket-padded batch → numpy (keypoints (n, J, 2),
+        maxvals (n, J, 1)) of its first ``n`` rows, split over the mesh:
+        each card serves ``rows_of(device, rows)`` (its crops of the rows
+        ``rows``, in the model's channel order, on that card) with its
+        replica; every card's work is enqueued before the host reads any
+        result."""
+        from ..parallel import shard_rows
+        outs = []
+        for i, (dev, infer) in enumerate(zip(self.mesh.devices,
+                                             self.mesh_infers())):
+            rows = shard_rows(len(center), i, self.mesh.size)
+            with on_card(dev):
+                outs.append(infer(rows_of(dev, rows), center[rows],
+                                  scale[rows])[:2])
+        preds = np.concatenate([p.cpu().numpy() for p, _ in outs])
+        maxvals = np.concatenate([m.cpu().numpy() for _, m in outs])
+        return preds[:n], maxvals[:n]
+
+    def infer_fn(self, crops, center, scale, card=0):
         """(B, h, w, 3) RGB crops (u8 or float in [0, 255], numpy or
-        tensors) + (B, 2) center/scale → device tensors (preds (B, J, 2),
-        maxvals (B, J, 1), heatmaps or None) through :meth:`active_infer`."""
-        return self.active_infer()(self._model_order(crops), center, scale)
+        tensors, on mesh card ``card``) + (B, 2) center/scale → device
+        tensors (preds (B, J, 2), maxvals (B, J, 1), heatmaps or None)
+        through that card's graph of :meth:`mesh_infers`."""
+        return self.mesh_infers()[card](self._model_order(crops), center,
+                                        scale)
 
     def _model_order(self, x):
         """RGB images (..., 3) in the channel order the model reads: BGR
@@ -171,17 +247,13 @@ class UdpPosePipeline:
         self.int8.record(cast_to_compute_dtype(self.model, x)
                          .permute(0, 3, 1, 2))
 
-    def _serve(self, x, center, scale, n):
-        """Serve a bucket-padded batch ``x`` in the model's channel order
-        → numpy (keypoints (n, J, 2), maxvals (n, J, 1)) of its first
-        ``n`` rows.  While int8 calibrates, the padded batch is recorded
-        and served in float, the freeze batch included
-        (pose_engine.py:127-138, :273-284 there)."""
-        calibrating = self.int8.calibrating
-        if calibrating:
-            self._record(x)
-        infer = self._infer_fp if calibrating else self.active_infer()
-        preds, maxvals, _ = infer(x, center, scale)
+    def _serve_calibrating(self, x, center, scale, n):
+        """A calibration batch: the bucket-padded batch ``x`` (the model's
+        channel order) recorded and served in float on the first card,
+        the freeze batch included (pose_engine.py:127-138, :273-284
+        there) → numpy of its first ``n`` rows."""
+        self._record(x)
+        preds, maxvals, _ = self._infer_fp(x, center, scale)
         return preds.cpu().numpy()[:n], maxvals.cpu().numpy()[:n]
 
     def load_weights(self, weights):
@@ -195,37 +267,45 @@ class UdpPosePipeline:
         else:
             sd = weights
         self.model.load_state_dict(state_dict_to_torch(sd), strict=True)
+        self._mesh_infers = {}
 
     def infer_crops(self, crops_u8, center, scale):
         """(n, h, w, 3) RGB u8 crops + (n, 2) center/scale → numpy
         (keypoints (n, J, 2), maxvals (n, J, 1)).  A host batch is padded
         to its power-of-two bucket by repeating the first crop; a batch of
         tensors already on the device must come padded to its bucket
-        (``CropBatcher(pad_on_device=True)``)."""
+        (``CropBatcher(pad_on_device=True)``).  Over a mesh the bucket is
+        also a multiple of the mesh's size, and each card takes its rows."""
         n = crops_u8.shape[0]
-        pad = _next_bucket(n) - n
+        pad = self._bucket(n) - n
         if pad:
             if torch.is_tensor(crops_u8):
                 raise ValueError(f"{n} device crops: pad them to the bucket "
                                  f"({n + pad}) on the device first")
             crops_u8, center, scale = tile_first(pad, crops_u8, center, scale)
-        return self._serve(self._model_order(crops_u8), center, scale, n)
+        if self.int8.calibrating:
+            return self._serve_calibrating(self._model_order(crops_u8),
+                                           center, scale, n)
+        return self._serve(
+            lambda dev, rows: self._model_order(
+                crops_u8[rows].to(dev) if torch.is_tensor(crops_u8)
+                else crops_u8[rows]), center, scale, n)
 
-    def crop_frame(self, img, center, scale):
+    def crop_frame(self, img, center, scale, device=None):
         """The frame's person crops on the device: ``img`` (H, W, 3) RGB u8
         uploaded once as u8, the destination → source classic affine of
         each (center, scale) row (:func:`..ops.affine.
         classic_affine_matrix`, inverted), and the bilinear warp
         (:func:`..ops.affine.crop_boxes`) → (B, h, w, 3) float32 crops in
         [0, 255], not rounded, as the JAX graph makes them
-        (``udp_pose_tpu/engine/pose_engine.py:192-205``)."""
+        (``udp_pose_tpu/engine/pose_engine.py:192-205``), on ``device``
+        (default: the pipeline's)."""
         from ..ops.affine import classic_affine_matrix, crop_boxes
         w, h = self.input_wh
-        frame = upload(img, self.device)
-        center = torch.as_tensor(center, dtype=torch.float32,
-                                 device=self.device)
-        scale = torch.as_tensor(scale, dtype=torch.float32,
-                                device=self.device)
+        device = self.device if device is None else device
+        frame = upload(img, device)
+        center = torch.as_tensor(center, dtype=torch.float32, device=device)
+        scale = torch.as_tensor(scale, dtype=torch.float32, device=device)
         mats = classic_affine_matrix(center, scale, 0.0, (w, h), inv=True)
         return crop_boxes(frame, mats, (h, w))
 
@@ -234,7 +314,8 @@ class UdpPosePipeline:
         """img (H, W, 3) RGB uint8; boxes (N, ≥4) xyxy.
         Returns (keypoints (N, J, 2) float32, maxvals (N, J, 1)): the boxes
         padded to their bucket by repeating the first, the crops warped on
-        the device (:meth:`crop_frame`), then the serving graph."""
+        the device (:meth:`crop_frame`), then the serving graph.  Over a
+        mesh every card gets the frame and warps its own rows' crops."""
         from ..ops.boxes import xyxy_to_cs
 
         boxes = np.asarray(boxes, np.float32)
@@ -243,9 +324,15 @@ class UdpPosePipeline:
             return (np.zeros((0, self.num_joints, 2), np.float32),
                     np.zeros((0, self.num_joints, 1), np.float32))
         center, scale = xyxy_to_cs(boxes[:, :4], self.input_wh)
-        center, scale = tile_first(_next_bucket(n) - n, center, scale)
-        crops = self.crop_frame(img, center, scale)
-        return self._serve(self._model_order(crops), center, scale, n)
+        center, scale = tile_first(self._bucket(n) - n, center, scale)
+        if self.int8.calibrating:
+            crops = self.crop_frame(img, center, scale)
+            return self._serve_calibrating(self._model_order(crops), center,
+                                           scale, n)
+        return self._serve(
+            lambda dev, rows: self._model_order(self.crop_frame(
+                img, center[rows], scale[rows], device=dev)), center, scale,
+            n)
 
     def draw_keypoints(self, image, keypoints, radius=1):
         """Draw ``keypoints`` (N, J, 2) and the skeleton on ``image`` in

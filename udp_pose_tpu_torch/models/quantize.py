@@ -39,6 +39,7 @@ from typing import Dict, Iterable, Mapping, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -350,12 +351,16 @@ class FakeQuantConv2d(nn.Module):
     weights to the per-output-channel grid, the conv runs in float32 so
     that gradients flow through the STE.  ``amax`` None takes each
     batch's own amax (training); a float freezes the deployment grid.
-    The conv's parameters are the original's."""
+    The conv's parameters are the original's.  ``amax_group``, set by
+    :func:`..parallel.data_parallel`: the batch's amax is the maximum
+    over that process group's ranks (a global batch's, as the JAX
+    package's sharded step takes it); None keeps this process's."""
 
     def __init__(self, conv: nn.Conv2d, amax=None):
         super().__init__()
         self.conv = conv
         self.amax = amax
+        self.amax_group = None
 
     def forward(self, x):
         conv = self.conv
@@ -365,7 +370,11 @@ class FakeQuantConv2d(nn.Module):
         k_q = _ste(k, torch.clamp(torch.round(k / s_w), -127, 127) * s_w)
         x_f = x.float()
         if self.amax is None:
-            s_a = _scale_of(x_f.detach().abs().amax())
+            amax = x_f.detach().abs().amax()
+            if self.amax_group is not None:
+                dist.all_reduce(amax, dist.ReduceOp.MAX,
+                                group=self.amax_group)
+            s_a = _scale_of(amax)
         else:
             s_a = torch.tensor(np.float32(act_scale(self.amax)),
                                device=x.device)

@@ -11,7 +11,11 @@ flip-test validation of :mod:`.core.validate` and prints the AP table;
 ``TPU.QUANTIZE int8`` evaluates w8a8 serving calibrated on the first
 ``TPU.QUANTIZE_CALIB_BATCHES`` val batches, ``TPU.QAT int8`` the
 fake-quant grid.
-Runs on the card unless given ``--device cpu``.
+Runs on the card unless given ``--device cpu``.  Under ``torchrun``
+(``torchrun --nproc_per_node N -m udp_pose_tpu_torch.test ...``) every
+rank loads the weights and decodes its shard of the val set on its own
+card; the decoded arrays are gathered and every rank prints the same AP
+(rank 0 alone logs and writes the results file).
 """
 
 from __future__ import annotations
@@ -25,9 +29,11 @@ logger = logging.getLogger(__name__)
 def run(cfg, weight_file, val_ds, out_dir="", device="cuda"):
     """Validate ``cfg``'s serving model with the weights of ``weight_file``
     (None or a missing file: the seeded random init) on ``val_ds``;
-    returns (name_values, perf)."""
+    returns (name_values, perf).  In a process group each rank evaluates
+    its shard (:func:`.core.validate.validate`)."""
     from .core.validate import validate
     from .models import build_model
+    from .parallel import process_shard_info
     from .utils.convert import read_weights, state_dict_to_torch
     from .utils.logging import print_name_value
 
@@ -55,7 +61,11 @@ def run(cfg, weight_file, val_ds, out_dir="", device="cuda"):
                     "sites")
     elif cfg.TPU.QUANTIZE:
         raise ValueError(f"unknown TPU.QUANTIZE mode {cfg.TPU.QUANTIZE!r}")
-    name_values, perf = validate(cfg, val_ds, model, out_dir)
+    shard_index, num_shards = process_shard_info()
+    name_values, perf = validate(cfg, val_ds, model,
+                                 out_dir if shard_index == 0 else "",
+                                 shard_index=shard_index,
+                                 num_shards=num_shards)
     print_name_value(logger, name_values, cfg.MODEL.NAME)
     logger.info(f"=> perf: {perf:.4f}")
     return name_values, perf
@@ -63,9 +73,8 @@ def run(cfg, weight_file, val_ds, out_dir="", device="cuda"):
 
 def main(argv=None):
     from .config import default_config, update_config
-    from .data import build_dataset
+    from .parallel import is_writer, process_group
     from .train import parse_args, refuse_unported
-    from .utils.logging import create_logger
     from .utils.platform import resolve_device
 
     args = parse_args(argv)
@@ -73,7 +82,16 @@ def main(argv=None):
     cfg = default_config()
     update_config(cfg, args)
     refuse_unported(cfg)
-    _, final_output_dir, _ = create_logger(cfg, args.cfg, "valid")
+    with process_group(args.device) as dp_device:
+        return _main(cfg, args, device if dp_device is None else dp_device,
+                     is_writer())
+
+
+def _main(cfg, args, device, writer):
+    from .data import build_dataset
+    from .utils.logging import create_logger
+    _, final_output_dir, _ = create_logger(cfg, args.cfg, "valid",
+                                           write=writer)
     weight_file = cfg.TEST.MODEL_FILE
     if not weight_file:
         # the port's own run, else one of the JAX trainer's

@@ -23,6 +23,17 @@ reads nowhere, is ignored.  The weights are torch state dicts in the
 reference key names, which ``UdpPosePipeline(cfg, weights=...)`` and
 ``serve --weights`` load with ``strict=True``.  Runs on the card unless
 given ``--device cpu``.
+
+Under ``torchrun`` (or the JAX CLIs' ``JAX_NUM_PROCESSES``,
+``JAX_PROCESS_ID``, ``JAX_COORDINATOR``) every process trains on its own
+card, NCCL between them (gloo with ``--device cpu``)::
+
+    torchrun --nproc_per_node N -m udp_pose_tpu_torch.train --cfg <yaml>
+
+The global batch is ``TRAIN.BATCH_SIZE_PER_GPU`` × N, each rank loads
+its shard of it, the BatchNorm statistics are the global batch's and
+the gradients are averaged (:mod:`.parallel`), so the run follows the
+JAX package's sharded step; rank 0 alone logs and writes files.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ import time
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 logger = logging.getLogger(__name__)
 
@@ -77,16 +89,25 @@ def set_cudnn(cfg):
 def main(argv=None):
     args = parse_args(argv)
     from .config import default_config, update_config
+    from .parallel import is_writer, process_group
     from .utils.platform import resolve_device
     device = resolve_device(args.device)
     cfg = default_config()
     update_config(cfg, args)
     refuse_unported(cfg)
+    # torchrun's (or the JAX CLIs') variables: join the process group,
+    # on the card of this process's local rank
+    with process_group(args.device) as dp_device:
+        return _main(cfg, args, device if dp_device is None else dp_device,
+                     is_writer())
 
+
+def _main(cfg, args, device, writer):
     from .data import build_dataset
     from .models import build_model
     from .utils.logging import create_logger
-    _, final_output_dir, _ = create_logger(cfg, args.cfg, "train")
+    _, final_output_dir, _ = create_logger(cfg, args.cfg, "train",
+                                           write=writer)
     logger.info(f"device: {device}"
                 + (f" ({torch.cuda.get_device_name(device)})"
                    if device.type == "cuda" else ""))
@@ -113,26 +134,27 @@ class RSNSchedule(NamedTuple):
     warmup_iters: int
 
 
-def rsn_schedule(cfg, steps_per_epoch: int) -> RSNSchedule:
-    """RSN's schedule on one card (``tools/train.py:157-183`` with one
-    device).  Iteration mode (``TRAIN.MAX_ITER`` > 0) scales the
-    ``ITER_BASELINE_DEVICES``-device recipe to one device: the iteration
-    count and checkpoint period by ``ITER_BASELINE_DEVICES`` (×8), the
-    LR by 1 (RSN train.py:36-38, solver.py:11), the warmup
-    ``WARMUP_ITERS``.  Epoch mode: ``steps_per_epoch · END_EPOCH`` steps
-    at ``LR``, a warmup of min(1000, steps_per_epoch)."""
+def rsn_schedule(cfg, steps_per_epoch: int, n_dev: int = 1) -> RSNSchedule:
+    """RSN's schedule on ``n_dev`` cards (``tools/train.py:157-183``).
+    Iteration mode (``TRAIN.MAX_ITER`` > 0) scales the
+    ``ITER_BASELINE_DEVICES``-device recipe to ``n_dev`` devices: the
+    iteration count and checkpoint period by ``ITER_BASELINE_DEVICES /
+    n_dev``, the LR up by ``n_dev`` (RSN train.py:36-38, solver.py:11),
+    the warmup ``WARMUP_ITERS``.  Epoch mode: ``steps_per_epoch ·
+    END_EPOCH`` steps at ``LR``, a warmup of min(1000,
+    steps_per_epoch)."""
     t = cfg.TRAIN
     if t.MAX_ITER > 0:
-        scale = t.ITER_BASELINE_DEVICES
+        scale = t.ITER_BASELINE_DEVICES / n_dev
         return RSNSchedule(max(int(t.MAX_ITER * scale), 2),
                            max(int(t.CHECKPOINT_PERIOD * scale), 1),
-                           t.LR, t.WARMUP_ITERS)
+                           t.LR * n_dev, t.WARMUP_ITERS)
     return RSNSchedule(max(steps_per_epoch * t.END_EPOCH, 2), 0, t.LR,
                        min(1000, steps_per_epoch))
 
 
 def infinite_batches(dataset, batch_size, shuffle, epoch_batches,
-                     group_ids=None, skip=0):
+                     group_ids=None, skip=0, shard_index=0, num_shards=1):
     """RSN's endless batch stream (the IterationBasedBatchSampler, cvpack
     iteration_based_batch_sampler.py:5-31): epoch ``p`` = 0, 1, ... in
     turn, each its epoch-seeded plan through ``epoch_batches(p)``; yields
@@ -142,12 +164,14 @@ def infinite_batches(dataset, batch_size, shuffle, epoch_batches,
     seeded anew, so nothing is lost), the partial epoch by building its
     prefix and throwing it away, so that the draws of the in-process
     loader's one generator replay and the stream goes on as the
-    uninterrupted run's.  Raises when an epoch's plan holds no batch."""
+    uninterrupted run's.  ``batch_size`` and the plans are this shard's
+    of ``num_shards``.  Raises when an epoch's plan holds no batch."""
     from .data.base import epoch_plan_size
     p = 0
     while True:
         size = epoch_plan_size(dataset, batch_size, shuffle=shuffle, seed=p,
-                               group_ids=group_ids)
+                               group_ids=group_ids, shard_index=shard_index,
+                               num_shards=num_shards)
         if not size:
             raise RuntimeError(
                 f"epoch {p} produced no batches (dataset size "
@@ -205,7 +229,18 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
     (``load_s``) and the whole iteration (``iter_s``, host clock; no
     per-step synchronise); per validation its seconds, crop count and
     AP; the last ``name_values``, the best AP, the checkpoints written
-    and whether the guard stopped the run (``preempted``)."""
+    and whether the guard stopped the run (``preempted``).
+
+    In a ``torch.distributed`` process group (:func:`main` under
+    ``torchrun``) the run is data-parallel over the group's ranks, each
+    on its own ``device``: a global batch of ``TRAIN.BATCH_SIZE_PER_GPU``
+    × world rows, each rank loading its shard (``TPU.MESH.DATA`` -1 or
+    the world size), the BatchNorm statistics of the global batch and
+    the gradients averaged (:func:`..parallel.data_parallel`); RSN's
+    iteration mode scales by the world size (:func:`rsn_schedule`); the
+    guard is polled over every rank at ``PRINT_FREQ`` steps; validation
+    decodes a shard a rank and gathers; rank 0 alone writes files, and
+    every rank loads a checkpoint it resumes from."""
     from .core.accuracy import pck_accuracy
     from .core.loss import make_loss_fn
     from .core.rsn import (RSN_BATCH_KEYS, create_rsn_train_state,
@@ -216,6 +251,8 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
     from .data.prefetch import device_prefetch
     from .data.worker_loader import worker_loader
     from .models import build_model
+    from .parallel import (data_axis_size, data_parallel, is_writer,
+                           process_shard_info)
     from .utils import checkpoint as ckpt
     from .utils.logging import AverageMeter, print_name_value
     from .utils.platform import resolve_device
@@ -223,18 +260,26 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
 
     refuse_unported(cfg)
     device = resolve_device(device)
+    n_dev = data_axis_size(cfg)
+    shard_index, num_shards = process_shard_info()
+    writer = is_writer()
     if cfg.MODEL.INIT_WEIGHTS and cfg.MODEL.PRETRAINED:
         # the reference's model.init_weights(PRETRAINED) (tools/train.py:
         # 91-116): a partial or backbone-only file onto the fresh init
         n = ckpt.load_pretrained(model, cfg.MODEL.PRETRAINED, cfg)
         logger.info(f"=> loaded pretrained {cfg.MODEL.PRETRAINED} "
                     f"({n} leaves)")
+    # this rank loads its share of the global batch over every rank
     batch_size = cfg.TRAIN.BATCH_SIZE_PER_GPU
-    steps_per_epoch = max(len(train_ds) // batch_size, 1)
+    global_batch = batch_size * n_dev
+    steps_per_epoch = max(len(train_ds) // global_batch, 1)
+    if num_shards > 1:
+        logger.info(f"data parallel: rank {shard_index} of {num_shards}, "
+                    f"global batch {global_batch}, local {batch_size}")
     is_rsn = cfg.MODEL.NAME == "rsn"
     sched = None
     if is_rsn:
-        sched = rsn_schedule(cfg, steps_per_epoch)
+        sched = rsn_schedule(cfg, steps_per_epoch, n_dev)
         state = create_rsn_train_state(cfg, model, sched.base_lr,
                                        sched.max_iters, sched.warmup_iters)
         step_fn = make_rsn_train_step(
@@ -245,6 +290,10 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
         state = create_train_state(cfg, model, steps_per_epoch)
         step_fn = make_train_step(make_loss_fn(cfg), with_output=True)
         upload, keys = upload_batch, ("image", "target", "target_weight")
+    if dist.is_initialized():
+        # a process group: the step runs through DDP with the global
+        # batch's BatchNorm, every rank from rank 0's tensors
+        state.ddp = data_parallel(state.model)
     iter_mode = is_rsn and cfg.TRAIN.MAX_ITER > 0
     eval_model = build_model(cfg, device=device)
     # QAT validates through the fake-quant grid too; the wrapper shares
@@ -289,13 +338,19 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
             return device_prefetch(
                 worker_loader(train_ds, batch_size, seed=epoch,
                               shuffle=cfg.TRAIN.SHUFFLE,
-                              num_workers=cfg.WORKERS), device, keys=keys)
+                              num_workers=cfg.WORKERS,
+                              shard_index=shard_index,
+                              num_shards=num_shards), device, keys=keys)
         train_ds.seed(epoch)
         return epoch_loader(train_ds, batch_size, shuffle=cfg.TRAIN.SHUFFLE,
-                            seed=epoch, group_ids=group_ids)
+                            seed=epoch, group_ids=group_ids,
+                            shard_index=shard_index, num_shards=num_shards)
 
-    def stop():
-        return guard is not None and guard.should_stop()
+    def stop(i):
+        # over several ranks the flag is OR-reduced (a collective every
+        # rank reaches) at the steps that already wait for the card
+        return guard is not None and guard.should_stop(
+            num_shards, sync=i % cfg.PRINT_FREQ == 0)
 
     record = {"steps": [], "validations": [], "best_perf": 0.0,
               "name_values": None, "checkpoints": [], "preempted": False}
@@ -303,7 +358,10 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
     def validated(epoch):
         t0 = time.perf_counter()
         serving_copy(model, eval_model)
-        name_values, perf = validate(cfg, val_ds, eval_net, out_dir)
+        name_values, perf = validate(cfg, val_ds, eval_net,
+                                     out_dir if writer else "",
+                                     shard_index=shard_index,
+                                     num_shards=num_shards)
         record["validations"].append({
             "epoch": epoch, "seconds": time.perf_counter() - t0,
             "crops": len(val_ds), "perf": perf})
@@ -330,7 +388,7 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
     if iter_mode:
         # iteration-based RSN training (tools/train.py:320-420)
         logger.info(f"iteration mode: {sched.max_iters} iters (x"
-                    f"{cfg.TRAIN.ITER_BASELINE_DEVICES:g} of "
+                    f"{cfg.TRAIN.ITER_BASELINE_DEVICES / n_dev:g} of "
                     f"{cfg.TRAIN.MAX_ITER}), lr {sched.base_lr}, ckpt every "
                     f"{sched.ckpt_period}")
 
@@ -345,7 +403,9 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
         if start_iter:
             logger.info(f"=> resumed at iteration {start_iter}")
         stream = infinite_batches(train_ds, batch_size, cfg.TRAIN.SHUFFLE,
-                                  epoch_batches, group_ids, skip=start_iter)
+                                  epoch_batches, group_ids, skip=start_iter,
+                                  shard_index=shard_index,
+                                  num_shards=num_shards)
         loss_sum = None
         t_iter = time.perf_counter()
         try:
@@ -367,7 +427,7 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
                 if (it + 1) % sched.ckpt_period == 0:
                     save_iter(it)
                 t_iter = iteration_ended(t_iter)
-                if stop():
+                if stop(it):
                     save_iter(it)
                     record["preempted"] = True
                     logger.info(f"=> preempted: saved iteration checkpoint "
@@ -413,14 +473,14 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
                     if i % cfg.PRINT_FREQ == 0:
                         if not is_rsn:
                             # train-time PCK@0.5 on the heatmap argmax
-                            hm = metrics["output"].cpu().numpy()
+                            hm = metrics["output"].detach().cpu().numpy()
                             tgt = torch.as_tensor(
                                 batch["target"]).cpu().numpy()
                             if cfg.MODEL.TARGET_TYPE == "offset":
                                 hm, tgt = hm[:, ::3], tgt[:, ::3]
                             _, avg_acc, cnt, pred = pck_accuracy(hm, tgt)
                             acc_meter.update(avg_acc, cnt)
-                            if cfg.DEBUG.DEBUG:
+                            if cfg.DEBUG.DEBUG and writer:
                                 save_debug_images(
                                     cfg, batch["image"], batch["joints"],
                                     batch["joints_vis"], tgt, hm,
@@ -436,7 +496,7 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
                             f"{float(loss_sum) / loss_cnt * 1e5:.1f}e-5) "
                             f"Acc {acc_meter.val:.3f} ({acc_meter.avg:.3f})")
                     t_iter = iteration_ended(t_iter)
-                    if stop():
+                    if stop(i):
                         record["preempted"] = True
                         break
             finally:

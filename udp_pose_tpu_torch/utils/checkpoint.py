@@ -8,9 +8,10 @@ state dict in the reference keys, the optimizer's and the scheduler's
 state dicts, ``step``, ``epoch``, ``perf`` and ``step_in_epoch``),
 ``iter-<N>.pth`` with the ``iter-last.pth`` link (RSN's iteration mode),
 and the weight files ``model_best.pth`` and ``final_state.pth`` (the
-state dict alone).  A QAT run's files hold the inner model's keys: the
-functions take that model beside the train state, whose ``model`` may be
-the fake-quant wrapper over it.  A checkpoint loads with
+state dict alone).  In a data-parallel run rank 0 alone writes them,
+and every rank waits at a barrier before it reads one.  A QAT run's
+files hold the inner model's keys: the functions take that model beside
+the train state, whose ``model`` may be the fake-quant wrapper over it.  A checkpoint loads with
 ``map_location`` the run's device; the optimizer's step counts go back
 to the host, where a fresh Adam keeps them.
 
@@ -28,6 +29,8 @@ import os
 import numpy as np
 import torch
 
+from ..parallel.multihost import barrier, is_writer
+
 logger = logging.getLogger(__name__)
 
 CHECKPOINT = "checkpoint.pth"
@@ -43,8 +46,9 @@ def model_state(model):
 
 def save_weights(path, model):
     """The weight file (``model_best.pth``, ``final_state.pth``): the
-    state dict of ``model`` alone."""
-    torch.save(model_state(model), path)
+    state dict of ``model`` alone (written by rank 0)."""
+    if is_writer():
+        torch.save(model_state(model), path)
 
 
 def train_payload(model, state, weights=None):
@@ -85,7 +89,9 @@ def save_checkpoint(output_dir, model, state, epoch, perf, is_best=False,
     """Write ``checkpoint.pth`` (and with ``is_best`` ``model_best.pth``).
     ``step_in_epoch`` > 0 marks a mid-epoch (preemption) save: the state
     has taken that many batches of epoch ``epoch + 1``, and a resume
-    replays that prefix (see :mod:`.preemption`)."""
+    replays that prefix (see :mod:`.preemption`).  Rank 0 writes."""
+    if not is_writer():
+        return
     os.makedirs(output_dir, exist_ok=True)
     torch.save({**train_payload(model, state), "epoch": int(epoch),
                 "perf": float(perf), "step_in_epoch": int(step_in_epoch)},
@@ -98,6 +104,7 @@ def load_checkpoint(output_dir, model, state, device):
     """Restore ``model`` and ``state`` from ``checkpoint.pth``; returns
     (begin_epoch = epoch + 1, best_perf, step_in_epoch), or (0, 0.0, 0)
     when there is no file."""
+    barrier()
     path = os.path.join(output_dir, CHECKPOINT)
     if not os.path.exists(path):
         return 0, 0.0, 0
@@ -111,10 +118,13 @@ def save_iter_checkpoint(output_dir, model, state, iteration):
     """RSN's iteration checkpoint (engine.py:162-169), named as the JAX
     package names its ``.msgpack`` (``utils/checkpoint.py:50-70``):
     ``iter-<iteration>.pth`` holding :func:`train_payload` and the
-    iteration, and ``iter-last.pth`` a link to it.  Returns the path."""
-    os.makedirs(output_dir, exist_ok=True)
+    iteration, and ``iter-last.pth`` a link to it.  Returns the path;
+    rank 0 writes."""
     name = f"iter-{int(iteration)}.pth"
     path = os.path.join(output_dir, name)
+    if not is_writer():
+        return path
+    os.makedirs(output_dir, exist_ok=True)
     torch.save({**train_payload(model, state), "iteration": int(iteration)},
                path)
     link = os.path.join(output_dir, ITER_LAST)
@@ -128,6 +138,7 @@ def load_iter_checkpoint(output_dir, model, state, device):
     """Restore ``model`` and ``state`` from ``iter-last.pth``; returns the
     iteration to go on from (the saved one + 1), or 0 when there is no
     file."""
+    barrier()
     path = os.path.join(output_dir, ITER_LAST)
     if not os.path.exists(path):
         return 0

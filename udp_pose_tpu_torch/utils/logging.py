@@ -10,16 +10,25 @@ import time
 from pathlib import Path
 
 
-def create_logger(cfg, cfg_name, phase="train"):
-    """Per-run log file under OUTPUT_DIR/<dataset>/<model>/<cfg_name>/."""
+def create_logger(cfg, cfg_name, phase="train", write=True):
+    """Per-run log file under OUTPUT_DIR/<dataset>/<model>/<cfg_name>/.
+    ``write`` False (a data-parallel run's ranks but 0): no file, no
+    directory, and the root logger shows warnings only; returns the same
+    paths."""
     root = Path(cfg.OUTPUT_DIR or "output")
     dataset = cfg.DATASET.DATASET
     model = cfg.MODEL.NAME
     cfg_stem = Path(cfg_name).stem if cfg_name else "default"
     final_dir = root / dataset / model / cfg_stem
+    ts = time.strftime("%Y-%m-%d-%H-%M")
+    tb_dir = Path(cfg.LOG_DIR or "log") / dataset / model / \
+        f"{cfg_stem}_{ts}"
+    if not write:
+        logger = logging.getLogger()
+        logger.setLevel(logging.WARNING)
+        return logger, str(final_dir), str(tb_dir)
     final_dir.mkdir(parents=True, exist_ok=True)
 
-    ts = time.strftime("%Y-%m-%d-%H-%M")
     log_file = final_dir / f"{cfg_stem}_{ts}_{phase}.log"
     fmt = "%(asctime)-15s %(message)s"
     logging.basicConfig(filename=str(log_file), format=fmt)
@@ -28,8 +37,6 @@ def create_logger(cfg, cfg_name, phase="train"):
     console = logging.StreamHandler()
     logger.addHandler(console)
 
-    tb_dir = Path(cfg.LOG_DIR or "log") / dataset / model / \
-        f"{cfg_stem}_{ts}"
     tb_dir.mkdir(parents=True, exist_ok=True)
     return logger, str(final_dir), str(tb_dir)
 

@@ -20,8 +20,9 @@ rolling train-state checkpoint:
 Its scope is the JAX module's: the rolling checkpoint only (the
 ``checkpoint.pth`` role in epoch mode, the ``iter-*.pth`` role in RSN's
 iteration mode); ``model_best`` and ``final_state`` stay plain weight
-files.  orbax's per-shard parallel IO has no counterpart: the port trains
-in one process on one card, so there is one writer and nothing sharded.
+files.  orbax's per-shard parallel IO has no counterpart: the state is
+replicated on every rank of a data-parallel run, so rank 0 is the one
+writer, and every rank reads after a barrier.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import threading
 
 import torch
 
+from ..parallel.multihost import barrier, is_writer
 from .checkpoint import restore_train_state, train_payload
 
 STATE_FILE = "state.pth"
@@ -74,13 +76,16 @@ class OrbaxBackend:
 
     def __init__(self, output_dir, max_to_keep: int = 2):
         self.root = os.path.abspath(os.path.join(str(output_dir), "orbax"))
-        os.makedirs(self.root, exist_ok=True)
+        if is_writer():
+            os.makedirs(self.root, exist_ok=True)
         self.max_to_keep = int(max_to_keep)
         self._thread = None
         self._error = None
 
     def steps(self):
         """The committed steps, oldest first."""
+        if not os.path.isdir(self.root):
+            return []
         return sorted(int(n) for n in os.listdir(self.root) if n.isdigit())
 
     def latest_step(self):
@@ -90,9 +95,11 @@ class OrbaxBackend:
     def save(self, model, state, meta: dict):
         """Snapshot ``model``'s and ``state``'s tensors to the host, start
         the commit of step ``state.step`` with ``meta`` and return its
-        directory."""
+        directory (rank 0 writes; another rank only returns it)."""
         self.wait()
         step = int(state.step)
+        if not is_writer():
+            return os.path.join(self.root, str(step))
         snapshot = _to_host(train_payload(model, state,
                                           weights=model.state_dict()))
         copied = None
@@ -140,8 +147,9 @@ class OrbaxBackend:
     def load(self, model, state, device):
         """Restore ``model`` and ``state`` from the latest step (tensors
         mapped to ``device``); returns its meta, or None when no step
-        exists."""
+        exists.  Every rank reads, after a barrier."""
         self.wait()
+        barrier()
         step = self.latest_step()
         if step is None:
             return None
