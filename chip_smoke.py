@@ -114,11 +114,22 @@ each card's rows bit-equal to no mesh on those rows, on a
 B=32 against one process at B=64, held within limits that a control
 run with each rank's BatchNorm over its own rows must exceed, and
 ``test.run`` on 2 ranks against one (15c; on one card a line says what
-did not run).  The kernels' launches
+did not run).  Phase 16, the single-card remainder (last): the
+AID yaml's on-device augmentation (hide-and-seek on, B=32, 640x640
+canvases) on the card against its CPU run from one set of draws, its ms
+and the canvas upload (16a); ``train.run`` of the AID yaml with
+``DATASET.DEVICE_AUG True`` for 2 epochs with their validations, beside
+the same run with the host augmentation (16b); a device-aug run stopped
+mid-epoch and resumed bit for bit (16c); a w32 step with every train
+BatchNorm through ``FusedBatchNorm`` against plain BN, float64 held,
+fp32 and bf16 reported, and the bf16 step times (16d);
+``FusedDetectPose`` over ``rsn18`` (PRM on) in bf16 and int8 against
+``infer_pose`` on its boxes, frames/s (16e); ``simdr_decode`` and
+``shift_decode`` card vs CPU (16f).  The kernels' launches
 count phases 6, 7 and 8, each path in one window, and the two int8
 paths (9b-9c, 9d) in windows around each of their own calls: the bf16
 engines timed in turns with them and the card-vs-CPU checks run
-outside; phases 10, 11, 12, 13, 14 and 15's paths likewise.  Any failed check
+outside; phases 10, 11, 12, 13, 14, 15 and 16's paths likewise.  Any failed check
 exits nonzero before the last line, which is ``{"ok": true, "device":
 {...}}``.  Without a CUDA card it exits 1.  Imports nothing of JAX or of
 the JAX package.
@@ -127,6 +138,7 @@ the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import functools
 import http.client
@@ -6280,6 +6292,540 @@ def phase_distributed(tmp, device="cuda", cfg_fn=w32_cfg):
     return paths
 
 
+# ---------------------------------------------------------------- phase 16
+AID_YAML = os.path.join(REPO, "configs/coco/hrnet_w32_256x192_udpv1_aid.yaml")
+# 16a: hide-and-seek switched on beside the yaml's cutout
+HIDE_AND_SEEK = [1.0, 0.5, [0, 16, 32, 44, 56]]
+# 16a, the card against the CPU from one set of draws: crops in [0, 255]
+# units (an ulp of the card's sin, cos or a rounding of a coordinate
+# moves a crop of noise by up to ~1e-2), targets, weights exactly
+AUG_CROP_ATOL = 5e-2
+AUG_TARGET_ATOL = 1e-4
+FUSED_BN_TOL = 1e-6              # x each tensor's max: float64 (16d)
+AUG_RESUME_IMAGES = 48           # 16c: 96 crops, 3 steps an epoch at B=32
+# 16e: share of joints within RSN_KP_ATOL of infer_pose's on the same
+# boxes.  The engine turns its boxes into (center, scale) on the card,
+# where PyTorch divides by a number as a product with its reciprocal,
+# infer_pose on the host, which divides: the crops differ in their last
+# bits, and bf16 and int8 argmaxes of random weights flip on near ties
+# (the CPU test, fp32 on one host path, holds them bit for bit)
+RSN_PERSONS_AGREE = 0.95
+
+
+def aid_cfg(root, out_dir, dtype="bfloat16", yaml=AID_YAML, **over):
+    """The AID yaml (w32 256x192, UDP offset, CUTOUT [1.0, 0.2, 1]) for a
+    2-epoch run on the synthetic mini-COCO at ``root``."""
+    cfg = yaml_cfg(yaml, dtype)
+    cfg.DATASET.ROOT = root
+    cfg.OUTPUT_DIR = out_dir
+    cfg.TRAIN.END_EPOCH = 2
+    cfg.merge_from_dict(over)
+    os.makedirs(out_dir, exist_ok=True)
+    return cfg
+
+
+def device_aug_card_vs_cpu(data, card, device="cuda", yaml=AID_YAML,
+                           batch=32):
+    """16a: ``make_device_augment`` of the AID yaml with hide-and-seek
+    switched on, B=32 raw samples on the yaml's 640x640 canvases, on the
+    card against its plain CPU run from one set of draws (drawn on the
+    CPU, copied to the card); the ms of one augment a batch, of the
+    batch's draws on the card, and of its upload."""
+    from udp_pose_tpu_torch.data import device_pipeline as dp
+    from udp_pose_tpu_torch.data.base import collate
+    cfg = aid_cfg(data["root"], os.path.join(data["tmp"], "16a"), yaml=yaml)
+    cfg.DATASET.HIDE_AND_SEEK = HIDE_AND_SEEK
+    canvas_w, canvas_h = cfg.DATASET.DEVICE_AUG_CANVAS
+    ds = in_memory_coco(cfg, data["frames"]["train2017"], True)
+    view = dp.RawSampleView(ds, (canvas_h, canvas_w))
+    raw = collate([view[i] for i in range(batch)])
+    aug = dp.make_device_augment(cfg, ds.num_joints, ds.flip_pairs,
+                                 ds.upper_body_ids, (canvas_h, canvas_w))
+    draws = dp.step_draws(aug, 0, 0, batch, "cpu")
+    want = aug(dp.upload_raw(raw, "cpu"), draws)
+    on_card = {k: v.to(device) for k, v in draws.items()}
+    up_ms = host_ms(lambda: dp.upload_raw(raw, device), iters=10)
+    card_raw = dp.upload_raw(raw, device)
+    got = aug(card_raw, on_card)
+    errs = [float((g.cpu() - w).abs().max()) for g, w in zip(got, want)]
+    aug_ms = cuda_ms(lambda: aug(card_raw, on_card), [()], iters=10,
+                     repeats=3)
+    draw_ms = cuda_ms(lambda: dp.step_draws(aug, 0, 0, batch, device), [()],
+                      iters=10, repeats=3)
+    masked = float((want[0] == 0).float().mean())
+    mb = raw["canvas"].nbytes / 1e6
+    log(f"[device_aug] 16a make_device_augment (AID: CUTOUT "
+        f"{list(cfg.DATASET.CUTOUT)}, HIDE_AND_SEEK {HIDE_AND_SEEK}), B="
+        f"{batch} on {canvas_h}x{canvas_w} canvases -> "
+        f"{tuple(got[0].shape)} crops, {tuple(got[1].shape)} offset "
+        f"targets: card vs CPU from one set of draws, max |diff| crops "
+        f"{errs[0]:.6g} (limit {AUG_CROP_ATOL:g}), targets {errs[1]:.6g} "
+        f"(limit {AUG_TARGET_ATOL:g}), weights {errs[2]:.6g} (exact); "
+        f"{masked:.4f} of the crop values masked to 0; one augment "
+        f"{aug_ms:.3f} ms a batch (CUDA events, median of 3 runs of 10), "
+        f"the batch's draws on the card {draw_ms:.3f} ms; upload of "
+        f"{mb:.1f} MB of u8 canvases (pinned copy + transfer + sync) "
+        f"{up_ms:.2f} ms = {mb / up_ms:.2f} GB/s | {card}")
+    check(errs[0] <= AUG_CROP_ATOL and errs[1] <= AUG_TARGET_ATOL
+          and errs[2] == 0.0, f"16a: device augment card vs CPU {errs}")
+    check(0.0 < masked < 0.9 and all(g.device.type == "cuda" for g in got)
+          and all(bool(torch.isfinite(g).all()) for g in got),
+          f"16a: masked share {masked}, devices "
+          f"{[g.device.type for g in got]}")
+    return {"augment_ms": aug_ms, "draw_ms": draw_ms, "upload_ms": up_ms,
+            "max_abs_err": errs}
+
+
+def device_aug_training(data, card, device="cuda", yaml=AID_YAML):
+    """16b: ``train.run`` of the AID yaml (w32 bf16 B=32, the yaml's
+    WORKERS 4) with ``DATASET.DEVICE_AUG True``, 2 epochs and their
+    validations, in the path's launch window, and the same run with the
+    host augmentation beside it; samples/s, the wait for the batch, the
+    peak memory.  Returns the device-aug run's launches."""
+    from udp_pose_tpu_torch import train as train_cli
+    from udp_pose_tpu_torch.models import build_model
+    root, tmp, frames = data["root"], data["tmp"], data["frames"]
+    rates, launches = {}, None
+    for name, on in (("host augmentation", False),
+                     ("DATASET.DEVICE_AUG", True)):
+        cfg = aid_cfg(root, os.path.join(tmp, f"16b_{int(on)}"), yaml=yaml,
+                      DATASET={"DEVICE_AUG": on})
+        check(cfg.WORKERS == 4, f"WORKERS {cfg.WORKERS}: the yaml's is 4")
+        B = cfg.TRAIN.BATCH_SIZE_PER_GPU
+        train_ds = in_memory_coco(cfg, frames["train2017"], True)
+        val_ds = in_memory_coco(cfg, frames["val2017"], False)
+        train_cli.set_cudnn(cfg)
+        model = build_model(cfg, device=device, train=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if on:
+            zero_launches()
+        t0 = time.perf_counter()
+        record = train_cli.run(cfg, model, train_ds, val_ds, cfg.OUTPUT_DIR,
+                               device)
+        secs = time.perf_counter() - t0
+        if on:
+            launches = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        steps = record["steps"]
+        losses = [s["loss"] for s in steps]
+        check(len(steps) == cfg.TRAIN.END_EPOCH * (len(train_ds) // B)
+              and all(np.isfinite(losses)), f"16b {name}: {len(steps)} "
+              f"steps, losses {losses}")
+        warm = [s for s in steps if s["step"] >= WARM_STEPS] or steps
+        iter_ms = np.median([s["iter_s"] for s in warm]) * 1e3
+        load_ms = np.median([s["load_s"] for s in warm]) * 1e3
+        rates[name] = B / iter_ms * 1e3
+        iters = ", ".join(f"{st['iter_s'] * 1e3:.1f}" for st in steps)
+        vals = ", ".join(f"{v['crops'] / v['seconds']:.1f}"
+                         for v in record["validations"])
+        log(f"[device_aug] 16b train.run AID w32 bf16 B={B} WORKERS "
+            f"{cfg.WORKERS} with {name}, {len(steps)} steps over "
+            f"{cfg.TRAIN.END_EPOCH} epochs of {len(train_ds)} samples: "
+            f"losses {', '.join(f'{v:.5g}' for v in losses)}; iteration "
+            f"{iters} ms; "
+            f"{rates[name]:.1f} samples/s (median iteration {iter_ms:.2f} "
+            f"ms after {WARM_STEPS} warm-up steps an epoch, of which "
+            f"waiting for the batch {load_ms:.2f} ms); validations "
+            f"{vals} "
+            f"crops/s, AP {record['best_perf']:.4f}; peak "
+            f"max_memory_allocated {peak_gb:.2f} GB; train.run {secs:.1f} s "
+            f"| {card}")
+        del model
+        torch.cuda.empty_cache()
+    eval_batches = -(-len(val_ds) // cfg.TEST.BATCH_SIZE_PER_GPU)
+    want = dict.fromkeys(launches, 0)
+    want["udp_offset_decode_fused"] = cfg.TRAIN.END_EPOCH * eval_batches
+    check(launches == want, f"16b: the device-aug run launched {launches}, "
+          f"its validations need {want}")
+    log(f"[device_aug] 16b samples/s: device augmentation "
+        f"{rates['DATASET.DEVICE_AUG']:.1f}, host augmentation "
+        f"{rates['host augmentation']:.1f} (figures only); fused decode "
+        f"launches {launches['udp_offset_decode_fused']} = "
+        f"{cfg.TRAIN.END_EPOCH} validations x {eval_batches} batches | "
+        f"{card}")
+    return launches
+
+
+class AugDigests:
+    """A sha1 of each ``DeviceAugment`` call's crops, targets and weights,
+    in call order (the class's ``__call__`` wrapped while in use)."""
+
+    def __enter__(self):
+        import hashlib
+
+        from udp_pose_tpu_torch.data import device_pipeline as dp
+        self.seen, self._cls = [], dp.DeviceAugment
+        call = self._call = dp.DeviceAugment.__call__
+
+        def spy(aug, batch, draws):
+            out = call(aug, batch, draws)
+            h = hashlib.sha1()
+            for t in out:
+                h.update(t.cpu().contiguous().numpy().tobytes())
+            self.seen.append(h.hexdigest())
+            return out
+
+        dp.DeviceAugment.__call__ = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.__call__ = self._call
+
+    def take(self):
+        seen, self.seen = self.seen, []
+        return seen
+
+
+class StopAfter:
+    """A preemption guard that says stop at its ``n``-th poll, that is
+    after the run's ``n``-th step."""
+
+    def __init__(self, n):
+        self.n, self.polls = n, 0
+
+    def should_stop(self, num_shards=1, sync=True):
+        self.polls += 1
+        return self.polls == self.n
+
+
+def device_aug_resume(data, card, device="cuda", yaml=AID_YAML):
+    """16c: the AID yaml with ``DATASET.DEVICE_AUG``, w32 bf16 B=32,
+    WORKERS 2, deterministic cuDNN, 2 epochs: uninterrupted (A), stopped
+    after step 2 of epoch 1 (B) and resumed with ``AUTO_RESUME`` (C); the
+    augmented batches of B then C are A's and C's final weights A's, bit
+    for bit.  Returns the three runs' launches."""
+    from udp_pose_tpu_torch import train as train_cli
+    from udp_pose_tpu_torch.models import build_model
+    root, tmp = data["resume_root"], data["tmp"]
+    frames = data["resume_frames"]
+    flags = (torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.deterministic)
+
+    def cfg_for(name, **over):
+        return aid_cfg(root, os.path.join(tmp, f"16c_{name}"), yaml=yaml,
+                       WORKERS=2,
+                       DATASET={"DEVICE_AUG": True,
+                                "HIDE_AND_SEEK": HIDE_AND_SEEK},
+                       CUDNN={"DETERMINISTIC": True, "BENCHMARK": False},
+                       **over)
+
+    cfg = cfg_for("a")
+    B = cfg.TRAIN.BATCH_SIZE_PER_GPU
+    train_ds = in_memory_coco(cfg, frames["train2017"], True)
+    val_ds = in_memory_coco(cfg, frames["val2017"], False)
+    k = len(train_ds) // B
+    check(k >= 3, f"16c: {k} steps an epoch")
+    runs = {}
+    t0 = time.perf_counter()
+    zero_launches()
+    try:
+        train_cli.set_cudnn(cfg)
+        with AugDigests() as digests:
+            for name, guard, over in (("a", None, {}),
+                                      ("b", StopAfter(k + 2), {}),
+                                      ("c", None, {"AUTO_RESUME": True})):
+                c = cfg_for("b" if name == "c" else name, **over)
+                runs[name] = train_cli.run(
+                    c, build_model(c, device=device, train=True), train_ds,
+                    val_ds, c.OUTPUT_DIR, device, guard=guard)
+                runs[name]["digests"] = digests.take()
+    finally:
+        (torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.deterministic) = flags
+    launches = read_launches()
+    secs = time.perf_counter() - t0
+    a, b, c = runs["a"], runs["b"], runs["c"]
+    check(len(a["digests"]) == 2 * k and len(set(a["digests"])) == 2 * k
+          and b["preempted"] and len(b["digests"]) == k + 2
+          and b["digests"] + c["digests"] == a["digests"],
+          f"16c: augmented batches A {len(a['digests'])}, B "
+          f"{len(b['digests'])} (preempted {b['preempted']}), C "
+          f"{len(c['digests'])}: B then C are not A's")
+    final = {n: torch.load(os.path.join(tmp, f"16c_{d}", "final_state.pth"),
+                           map_location="cpu") for n, d in (("a", "a"),
+                                                            ("c", "b"))}
+    diff = max_abs_diff(final["c"], final["a"])
+    check(diff == 0.0, f"16c: resumed weights max |C - A| {diff:.3g}")
+    n_val = sum(len(r["validations"]) for r in runs.values())
+    eval_batches = -(-len(val_ds) // cfg.TEST.BATCH_SIZE_PER_GPU)
+    check(launches["udp_offset_decode_fused"] == n_val * eval_batches,
+          f"16c: fused decode launches {launches}")
+    log(f"[device_aug] 16c AID w32 bf16 B={B} DATASET.DEVICE_AUG WORKERS 2, "
+        f"cuDNN deterministic, {k} steps an epoch x 2: B stopped after step "
+        f"{k + 2}, C resumed with AUTO_RESUME at iteration "
+        f"{c['steps'][0]['iteration']}; the {2 * k} augmented batches "
+        f"(crops, targets, weights) of B then C = A's bit for bit; final "
+        f"weights max |C - A| = {diff:.6g}; three train.run in {secs:.1f} s; "
+        f"fused decode launches {launches['udp_offset_decode_fused']} = "
+        f"{n_val} validations x {eval_batches} batches | {card}")
+    return launches
+
+
+def fused_bn_ab(data, card, device="cuda", yaml=AID_YAML, batch=32):
+    """16d: one w32 train step (B=32, the AID yaml's loss) with every
+    train BatchNorm routed through ``ops.fused_bn.FusedBatchNorm`` against
+    the plain BatchNorm from the same weights and batch: the output, the
+    gradients (each tensor's and the whole gradient's relative 2-norm)
+    and the running stats apart, in float64 (held at FUSED_BN_TOL: the
+    same math), fp32 with TF32 off and bf16 (reported: the fast variance
+    ``E[x²] - E[x]²`` against cuDNN's, rounded through 292 BatchNorms);
+    then bf16 Adam steps of each, timed in turns."""
+    from udp_pose_tpu_torch.core.loss import make_loss_fn
+    from udp_pose_tpu_torch.core.train import (create_train_state,
+                                               make_train_step, upload_batch)
+    from udp_pose_tpu_torch.data.base import collate
+    from udp_pose_tpu_torch.models import build_model
+    from udp_pose_tpu_torch.ops.fused_bn import use_fused_batchnorm
+    root, tmp, frames = data["root"], data["tmp"], data["frames"]
+
+    def pair(dtype):
+        cfg = aid_cfg(root, os.path.join(tmp, "16d"),
+                      "float32" if dtype == "float64" else dtype, yaml)
+        plain = build_model(cfg, device=device, train=True)
+        fused = build_model(cfg, device=device, train=True)
+        if dtype == "float64":
+            plain, fused = plain.double(), fused.double()
+        fused.load_state_dict(plain.state_dict())
+        return cfg, plain, fused, use_fused_batchnorm(fused)
+
+    cfg, *_ = pair("float32")
+    ds = in_memory_coco(cfg, frames["train2017"], True)
+    ds.seed(0)
+    host = collate([ds[i] for i in range(batch)])
+    x = upload_batch(host, device)
+    loss_fn = make_loss_fn(cfg)
+    apart = {}
+    for dtype in ("float64", "float32", "bfloat16"):
+        set_tf32(False)
+        cfg, plain, fused, n_bn = pair(dtype)
+        wide = torch.float64 if dtype == "float64" else torch.float32
+        got = {}
+        for name, model in (("plain", plain), ("fused", fused)):
+            model.train()
+            ctx = (torch.autocast(x["image"].device.type,
+                                  dtype=torch.bfloat16)
+                   if dtype == "bfloat16" else contextlib.nullcontext())
+            with ctx:
+                out = model(x["image"].to(wide).permute(0, 3, 1, 2))
+            out = out.to(wide)
+            loss, _ = loss_fn(out, x["target"].to(wide),
+                              x["target_weight"].to(wide))
+            loss.backward()
+            got[name] = (out.detach(), {
+                k: p.grad for k, p in model.named_parameters()}, {
+                k: v for k, v in model.state_dict().items()
+                if k.endswith(("running_mean", "running_var"))})
+        set_tf32(True)
+
+        def rel(a, b):
+            return float((a.double() - b.double()).abs().max()
+                         / b.double().abs().max().clamp_min(1e-30))
+
+        (po, pg, ps), (fo, fg, fs) = got["plain"], got["fused"]
+        per = {k: rel(fg[k], pg[k]) for k in pg}
+        worst = max(per, key=per.get)
+        norm2 = float(sum(float((fg[k].double() - pg[k].double()).square()
+                                .sum()) for k in pg) ** 0.5
+                      / sum(float(pg[k].double().square().sum())
+                            for k in pg) ** 0.5)
+        apart[dtype] = (rel(fo, po), per[worst],
+                        max(rel(fs[k], ps[k]) for k in ps))
+        log(f"[fused_bn] 16d w32 B={batch} {dtype}"
+            f"{' (TF32 off)' if dtype == 'float32' else ''}: {n_bn} "
+            f"BatchNorms through FusedBatchNorm against plain BN, one "
+            f"forward and backward from the same weights: output "
+            f"{apart[dtype][0]:.3g}, gradients {apart[dtype][1]:.3g} (the "
+            f"worst tensor, {worst}; the whole gradient's 2-norm "
+            f"{norm2:.3g}), running stats {apart[dtype][2]:.3g}, each x "
+            f"the plain tensor's max | {card}")
+        del plain, fused, got
+        torch.cuda.empty_cache()
+    check(max(apart["float64"]) <= FUSED_BN_TOL,
+          f"16d: float64 FusedBatchNorm step vs plain {apart['float64']} "
+          f"(limit {FUSED_BN_TOL:g})")
+    check(all(np.isfinite(apart["float32"]) & np.isfinite(
+        apart["bfloat16"])), f"16d: non-finite {apart}")
+    cfg, plain, fused, _ = pair("bfloat16")
+    step_fn = make_train_step(make_loss_fn(cfg))
+    states = {name: create_train_state(cfg, model, steps_per_epoch=1)
+              for name, model in (("plain", plain), ("fused", fused))}
+    secs = {name: [] for name in states}
+    for name in ("plain", "fused", "fused", "plain"):
+        for i in range(6):
+            t0 = time.perf_counter()
+            loss = step_fn(states[name], upload_batch(host, device))["loss"]
+            torch.cuda.synchronize()
+            if i >= 2:
+                secs[name].append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(loss)), f"16d: {name} bf16 loss {loss}")
+    ms = {name: float(np.median(v)) * 1e3 for name, v in secs.items()}
+    log(f"[fused_bn] 16d w32 bf16 B={batch} Adam step (upload, normalise, "
+        f"forward, backward, Adam; median of 8 after 2 warm-up steps a "
+        f"turn, turns plain, fused, fused, plain): plain BN {ms['plain']:.2f} "
+        f"ms, FusedBatchNorm {ms['fused']:.2f} ms, fused / plain "
+        f"{ms['fused'] / ms['plain']:.3f} | {card}")
+    del states, plain, fused
+    torch.cuda.empty_cache()
+    return {"apart": apart, "step_ms": ms}
+
+
+def rsn_fused_engine(card, device="cuda", yaml=RSN18_YAML, n_frames=4,
+                     hw=DETECT_HW):
+    """16e: ``FusedDetectPose`` over an ``rsn18`` pipeline (``USE_PRM``
+    on, so that int8 puts PRM's 9x9 depthwise site on ``int8_dwconv``),
+    YOLOv5n at 640, 16 persons on 720p frames, bf16 and int8 (the pose
+    table calibrated by the pipeline, the detector by itself): keypoints
+    against ``UdpPosePipeline.infer_pose`` on the boxes the engine found,
+    launches in the engine's window (no fused decode: RSN decodes by its
+    own blur and argmax; in int8 one launch a conv site a frame), frames/s
+    of ``infer_frame``.  Returns {path: launches}."""
+    from udp_pose_tpu_torch.engine.fused import FusedDetectPose
+    from udp_pose_tpu_torch.engine.pose_engine import UdpPosePipeline
+    from udp_pose_tpu_torch.models.quantize import (Int8Conv2d,
+                                                    Int8DepthwiseConv2d)
+    cfg = yaml_cfg(yaml, "bfloat16")
+    cfg.MODEL.EXTRA.USE_PRM = True
+    frames = detect_frames(n_frames, seed=160, hw=hw)
+    kw = dict(yolo_variant="n", max_persons=MAX_PERSONS, det_size=DET_SIZE,
+              conf_thres=LOW_CONF, seed=0)
+    paths = {}
+    for mode in ("", "int8"):
+        name = f"rsn18_fused_detect_pose_{mode or 'bf16'}"
+        pipe = UdpPosePipeline(cfg, device=device, seed=0, quantize=mode,
+                               calib_batches=1)
+        if mode:
+            pipe.infer_pose(frames[0], person_boxes(MAX_PERSONS, 161, hw))
+            check(pipe.int8.table is not None, "16e: no pose int8 table")
+        eng = FusedDetectPose(pipe, quantize=mode, **kw)
+        i = 0
+        while eng.det_int8.calibrating:
+            eng.infer_frame(frames[i % n_frames])
+            i += 1
+        eng.infer_frame(frames[0])                 # every shape warm
+        torch.cuda.synchronize()
+        zero_launches()
+        outs = [eng.infer_frame(f) for f in frames]
+        launches = read_launches()
+        sites = [0, 0]
+        want = dict.fromkeys(launches, 0)
+        if mode:
+            model = pipe.int8.active()
+            sites = [sum(isinstance(m, k) for m in model.modules())
+                     for k in (Int8Conv2d, Int8DepthwiseConv2d)]
+            want["int8_conv_fused"] = n_frames * (sites[0]
+                                                  + INT8_SITES_YOLOV5N)
+            want["int8_dwconv"] = n_frames * sites[1]
+        check(launches == want and (not mode or sites[1] > 0),
+              f"16e {name}: launches {launches}, want {want}")
+        check(all(len(o["boxes"]) == MAX_PERSONS for o in outs),
+              f"16e {name}: persons {[len(o['boxes']) for o in outs]}")
+        errs, mv_err = [], 0.0
+        for f, o in zip(frames, outs):
+            kp, mv = pipe.infer_pose(f, o["boxes"])
+            errs.append(np.abs(o["keypoints"] - kp).max(-1).ravel())
+            mv_err = max(mv_err, float(np.abs(o["maxvals"] - mv).max()
+                                       / max(np.abs(mv).max(), 1e-30)))
+        errs = np.concatenate(errs)
+        agree = float((errs <= RSN_KP_ATOL).mean())
+        again = pipe.infer_pose(frames[0], outs[0]["boxes"])[0]
+        repeat = float((np.abs(again - pipe.infer_pose(
+            frames[0], outs[0]["boxes"])[0]).max(-1) <= RSN_KP_ATOL).mean())
+        fps, runs = time_frames(lambda: [eng.infer_frame(f) for f in frames],
+                                n_frames)
+        log(f"[rsn_fused] 16e FusedDetectPose {os.path.basename(yaml)} "
+            f"(USE_PRM) {mode or 'bf16'}: YOLOv5n {DET_SIZE}, "
+            f"{MAX_PERSONS} persons on {hw[0]}p frames; keypoints vs "
+            f"UdpPosePipeline.infer_pose on the engine's boxes: "
+            f"{agree:.4f} of {errs.size} joints within {RSN_KP_ATOL:g} px "
+            f"(max {errs.max():.4g} px; limit {RSN_PERSONS_AGREE:g} of "
+            f"them), maxvals {mv_err:.3g} x their max apart; infer_pose "
+            f"twice on one frame's boxes: {repeat:.4f} of the joints within "
+            f"{RSN_KP_ATOL:g} px; {sites[0]} int8 conv sites, "
+            f"{sites[1]} depthwise; launches {launches}; infer_frame "
+            f"{fps:.2f} frames/s (median of 3 runs of {n_frames} frames: "
+            f"{', '.join(f'{r:.1f}' for r in runs)} ms) | {card}")
+        check(agree >= RSN_PERSONS_AGREE and np.isfinite(errs).all(),
+              f"16e {name}: {agree:.4f} of the joints agree")
+        paths[name] = launches
+        del eng, pipe
+        torch.cuda.empty_cache()
+    return paths
+
+
+def alt_decoders(card, device="cuda", batch=SERVE_BATCH, hw=MAP_HW):
+    """16f: ``simdr_decode`` and ``shift_decode`` on the card equal their
+    CPU run exactly (int32 coordinates): B=128 x 17 maps of 64x48 with
+    peaks on the borders and maps nowhere positive, SimDR heads of a
+    256x192 crop at split ratio 2."""
+    from udp_pose_tpu_torch.ops import alt_decode as ad
+    rng = np.random.default_rng(170)
+    H, W = hw
+    hm = rng.normal(size=(batch, 17, H, W)).astype(np.float32)
+    hm[0, :4, 0, 0] = hm[1, :4, H - 1, W - 1] = 9.0
+    hm[2, 0] = -1.0
+    center = rng.uniform(100, 600, (batch, 2)).astype(np.float32)
+    scale = rng.uniform(0.5, 2.5, (batch, 2)).astype(np.float32)
+    px = rng.normal(size=(batch, 17, 2 * 192)).astype(np.float32)
+    py = rng.normal(size=(batch, 17, 2 * 256)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", device):
+        out[dev] = (ad.shift_decode(torch.from_numpy(hm).to(dev), center,
+                                    scale).cpu(),
+                    ad.simdr_decode(torch.from_numpy(px).to(dev),
+                                    torch.from_numpy(py).to(dev), center,
+                                    scale).cpu())
+    same = [torch.equal(a, b) for a, b in zip(out["cpu"], out[device])]
+    log(f"[alt_decode] 16f shift_decode ({batch}x17 maps of {H}x{W}) and "
+        f"simdr_decode ({batch}x17 heads of 384 and 512) on the card equal "
+        f"their CPU run: {same} | {card}")
+    check(all(same), f"16f: card vs CPU {same}")
+
+
+def phase_device_aug(tmp, device="cuda"):
+    """Phase 16, the single-card remainder: the on-device augmentation
+    card vs CPU (16a), training with it (16b) and its preempted epoch
+    (16c), the fused-BN A/B (16d), RSN in the detect-then-pose graph
+    (16e), the alternative decoders (16f).  Returns the launches by
+    path."""
+    card = card_line()
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(160)
+    root = os.path.join(tmp, "coco")
+    resume_root = os.path.join(tmp, "coco_resume")
+    data = {"root": root, "tmp": tmp, "resume_root": resume_root,
+            "frames": {
+                "train2017": synthetic_coco(root, "train2017", TRAIN_IMAGES,
+                                            rng),
+                "val2017": synthetic_coco(root, "val2017", VAL_IMAGES, rng)},
+            "resume_frames": {
+                "train2017": synthetic_coco(resume_root, "train2017",
+                                            AUG_RESUME_IMAGES, rng),
+                "val2017": synthetic_coco(resume_root, "val2017",
+                                          RESUME_VAL_IMAGES, rng)}}
+    paths, secs = {}, {}
+    parts = (("16a", None, lambda: device_aug_card_vs_cpu(data, card,
+                                                          device)),
+             ("16b", "device_aug_training",
+              lambda: device_aug_training(data, card, device)),
+             ("16c", "device_aug_resume",
+              lambda: device_aug_resume(data, card, device)),
+             ("16d", None, lambda: fused_bn_ab(data, card, device)),
+             ("16e", "", lambda: rsn_fused_engine(card, device)),
+             ("16f", None, lambda: alt_decoders(card, device)))
+    for part, name, fn in parts:
+        t0 = time.perf_counter()
+        got = fn()
+        secs[part] = time.perf_counter() - t0
+        if name:
+            paths[name] = got
+        elif name == "":
+            paths.update(got)
+    log(f"[device_aug] phase 16 {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"{p} {v:.1f}" for p, v in secs.items()) + " s)")
+    return paths
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -6329,6 +6875,8 @@ def main(argv=None):
             paths.update(phase_resume(tmp))
         with tempfile.TemporaryDirectory() as tmp:
             paths.update(phase_distributed(tmp))
+        with tempfile.TemporaryDirectory() as tmp:
+            paths.update(phase_device_aug(tmp))
         paths.update(int8_paths)
         paths.update(zoo_paths)
         paths.update(rsn_paths)

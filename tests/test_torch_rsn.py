@@ -442,21 +442,41 @@ def test_conv_sites_name_the_jax_paths(nets):
 def test_pose_pipeline_refuses_rsn(yaml):
     """``UdpPosePipeline`` (so ``serve`` and the infer CLI) serves RSN
     through RSN's own inference (``make_rsn_infer_fn``: BGR crops, RSN's
-    constants and decode); what still refuses it is the detect-then-pose
-    graph, whose in-graph decode is the UDP offset kernel:
-    ``FusedDetectPose`` raises for every RSN yaml, built from the yaml or
-    from the pipeline."""
+    constants and decode), and so does the detect-then-pose graph of
+    ``FusedDetectPose``, which no longer refuses RSN: each yaml, reduced
+    (``LAYERS [1, 1, 1, 1]``, upsample width 32, a 48x64 input, its own
+    stage count, float32), built from the yaml or from the pipeline,
+    gives on a frame with a stubbed detector head the keypoints and
+    maxvals of ``infer_pose`` on the boxes it found (keypoints 1e-3 px;
+    the two batch the crops differently)."""
+    from test_torch_fused_engine import _mk_pred, _torch_stub
     from udp_pose_tpu_torch.config import load_config
     from udp_pose_tpu_torch.engine.fused import FusedDetectPose
     from udp_pose_tpu_torch.engine.pose_engine import UdpPosePipeline
     cfg = load_config(os.path.join(REPO, "configs", "coco", f"{yaml}.yaml"))
     assert cfg.MODEL.NAME == "rsn"
+    cfg.MODEL.IMAGE_SIZE = [48, 64]
+    cfg.MODEL.HEATMAP_SIZE = [12, 16]
+    cfg.TPU.DTYPE = "float32"
+    cfg.MODEL.EXTRA.merge_from_dict({"UPSAMPLE_CHANNEL_NUM": 32,
+                                     "LAYERS": [1, 1, 1, 1]})
     pipe = UdpPosePipeline(cfg, device="cpu")
-    assert pipe.bgr and pipe.input_wh == tuple(cfg.MODEL.IMAGE_SIZE)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        FusedDetectPose(pipe)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        FusedDetectPose(cfg, device="cpu")
+    assert pipe.bgr and pipe.input_wh == (48, 64)
+    frame = np.random.default_rng(3).integers(0, 256, (240, 320, 3),
+                                              dtype=np.uint8)
+    pred = _mk_pred([(28, 46, 40, 68, 0.95, 0.95), (90, 40, 30, 60, 0.8,
+                                                    0.9)])
+    kw = dict(max_persons=4, det_size=128, topk=32)
+    for eng in (FusedDetectPose(pipe, **kw),
+                FusedDetectPose(cfg, device="cpu", **kw)):
+        eng.yolo = _torch_stub(pred)
+        assert eng._pose.bgr
+        got = eng.infer_frame(frame)
+        n = len(got["boxes"])
+        assert n == 2 and got["keypoints"].shape == (n, 17, 2)
+        kp, mv = eng._pose.infer_pose(frame, got["boxes"])
+        np.testing.assert_allclose(got["keypoints"], kp, rtol=0, atol=1e-3)
+        np.testing.assert_allclose(got["maxvals"], mv, rtol=1e-4, atol=1e-5)
 
 
 def test_pose_pipeline_serves_rsn_as_make_rsn_infer_fn(nets):

@@ -369,15 +369,45 @@ def test_train_and_test_entry_points_on_cpu(coco_root, tmp_path,
 
 
 def test_entry_points_refuse_what_is_not_ported(tmp_path, coco_root):
+    """``TPU.TP`` and ``TPU.PP`` still raise; ``DATASET.DEVICE_AUG``
+    (ported) trains a reduced step through ``train.main``, its crops and
+    targets made by the device augmentation, and raises for RSN as the
+    JAX trainer does."""
     from udp_pose_tpu_torch import train as train_cli
+    from udp_pose_tpu_torch.data import device_pipeline as dp
     cfg = reduced_cfg(default_config)
     path = tmp_path / "c.yaml"
     path.write_text(yaml.safe_dump(cfg.to_dict()))
-    for key, value in (("DATASET.DEVICE_AUG", "True"),
-                       ("TPU.TP", "True"), ("TPU.PP", "True")):
+    for key, value in (("TPU.TP", "True"), ("TPU.PP", "True")):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train_cli.main(["--cfg", str(path), "--device", "cpu", key,
                             value])
+    cfg = _data_cfg(default_config, coco_root)
+    cfg.OUTPUT_DIR = str(tmp_path / "out")
+    cfg.TRAIN.END_EPOCH = 1
+    cfg.TEST.FLIP_TEST = False
+    path.write_text(yaml.safe_dump(cfg.to_dict()))
+    made = []
+    augment = dp.DeviceAugment.__call__
+
+    def spy(self, batch, draws):
+        made.append(tuple(batch["canvas"].shape))
+        return augment(self, batch, draws)
+
+    dp.DeviceAugment.__call__ = spy
+    try:
+        record = train_cli.main(["--cfg", str(path), "--device", "cpu",
+                                 "DATASET.DEVICE_AUG", "True",
+                                 "DATASET.DEVICE_AUG_CANVAS", "[320, 240]"])
+    finally:
+        dp.DeviceAugment.__call__ = augment
+    assert len(record["steps"]) >= 1 and np.isfinite(
+        record["steps"][0]["loss"])
+    assert made[0] == (4, 240, 320, 3) and len(made) == len(record["steps"])
+    cfg.MODEL.NAME = "rsn"
+    cfg.DATASET.DEVICE_AUG = True
+    with pytest.raises(ValueError, match="DEVICE_AUG"):
+        train_cli.run(cfg, None, None, None, str(tmp_path), "cpu")
     cfg.DATASET.DATASET = "crowdpose"
     with pytest.raises(KeyError, match="coco"):
         build_dataset(cfg)

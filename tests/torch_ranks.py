@@ -131,6 +131,27 @@ def hrnet_step(rank, world, tmp, cfg, state_dict, batch):
                                     model.state_dict().items()}
 
 
+def device_aug_rows(rank, world, tmp, cfg, batch, epoch=1, step=2):
+    """Step ``step`` of epoch ``epoch`` of ``DATASET.DEVICE_AUG`` on this
+    rank's rows of the raw ``batch`` (the global one), with the draws the
+    trainer makes (``step_draws`` over the global batch, the rank and
+    world of ``process_shard_info``): (crops, target, weight) in numpy."""
+    from udp_pose_tpu_torch.data import device_pipeline as dp
+    from udp_pose_tpu_torch.parallel import process_shard_info
+    shard, shards = process_shard_info()
+    assert (shard, shards) == (rank, world if shards > 1 else 1)
+    pairs = [[1, 2], [3, 4], [5, 6], [7, 8], [9, 10], [11, 12], [13, 14],
+             [15, 16]]
+    canvas_hw = batch["canvas"].shape[1:3]
+    aug = dp.make_device_augment(cfg, 17, pairs, tuple(range(11)),
+                                 canvas_hw)
+    n = len(batch["canvas"]) // shards
+    rows = {k: v[shard * n:(shard + 1) * n] for k, v in batch.items()}
+    draws = dp.step_draws(aug, epoch, step, len(batch["canvas"]), "cpu",
+                          shard, shards)
+    return [t.numpy() for t in aug(dp.upload_raw(rows, "cpu"), draws)]
+
+
 class FlagAt:
     """A guard flagged from its ``at``-th poll on (0: never), polled the
     way ``train.run`` polls a ``PreemptionGuard``."""

@@ -27,9 +27,9 @@ _END = object()
 
 
 def device_prefetch(host_iter: Iterator, device="cuda", keys=None):
-    """Yield the dict batches of ``host_iter`` with their numpy arrays
-    (those named in ``keys``, or all when None) as tensors on ``device``;
-    other entries (meta lists) pass through."""
+    """Yield the dict batches of ``host_iter`` with their numpy arrays and
+    CPU tensors (those named in ``keys``, or all when None) as tensors on
+    ``device``; other entries (meta lists) pass through."""
     device = resolve_device(device)
     if device.type == "cpu":
         yield from host_iter
@@ -55,10 +55,12 @@ def device_prefetch(host_iter: Iterator, device="cuda", keys=None):
                         break
                     out = {}
                     for k, v in batch.items():
-                        if isinstance(v, np.ndarray) and (keys is None
-                                                          or k in keys):
-                            v = torch.from_numpy(v).pin_memory().to(
-                                device, non_blocking=True)
+                        if keys is None or k in keys:
+                            if isinstance(v, np.ndarray):
+                                v = torch.from_numpy(v)
+                            if torch.is_tensor(v) and v.device.type == "cpu":
+                                v = v.pin_memory().to(device,
+                                                      non_blocking=True)
                         out[k] = v
                     done = torch.cuda.Event()
                     done.record(stream)
@@ -82,7 +84,7 @@ def device_prefetch(host_iter: Iterator, device="cuda", keys=None):
             current = torch.cuda.current_stream(device)
             current.wait_event(done)
             for v in out.values():
-                if torch.is_tensor(v):
+                if torch.is_tensor(v) and v.device == current.device:
                     v.record_stream(current)
             yield out
     finally:

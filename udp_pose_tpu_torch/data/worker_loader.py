@@ -15,7 +15,10 @@ from one generator seeded per epoch, so its augmentation differs from
 this one's for the same seed, as it does in the JAX package.)
 
 Batches are the in-process loader's: dicts of numpy arrays (meta as
-lists), in plan order; :mod:`.prefetch` uploads them.
+lists), in plan order; :mod:`.prefetch` uploads them.  With
+``as_tensors`` the arrays come as CPU tensors, which the workers hand
+over in shared memory instead of pickling their bytes through a pipe
+(the device augmentation's u8 canvases: 39.3 MB a batch at B=32).
 """
 
 from __future__ import annotations
@@ -38,10 +41,11 @@ class PlannedBatches(torch.utils.data.Dataset):
     built after re-seeding ``dataset`` with :func:`record_seed`, then
     collated.  Pickled to each worker with the dataset."""
 
-    def __init__(self, dataset, plan, seed: int):
+    def __init__(self, dataset, plan, seed: int, as_tensors: bool = False):
         self.dataset = dataset
         self.plan = [np.asarray(chunk) for chunk in plan]
         self.seed = int(seed)
+        self.as_tensors = as_tensors
 
     def __len__(self):
         return len(self.plan)
@@ -51,7 +55,11 @@ class PlannedBatches(torch.utils.data.Dataset):
         for idx in self.plan[i]:
             self.dataset.seed(record_seed(self.seed, idx))
             samples.append(self.dataset[int(idx)])
-        return collate(samples)
+        batch = collate(samples)
+        if self.as_tensors:
+            batch = {k: torch.from_numpy(v) if isinstance(v, np.ndarray)
+                     else v for k, v in batch.items()}
+        return batch
 
 
 def _as_is(batch):
@@ -62,7 +70,8 @@ def _as_is(batch):
 def worker_loader(dataset, batch_size: int, *, seed: int = 0,
                   shuffle: bool = True, num_workers: int = 4,
                   shard_index: int = 0, num_shards: int = 1,
-                  multiprocessing_context=None, timeout: float = 0):
+                  multiprocessing_context=None, timeout: float = 0,
+                  as_tensors: bool = False):
     """A ``DataLoader`` over epoch ``seed``'s batch plan of ``dataset``
     (:func:`.base.epoch_batch_indices` with the same arguments: full
     batches only, of shard ``shard_index`` of ``num_shards``), whose
@@ -74,13 +83,15 @@ def worker_loader(dataset, batch_size: int, *, seed: int = 0,
     platform's default, ``fork`` on Linux, right for the trainer, which
     has no other runtime loaded; ``"spawn"`` in a process where forking
     is unsafe, which needs a dataset that pickles).  ``timeout``: seconds
-    to wait for a batch before raising (0: forever)."""
+    to wait for a batch before raising (0: forever).  ``as_tensors``:
+    the batches' arrays as CPU tensors, passed from the workers in shared
+    memory."""
     plan = epoch_batch_indices(dataset, batch_size, shuffle=shuffle,
                                seed=seed, shard_index=shard_index,
                                num_shards=num_shards)
     workers = int(num_workers)
     return torch.utils.data.DataLoader(
-        PlannedBatches(dataset, plan, seed), batch_size=None,
+        PlannedBatches(dataset, plan, seed, as_tensors), batch_size=None,
         shuffle=False, num_workers=workers, collate_fn=_as_is,
         multiprocessing_context=(multiprocessing_context if workers
                                  else None),

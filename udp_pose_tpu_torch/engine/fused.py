@@ -11,6 +11,13 @@ readback of its result:
   (±``padding`` px) → classic affine crops from the float frame → pose
   forward with the flip test → UDP offset decode (the fused CUDA kernel)
 
+An RSN pose model (``MODEL.NAME rsn``) reads the same card crops through
+the pipeline's RSN graph (:func:`..core.rsn.make_rsn_infer_fn`): flipped
+to BGR, normalised with RSN's constants, decoded by RSN's blur and
+shifted argmax in place of the offset decode, as the two-stage
+``UdpPosePipeline.infer_pose`` serves it.  (The JAX engine pushes RSN
+through its generic graph instead.)
+
 The person count is fixed at ``max_persons`` rows with a ``valid`` mask,
 so no shape depends on the data.  :meth:`FusedDetectPose.infer_frames`
 runs a chunk of F frames as one detector batch, one batched NMS and one
@@ -44,11 +51,6 @@ import torch.nn.functional as F
 
 from .errors import EngineStateError
 from .pose_engine import on_card, tile_first, upload
-
-
-def _not_ported(what):
-    return NotImplementedError(f"{what} is not ported to "
-                               "udp_pose_tpu_torch yet")
 
 
 class FusedDetectPose:
@@ -102,13 +104,6 @@ class FusedDetectPose:
                                          act_scales=pose_act_scales,
                                          mesh=mesh)
         cfg = self._pose.cfg
-        if self._pose.bgr:
-            # the single-dispatch graph decodes with the fused UDP offset
-            # kernel; RSN's BGR crops and its own decode are served by the
-            # two-stage path (UdpPosePipeline.infer_pose)
-            raise _not_ported("RSN (MODEL.NAME rsn) in the detect-then-pose "
-                              "graph; the two-stage infer --detector "
-                              "without --fused serves it")
         self.device = self._pose.device
         self.mesh = self._pose.mesh
         self.num_joints = self._pose.num_joints

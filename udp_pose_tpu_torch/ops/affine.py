@@ -22,12 +22,17 @@ import torch
 PIXEL_STD = 200.0  # reference: JointsDataset.py:78 (`self.pixel_std = 200`)
 
 
-def udp_warp_matrix(rot_deg, center, scale, out_size_wh):
+def udp_warp_matrix(rot_deg, center, scale, out_size_wh, compiled_div=False):
     """Destination→source (2, 3) float32 matrix of the UDP crop, i.e.
     reference ``get_warpmatrix(r, c*2.0, image_size-1.0, s)``
     (JointsDataset.py:29-49, called at :226): ``rot_deg`` in degrees,
     ``center`` (2,) source-space crop centre, ``scale`` (2,) box size /
-    200, ``out_size_wh`` (w, h) of the crop.  ``src = M @ [x, y, 1]``."""
+    200, ``out_size_wh`` (w, h) of the crop.  ``src = M @ [x, y, 1]``.
+    Batched over leading dims: ``rot_deg`` (...), ``center`` and
+    ``scale`` (..., 2) → (..., 2, 3).  ``compiled_div``: divide by the
+    crop size as XLA compiles a division by a constant, a product with
+    its float32 reciprocal (the JAX package's jitted graphs; its eager
+    calls divide)."""
     center = torch.as_tensor(center, dtype=torch.float32)
     scale = torch.as_tensor(scale, dtype=torch.float32,
                             device=center.device)
@@ -37,26 +42,33 @@ def udp_warp_matrix(rot_deg, center, scale, out_size_wh):
     dst_w = float(out_size_wh[0]) - 1.0
     dst_h = float(out_size_wh[1]) - 1.0
     cos, sin = torch.cos(theta), torch.sin(theta)
-    sx = s200[0] / dst_w
-    sy = s200[1] / dst_h
+    sw, sh = s200[..., 0], s200[..., 1]
+    if compiled_div:
+        sx = sw * float(np.float32(1.0) / np.float32(dst_w))
+        sy = sh * float(np.float32(1.0) / np.float32(dst_h))
+    else:
+        sx = sw / dst_w
+        sy = sh / dst_h
     row0 = torch.stack([
         cos * sx,
         sin * sy,
-        -0.5 * s200[0] * cos - 0.5 * s200[1] * sin + center[0],
-    ])
+        -0.5 * sw * cos - 0.5 * sh * sin + center[..., 0],
+    ], dim=-1)
     row1 = torch.stack([
         -sin * sx,
         cos * sy,
-        0.5 * s200[0] * sin - 0.5 * s200[1] * cos + center[1],
-    ])
-    return torch.stack([row0, row1])
+        0.5 * sw * sin - 0.5 * sh * cos + center[..., 1],
+    ], dim=-1)
+    return torch.stack([row0, row1], dim=-2)
 
 
 def udp_rotate_joints(joints_xy, rot_deg, center, scale, out_size_wh,
                       do_clip=False):
     """Source-space joints (..., 2) → UDP crop space (reference
     ``rotate_points``, JointsDataset.py:51-73, as called at :228).  With
-    ``do_clip``, x is clipped to [0, w-1] and y to [0, h-1]."""
+    ``do_clip``, x is clipped to [0, w-1] and y to [0, h-1].  ``center``
+    and ``scale`` (..., 2) and ``rot_deg`` broadcast against the joints'
+    leading dims (a batch: (B, 1, 2) and (B, 1) for (B, J, 2) joints)."""
     joints_xy = torch.as_tensor(joints_xy, dtype=torch.float32)
     dev = joints_xy.device
     center = torch.as_tensor(center, dtype=torch.float32, device=dev)
@@ -69,8 +81,8 @@ def udp_rotate_joints(joints_xy, rot_deg, center, scale, out_size_wh,
     rel = joints_xy - center
     x = cos * rel[..., 0] + sin_n * rel[..., 1]
     y = -sin_n * rel[..., 0] + cos * rel[..., 1]
-    x = (x + s200[0] * 0.5) * ((w - 1.0) / s200[0])
-    y = (y + s200[1] * 0.5) * ((h - 1.0) / s200[1])
+    x = (x + s200[..., 0] * 0.5) * ((w - 1.0) / s200[..., 0])
+    y = (y + s200[..., 1] * 0.5) * ((h - 1.0) / s200[..., 1])
     if do_clip:
         x = torch.clamp(x, 0.0, w - 1.0)
         y = torch.clamp(y, 0.0, h - 1.0)
@@ -219,6 +231,14 @@ def warp_affine(image, matrix, out_hw):
     source matrix (the ``WARP_INVERSE_MAP`` convention), zero outside the
     image → (out_h, out_w, C) float32."""
     return crop_boxes(image, matrix[None], out_hw)[0]
+
+
+def warp_affine_batch(images, matrices, out_hw):
+    """Bilinear warp of each (H, W, C) image of ``images`` (B, H, W, C)
+    with its own (2, 3) destination → source matrix of ``matrices`` (B,
+    2, 3) → (B, out_h, out_w, C) float32, zero outside the image: one
+    :func:`crop_boxes` call with one box a frame."""
+    return crop_boxes(images, matrices[:, None], out_hw)[:, 0]
 
 
 def crop_boxes(image, matrices, out_hw):

@@ -18,7 +18,9 @@ in the middle of an epoch when ``SIGTERM`` stopped the run
 checkpoint asynchronously with retention (:mod:`.utils.orbax_ckpt`);
 ``MODEL.PRETRAINED`` grafts a partial ``.pth`` or ``.msgpack`` onto the
 fresh model (:mod:`.utils.checkpoint`); ``DEBUG.DEBUG`` writes debug
-images (:mod:`.utils.vis`); ``TRAIN.RESUME``, which the JAX trainer
+images (:mod:`.utils.vis`); ``DATASET.DEVICE_AUG`` moves the crop, the
+augmentation and the targets onto the card (:mod:`.data.
+device_pipeline`); ``TRAIN.RESUME``, which the JAX trainer
 reads nowhere, is ignored.  The weights are torch state dicts in the
 reference key names, which ``UdpPosePipeline(cfg, weights=...)`` and
 ``serve --weights`` load with ``strict=True``.  Runs on the card unless
@@ -52,8 +54,6 @@ logger = logging.getLogger(__name__)
 # config keys whose JAX-package features the port does not have yet:
 # (test, what is missing)
 _NOT_PORTED = (
-    (lambda c: c.DATASET.DEVICE_AUG, "DATASET.DEVICE_AUG (on-device "
-     "augmentation)"),
     (lambda c: c.TPU.PP, "TPU.PP (pipeline parallelism)"),
     (lambda c: c.TPU.TP, "TPU.TP (tensor parallelism)"),
 )
@@ -213,6 +213,16 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
     else, or with ``ASPECT_RATIO_GROUPING``, they are built in this
     process.
 
+    ``DATASET.DEVICE_AUG`` (not for RSN): the loaders build raw samples
+    on ``DATASET.DEVICE_AUG_CANVAS`` canvases (:class:`.data.
+    device_pipeline.RawSampleView`), uploaded as uint8; on the device,
+    step ``i`` of epoch ``e`` draws its augmentation from a generator
+    seeded by (1234, e, i) alone and crops, masks and encodes the targets
+    there (:func:`.data.device_pipeline.step_draws`), each rank of a
+    data-parallel run the global batch's draws, its rows taken; the
+    train-time PCK reads these targets and ``DEBUG.DEBUG`` writes no
+    train images.  Validation is unchanged.
+
     ``MODEL.PRETRAINED`` is grafted onto ``model`` first
     (:func:`.utils.checkpoint.load_pretrained`).  ``AUTO_RESUME`` restores
     the model, the optimizer, the scheduler and the step from the
@@ -245,6 +255,7 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
     from .core.loss import make_loss_fn
     from .core.rsn import (RSN_BATCH_KEYS, create_rsn_train_state,
                            make_rsn_train_step, upload_rsn_batch)
+    from .core.infer import normalize_images
     from .core.train import create_train_state, make_train_step, upload_batch
     from .core.validate import serving_copy, validate
     from .data.base import aspect_ratio_group_ids, epoch_loader
@@ -259,6 +270,12 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
     from .utils.vis import save_debug_images
 
     refuse_unported(cfg)
+    is_rsn = cfg.MODEL.NAME == "rsn"
+    if cfg.DATASET.DEVICE_AUG and is_rsn:
+        raise ValueError("DATASET.DEVICE_AUG covers the deep_hrnet "
+                         "pipeline (gaussian/offset targets); the RSN "
+                         "multi-kernel label pyramid still builds on "
+                         "the host: unset DEVICE_AUG for rsn")
     device = resolve_device(device)
     n_dev = data_axis_size(cfg)
     shard_index, num_shards = process_shard_info()
@@ -276,7 +293,6 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
     if num_shards > 1:
         logger.info(f"data parallel: rank {shard_index} of {num_shards}, "
                     f"global batch {global_batch}, local {batch_size}")
-    is_rsn = cfg.MODEL.NAME == "rsn"
     sched = None
     if is_rsn:
         sched = rsn_schedule(cfg, steps_per_epoch, n_dev)
@@ -290,6 +306,33 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
         state = create_train_state(cfg, model, steps_per_epoch)
         step_fn = make_train_step(make_loss_fn(cfg), with_output=True)
         upload, keys = upload_batch, ("image", "target", "target_weight")
+    device_augment, train_iter_ds = None, train_ds
+    if cfg.DATASET.DEVICE_AUG:
+        # the host only decodes onto a canvas; the crop, the augmentation,
+        # AID and the targets run on the device (tools/train.py:102-118)
+        from .data import device_pipeline as dp
+        canvas_w, canvas_h = cfg.DATASET.DEVICE_AUG_CANVAS
+        canvas_hw = (int(canvas_h), int(canvas_w))
+        device_augment = dp.make_device_augment(
+            cfg, train_ds.num_joints, train_ds.flip_pairs,
+            train_ds.upper_body_ids, canvas_hw)
+        train_iter_ds = dp.RawSampleView(train_ds, canvas_hw)
+        keys = dp.CANVAS_KEYS
+        logger.info(f"=> on-device augmentation (canvas {canvas_hw}, host "
+                    "residue = decode + pad)")
+
+        def upload(batch, device, epoch, i):
+            raw = dp.upload_raw(batch, device)
+            draws = dp.step_draws(device_augment, epoch, i, global_batch,
+                                  device, shard_index, num_shards)
+            images, target, weight = device_augment(raw, draws)
+            return {"image": normalize_images(images), "target": target,
+                    "target_weight": weight}
+    else:
+        host_upload = upload
+
+        def upload(batch, device, epoch, i):
+            return host_upload(batch, device)
     if dist.is_initialized():
         # a process group: the step runs through DDP with the global
         # batch's BatchNorm, every rank from rank 0's tensors
@@ -336,13 +379,16 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
     def epoch_batches(epoch):
         if workers:
             return device_prefetch(
-                worker_loader(train_ds, batch_size, seed=epoch,
+                worker_loader(train_iter_ds, batch_size, seed=epoch,
                               shuffle=cfg.TRAIN.SHUFFLE,
                               num_workers=cfg.WORKERS,
                               shard_index=shard_index,
-                              num_shards=num_shards), device, keys=keys)
-        train_ds.seed(epoch)
-        return epoch_loader(train_ds, batch_size, shuffle=cfg.TRAIN.SHUFFLE,
+                              num_shards=num_shards,
+                              as_tensors=device_augment is not None),
+                device, keys=keys)
+        train_iter_ds.seed(epoch)
+        return epoch_loader(train_iter_ds, batch_size,
+                            shuffle=cfg.TRAIN.SHUFFLE,
                             seed=epoch, group_ids=group_ids,
                             shard_index=shard_index, num_shards=num_shards)
 
@@ -371,14 +417,19 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
 
     def stepped(epoch, i, iteration, batch, t_iter):
         """One train step and its record entry, whose ``iter_s`` the
-        caller sets at the end of the iteration; returns the metrics."""
+        caller sets at the end of the iteration; returns the metrics and
+        the step's device batch."""
         t_loaded = time.perf_counter()
         lr = state.optimizer.param_groups[0]["lr"]
-        metrics = step_fn(state, upload(batch, device))
+        device_batch = upload(batch, device, epoch, i)
+        metrics = step_fn(state, device_batch)
         record["steps"].append({
             "epoch": epoch, "step": i, "iteration": iteration,
             "loss": metrics["loss"], "lr": lr, "load_s": t_loaded - t_iter})
-        return metrics
+        return metrics, device_batch
+
+    def rows(batch):
+        return len(batch["image" if device_augment is None else "canvas"])
 
     def iteration_ended(t_iter):
         t_end = time.perf_counter()
@@ -411,7 +462,7 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
         try:
             for it in range(start_iter, sched.max_iters):
                 epoch, i, batch = next(stream)
-                step_loss = stepped(epoch, i, it, batch, t_iter)["loss"]
+                step_loss = stepped(epoch, i, it, batch, t_iter)[0]["loss"]
                 # summed on the device: no per-step wait for the card
                 loss_sum = (step_loss if loss_sum is None
                             else loss_sum + step_loss)
@@ -419,7 +470,7 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
                     secs = max(time.perf_counter() - t_iter, 1e-9)
                     logger.info(
                         f"Iter [{it}/{sched.max_iters}] Speed "
-                        f"{len(batch['image']) / secs:.1f}/s Loss "
+                        f"{rows(batch) / secs:.1f}/s Loss "
                         f"{float(step_loss):.4f} (avg "
                         f"{float(loss_sum) / (it - start_iter + 1):.4f}) lr "
                         f"{record['steps'][-1]['lr']:.6g} ETA "
@@ -465,29 +516,32 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
                         # from one generator, whose draws must replay
                         # for the continuation to be exact
                         continue
-                    metrics = stepped(epoch, i, state.step, batch, t_iter)
+                    metrics, device_batch = stepped(epoch, i, state.step,
+                                                    batch, t_iter)
                     step_loss = metrics["loss"]
                     loss_sum = (step_loss if loss_sum is None
                                 else loss_sum + step_loss)
                     loss_cnt += 1
                     if i % cfg.PRINT_FREQ == 0:
                         if not is_rsn:
-                            # train-time PCK@0.5 on the heatmap argmax
+                            # train-time PCK@0.5 on the heatmap argmax,
+                            # against the device targets under DEVICE_AUG
                             hm = metrics["output"].detach().cpu().numpy()
                             tgt = torch.as_tensor(
-                                batch["target"]).cpu().numpy()
+                                device_batch["target"]).cpu().numpy()
                             if cfg.MODEL.TARGET_TYPE == "offset":
                                 hm, tgt = hm[:, ::3], tgt[:, ::3]
                             _, avg_acc, cnt, pred = pck_accuracy(hm, tgt)
                             acc_meter.update(avg_acc, cnt)
-                            if cfg.DEBUG.DEBUG and writer:
+                            if (cfg.DEBUG.DEBUG and writer
+                                    and device_augment is None):
                                 save_debug_images(
                                     cfg, batch["image"], batch["joints"],
                                     batch["joints_vis"], tgt, hm,
                                     os.path.join(out_dir,
                                                  f"train_{epoch}_{i}"),
                                     pred_joints=pred * 4)
-                        speed = len(batch["image"]) / max(
+                        speed = rows(batch) / max(
                             time.perf_counter() - t_iter, 1e-9)
                         logger.info(
                             f"Epoch [{epoch}][{i}/{steps_per_epoch}] "
