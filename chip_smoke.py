@@ -114,7 +114,7 @@ each card's rows bit-equal to no mesh on those rows, on a
 B=32 against one process at B=64, held within limits that a control
 run with each rank's BatchNorm over its own rows must exceed, and
 ``test.run`` on 2 ranks against one (15c; on one card a line says what
-did not run).  Phase 16, the single-card remainder (last): the
+did not run).  Phase 16, the single-card remainder: the
 AID yaml's on-device augmentation (hide-and-seek on, B=32, 640x640
 canvases) on the card against its CPU run from one set of draws, its ms
 and the canvas upload (16a); ``train.run`` of the AID yaml with
@@ -125,11 +125,19 @@ BatchNorm through ``FusedBatchNorm`` against plain BN, float64 held,
 fp32 and bf16 reported, and the bf16 step times (16d);
 ``FusedDetectPose`` over ``rsn18`` (PRM on) in bf16 and int8 against
 ``infer_pose`` on its boxes, frames/s (16e); ``simdr_decode`` and
-``shift_decode`` card vs CPU (16f).  The kernels' launches
+``shift_decode`` card vs CPU (16f).  Phase 17, the user tools (last),
+each through its ``main``: ``reproduce_zoo`` on a synthetic mini-COCO
+on disk with the w32 yaml and seeded weights as a reference ``.pth``,
+its AP held at ``--tolerance 0`` to a direct validation, a shifted
+expectation failing, ``--quantize int8``, and ``plot_coco`` over the
+results json (17a); ``overfit_proof`` at ``OVERFIT_STEPS`` (17b);
+``generalization_proof --quantize int8 --qat`` with its own gates (17c);
+``convert_weights`` of the ``.pth``, served bit for bit as the ``.pth``
+(17d).  The kernels' launches
 count phases 6, 7 and 8, each path in one window, and the two int8
 paths (9b-9c, 9d) in windows around each of their own calls: the bf16
 engines timed in turns with them and the card-vs-CPU checks run
-outside; phases 10, 11, 12, 13, 14, 15 and 16's paths likewise.  Any failed check
+outside; phases 10, 11, 12, 13, 14, 15, 16 and 17's paths likewise.  Any failed check
 exits nonzero before the last line, which is ``{"ok": true, "device":
 {...}}``.  Without a CUDA card it exits 1.  Imports nothing of JAX or of
 the JAX package.
@@ -349,7 +357,7 @@ def enqueue_us(fn, n=2000):
     return (t1 - t0) / n * 1e6
 
 
-def profile_device(fn, n=3):
+def profile_device(fn, n=1):
     """torch.profiler over ``n`` calls: (wall ms, device-busy ms, the
     top device kernels by time, device kernels and copies a call).  Busy
     time is the sum of the kernels' and copies' durations on the card
@@ -718,7 +726,7 @@ def peak_index(packed, W):
     return (packed[..., 1] * W + packed[..., 0]).long()
 
 
-def phase_model(cfg_fn=w32_cfg, batch=SERVE_BATCH, iters=10,
+def phase_model(cfg_fn=w32_cfg, batch=SERVE_BATCH, iters=5,
                 device="cuda"):
     """Returns (crops/s per dtype and flip mode, the layout of the
     heatmaps the serving graph hands its decode, a function that profiles
@@ -1176,7 +1184,7 @@ def repeated_batch_steps(cfg, batch, card, n_steps=8, device="cuda",
     return secs
 
 
-def profile_train(cfg, model, batch, card, n=3, device="cuda", ddp=False):
+def profile_train(cfg, model, batch, card, n=1, device="cuda", ddp=False):
     """Where a bf16 step's time goes: ``n`` steps of ``model`` (fresh Adam
     state) on one pre-built batch under torch.profiler, after two
     unprofiled ones; host and device ms a step of the ``train/*`` ranges
@@ -1733,7 +1741,7 @@ def decode_graph_times(eng, frames, card, device="cuda"):
             f"{bound_by}) | {card}")
 
 
-def time_frames(fn, n_frames, reps=3):
+def time_frames(fn, n_frames, reps=2):
     """frames/s of ``fn()`` handling ``n_frames`` frames to host results:
     the median of ``reps`` runs after one warm-up, and the runs' ms."""
     fn()
@@ -1757,7 +1765,7 @@ def spin_cycles_per_ms():
     return 20_000_000 / start.elapsed_time(end)
 
 
-def stage_breakdown(eng, frames, reps=5):
+def stage_breakdown(eng, frames, reps=3):
     """Host and device ms of each stage of ``_run`` (its ``mark`` hook),
     medians over ``reps`` runs after one warm-up.  Host: the time to
     enqueue the stage, in a plain run.  Device: CUDA events around each
@@ -2044,7 +2052,8 @@ def phase_detect(tmp, cfg_fn=w32_cfg, pose_yaml=W32_YAML, device="cuda"):
     rates["infer_stream_low_bw"] = time_frames(
         lambda: list(eng.infer_stream_low_bw(iter(frames))), len(frames))
     for name, (fps, runs) in rates.items():
-        log(f"[detect] 8e {name}: {fps:.1f} frames/s (median of 3 runs of "
+        log(f"[detect] 8e {name}: {fps:.1f} frames/s (median of {len(runs)} "
+            f"runs of "
             f"{len(frames)} 720p frames: "
             f"{', '.join(f'{r:.1f}' for r in runs)} ms) | {card}")
     for n in (1, 8):
@@ -2646,7 +2655,7 @@ def int8_card_vs_cpu(table, card, cfg_fn=w32_cfg, device="cuda"):
 
 
 def int8_serving(path, card, cfg_fn=w32_cfg, device="cuda",
-                 batch=SERVE_BATCH, iters=10):
+                 batch=SERVE_BATCH, iters=5):
     """9b: full-width w32 bf16 with the flip at B = ``batch``: the
     pipeline calibrates itself on two batches, then int8 and bf16 crops/s
     in both flip modes (host u8 crops in, decoded keypoints out), the
@@ -2950,13 +2959,8 @@ def int8_qat(card, cfg_fn=w32_cfg, device="cuda", batch=32):
 def int8_test_cli(tmp, card, device="cuda", pose_yaml=W32_YAML):
     """9f: ``python -m udp_pose_tpu_torch.test ... TPU.QUANTIZE int8`` on
     a synthetic COCO val set written to disk."""
-    import cv2
     root = os.path.join(tmp, "coco_int8")
-    frames = synthetic_coco(root, "val2017", 16, np.random.default_rng(94))
-    os.makedirs(os.path.join(root, "images", "val2017"))
-    for img_id, frame in frames.items():
-        cv2.imwrite(os.path.join(root, "images", "val2017",
-                                 "%012d.jpg" % img_id), frame)
+    frames = disk_coco(root, 16, np.random.default_rng(94))
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "udp_pose_tpu_torch.test", "--cfg", pose_yaml,
@@ -3044,7 +3048,7 @@ def decisive_maps(hm, tol):
             & (~inner_x | (dx.abs() > tol)) & (~inner_y | (dy.abs() > tol)))
 
 
-def float_path(name, cfg, card, device="cuda", batch=SERVE_BATCH, iters=10,
+def float_path(name, cfg, card, device="cuda", batch=SERVE_BATCH, iters=5,
                tag="[zoo] 10", kp_atol=None):
     """10a / 10b (and 12a, ``tag``): the yaml's serving graph (its own
     flip test and decode) at full width with seeded random weights.  fp32
@@ -3141,7 +3145,7 @@ def float_path(name, cfg, card, device="cuda", batch=SERVE_BATCH, iters=10,
     return rate, path.counts, profile
 
 
-def int8_resnet(card, device="cuda", batch=SERVE_BATCH, iters=10):
+def int8_resnet(card, device="cuda", batch=SERVE_BATCH, iters=5):
     """10c: int8 ``pose_resnet50`` at full width.  The pipeline calibrates
     itself on two batches of B = ``batch`` and serves w8a8 (the deconv
     head and ``final_layer`` stay bf16): int8 and bf16 crops/s in turns,
@@ -3469,7 +3473,7 @@ def rsn_card_vs_cpu(cfg, n, seed, device="cuda"):
 
 
 def rsn_serving(card, device="cuda", yaml=RSN18_YAML, batch=SERVE_BATCH,
-                iters=10, n_check=8):
+                iters=5, n_check=8):
     """11a: ``rsn18_256x192`` uncut, bf16, B = ``batch``, the yaml's flip
     test folded into one forward (``make_rsn_infer_fn``, the protocol of
     ``bench.py``'s ``crops_per_sec_rsn18_256x192``): fp32 card vs CPU on
@@ -3734,7 +3738,7 @@ def rsn_stage_growth(cfg, train_ds, card, device="cuda"):
 
 def rsn_iteration_training(tmp, card, device="cuda", yaml=RSN4X18_YAML,
                            n_train=RSN_TRAIN_IMAGES, n_val=RSN_VAL_IMAGES,
-                           max_iter=4, period=2, warmup=16):
+                           max_iter=2, period=1, warmup=8):
     """11c: ``4xrsn18_256x192`` at full width (bf16, B=32, WORKERS 4)
     through ``train.run`` in iteration mode on a seeded synthetic
     mini-COCO in memory, with only ``MAX_ITER``, ``CHECKPOINT_PERIOD``
@@ -3846,7 +3850,7 @@ def rsn_iteration_training(tmp, card, device="cuda", yaml=RSN4X18_YAML,
 
 
 def rsn_int8(tmp, card, device="cuda", yaml=RSN18_YAML,
-             n_images=RSN_VAL_IMAGES, batch=SERVE_BATCH, iters=10):
+             n_images=RSN_VAL_IMAGES, batch=SERVE_BATCH, iters=5):
     """11d: ``rsn18_256x192`` through ``test.run`` with ``TPU.QUANTIZE
     int8`` (self-calibrating, the yaml's flip, bf16) on a synthetic
     mini-COCO val: one fused int8 conv launch a site and served batch;
@@ -4216,7 +4220,7 @@ def dw_forward_times(net, sites, batch, card, device="cuda"):
     return sums, by_route, err, len(shapes)
 
 
-def mobile_int8(name, card, device="cuda", batch=SERVE_BATCH, iters=10):
+def mobile_int8(name, card, device="cuda", batch=SERVE_BATCH, iters=5):
     """12b for one mobile yaml: the pipeline calibrates itself on two
     batches of B = ``batch`` and serves w8a8 (``final_layer`` and the
     transposed convs in bf16): int8 and bf16 crops/s in turns, one launch
@@ -5094,7 +5098,7 @@ def person_boxes(n, seed, hw=DETECT_HW):
 
 
 def card_crops(card, device="cuda", cfg_fn=w32_cfg, persons=SERVE_PERSONS,
-               n_check=8, iters=10, hw=DETECT_HW):
+               n_check=8, iters=5, hw=DETECT_HW):
     """14a: ``UdpPosePipeline.infer_pose`` with the crops warped on the
     card.  fp32 with TF32 off on ``n_check`` persons of one frame, a
     pipeline on the card and one on the CPU with the same weights: the
@@ -5287,7 +5291,7 @@ def pad_on_device_http(card, device="cuda", cfg_fn=w32_cfg, n_requests=4,
 
 
 def rsn_pipeline(card, device="cuda", yaml=RSN18_YAML, persons=RSN_PERSONS,
-                 iters=10, hw=DETECT_HW):
+                 iters=5, hw=DETECT_HW):
     """14c: ``rsn18_256x192`` uncut through ``UdpPosePipeline`` in bf16
     and in int8 (self-calibrating on its first frame): ``infer_pose``
     (crops on the card) and ``infer_crops`` (the batcher's host crops) of
@@ -6018,7 +6022,7 @@ def check_ddp_runs(plain, ddp, card, device="cuda"):
     return eval_launches
 
 
-def mesh_serving(card, devices, device="cuda", cfg_fn=w32_cfg, iters=10):
+def mesh_serving(card, devices, device="cuda", cfg_fn=w32_cfg, iters=5):
     """15c: ``UdpPosePipeline(mesh=)`` over ``devices`` (a power of two
     of them) against no mesh (the pipeline's own one card) on a 64-person 720p
     frame, fp32 with TF32 off: each card's rows of the mesh's answer bit
@@ -6743,7 +6747,8 @@ def rsn_fused_engine(card, device="cuda", yaml=RSN18_YAML, n_frames=4,
             f"twice on one frame's boxes: {repeat:.4f} of the joints within "
             f"{RSN_KP_ATOL:g} px; {sites[0]} int8 conv sites, "
             f"{sites[1]} depthwise; launches {launches}; infer_frame "
-            f"{fps:.2f} frames/s (median of 3 runs of {n_frames} frames: "
+            f"{fps:.2f} frames/s (median of {len(runs)} runs of {n_frames} "
+            f"frames: "
             f"{', '.join(f'{r:.1f}' for r in runs)} ms) | {card}")
         check(agree >= RSN_PERSONS_AGREE and np.isfinite(errs).all(),
               f"16e {name}: {agree:.4f} of the joints agree")
@@ -6826,6 +6831,303 @@ def phase_device_aug(tmp, device="cuda"):
     return paths
 
 
+# --------------------------------------------------------------- phase 17
+ZOO_VAL_IMAGES = 24              # 48 crops: a full and a partial batch
+# --steps: the overfit proof's cut from the tools' 5000 to fit the
+# script's time limit, its gate still held; the generalization proof
+# keeps 5000, as its QAT twin leaves the plateau of predicting zeros late
+OVERFIT_STEPS = 2000
+GEN_STEPS = 5000
+GEN_VAL_IMAGES = 16              # generalization_proof.generate's val2017
+
+
+def disk_coco(root, n_images, rng):
+    """:func:`synthetic_coco`'s ``val2017`` set with its frames written
+    as JPEGs under ``images/val2017``, where the dataset reads them."""
+    import cv2
+    frames = synthetic_coco(root, "val2017", n_images, rng)
+    os.makedirs(os.path.join(root, "images", "val2017"), exist_ok=True)
+    for img_id, frame in frames.items():
+        cv2.imwrite(os.path.join(root, "images", "val2017",
+                                 "%012d.jpg" % img_id), frame)
+    return frames
+
+
+def predictions_as_truth(cfg, model, root):
+    """Move every other person's joints in ``root``'s ``val2017``
+    annotations to where ``model`` puts them, so that the AP of these
+    random weights lies between 0 and 1 and an AP that agrees says
+    something."""
+    from udp_pose_tpu_torch.core.validate import validate
+    from udp_pose_tpu_torch.data import build_dataset
+    ds, preds = build_dataset(cfg), []
+    ds.evaluate = lambda c, p, *a: preds.append(np.array(p)) or ({}, 0.0)
+    validate(cfg, ds, model)
+    ann_file = os.path.join(root, "annotations",
+                            "person_keypoints_val2017.json")
+    with open(ann_file) as f:
+        data = json.load(f)
+    check(len(data["annotations"]) == len(preds[0]),
+          f"{len(preds[0])} val crops for {len(data['annotations'])} people")
+    for ann, pred in list(zip(data["annotations"], preds[0]))[::2]:
+        ann["keypoints"] = np.concatenate(
+            [pred[:, :2], np.full((17, 1), 2.0)], 1).reshape(-1).tolist()
+    with open(ann_file, "w") as f:
+        json.dump(data, f)
+
+
+def zoo_table(tmp, entries, *flags):
+    """``reproduce_zoo.main`` on a manifest of ``entries`` with the
+    trailing ``flags``; returns (exit code, printed table)."""
+    from udp_pose_tpu_torch import reproduce_zoo
+    manifest = os.path.join(tmp, "manifest.json")
+    with open(manifest, "w") as f:
+        json.dump(entries, f)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = reproduce_zoo.main(["--manifest", manifest, *flags])
+    return code, out.getvalue()
+
+
+def tools_zoo(tmp, card, device="cuda", yaml=W32_YAML):
+    """17a: ``reproduce_zoo`` on a synthetic mini-COCO on disk with the
+    main-path yaml at full width and seeded random weights saved as a
+    reference-key ``.pth``: the manifest's ``expected`` is a direct
+    ``validate`` of the same weights, held with ``--tolerance 0`` (exit
+    0); shifted by 0.5 it exits 1; ``--quantize int8`` adds both AP
+    columns.  ``plot_coco.plot`` renders the fp run's results json, an
+    image for each image with detections.  Returns (the launches of the
+    two paths, the weights)."""
+    from udp_pose_tpu_torch import plot_coco
+    from udp_pose_tpu_torch.config import load_config
+    from udp_pose_tpu_torch.core.validate import validate
+    from udp_pose_tpu_torch.data import build_dataset
+    from udp_pose_tpu_torch.models import build_model
+    from udp_pose_tpu_torch.utils.checkpoint import save_weights
+    from udp_pose_tpu_torch.utils.convert import (read_weights,
+                                                  state_dict_to_torch)
+    root = os.path.join(tmp, "zoo_coco")
+    disk_coco(root, ZOO_VAL_IMAGES, np.random.default_rng(171))
+    cfg = load_config(yaml, ["DATASET.ROOT", root])
+    weights = os.path.join(tmp, "w32_random.pth")
+    save_weights(weights, build_model(cfg, device=device, train=True,
+                                      seed=17))
+    model = build_model(cfg, device=device)
+    model.load_state_dict(state_dict_to_torch(read_weights(weights, cfg)),
+                          strict=True)
+    predictions_as_truth(cfg, model, root)
+    val = build_dataset(cfg)
+    nv, expected = validate(cfg, val, model)
+    check(0.0 < expected < 1.0, f"17a: AP {expected} of the set")
+    del model
+    batches = -(-len(val) // cfg.TEST.BATCH_SIZE_PER_GPU)
+    entry = {"name": "w32 256x192 UDP offset, seeded", "config": yaml,
+             "weights": weights, "expected": expected, "metric": "AP"}
+    out_dir = os.path.join(tmp, "zoo_out")
+    flags = ("--data-dir", root, "--tolerance", "0", "--device", device)
+    fp = PathLaunches("reproduce_zoo")
+    t0 = time.perf_counter()
+    code, table = fp.run(zoo_table, tmp, [entry], *flags, "--output-dir",
+                         out_dir)
+    fp_s = time.perf_counter() - t0
+    log(table.rstrip())
+    check(code == 0 and "+0.000  OK" in table,
+          f"17a: reproduce_zoo exited {code} on its own AP: {table}")
+    code, shifted = fp.run(zoo_table, tmp,
+                           [dict(entry, expected=expected + 0.5)], *flags)
+    check(code == 1 and "-0.500  FAIL" in shifted,
+          f"17a: a shifted expectation exited {code}: {shifted}")
+    fp.served(2 * batches, 0)
+    check(fp.counts == fp.want, f"reproduce_zoo: launches {fp.counts}, "
+          f"want {fp.want}")
+    q = PathLaunches("reproduce_zoo_int8")
+    t0 = time.perf_counter()
+    code, q_table = q.run(zoo_table, tmp, [entry], *flags, "--quantize",
+                          "int8")
+    q_s = time.perf_counter() - t0
+    log(q_table.rstrip())
+    row = q_table.splitlines()[-1].split()
+    check(code == 0 and row[-1] == "OK" and row[-4] == "+0.000",
+          f"17a: reproduce_zoo --quantize int8 exited {code}: {q_table}")
+    q.served(2 * batches, INT8_SITES_W32 * batches * forwards(cfg))
+    q.check()
+    results = os.path.join(out_dir, "results",
+                           "keypoints_val2017_results_0.json")
+    with open(results) as f:
+        images = {r["image_id"] for r in json.load(f)}
+    plots = os.path.join(tmp, "plots")
+    n = plot_coco.plot(results, os.path.join(root, "images", "val2017"),
+                       plots, score_thre=0.0)
+    check(n == len(images) == len(os.listdir(plots)) == ZOO_VAL_IMAGES,
+          f"17a: plot_coco wrote {n} images for {len(images)} with "
+          f"detections")
+    log(f"[tools] 17a reproduce_zoo on {len(val)} crops of {yaml} (bf16, "
+        f"flip {cfg.TEST.get('FLIP_MODE', 'fold')}): AP {expected:.6f} "
+        f"from a direct validate, the manifest's Δ 0 at --tolerance 0 "
+        f"(exit 0, {fp_s:.1f} s), shifted by 0.5 exit 1; --quantize int8: "
+        f"fp {row[-5]} int8 {row[-3]} d_int8 {row[-2]} ({q_s:.1f} s); "
+        f"plot_coco drew {n} images; launches: fused decode "
+        f"{fp.counts['udp_offset_decode_fused']} / "
+        f"{q.counts['udp_offset_decode_fused']}, int8_conv_fused "
+        f"{q.counts['int8_conv_fused']} | {card}")
+    torch.cuda.empty_cache()
+    return {p.name: p.counts for p in (fp, q)}, weights
+
+
+def tools_overfit(gen_root, card, device="cuda", steps=OVERFIT_STEPS):
+    """17b: ``overfit_proof`` on the ``val2017`` split of
+    ``generalization_proof.generate``, its defaults but ``--steps``; the
+    tool itself fails unless AP > 0.95."""
+    from udp_pose_tpu_torch import overfit_proof
+    rec = overfit_proof.main(["--root", gen_root, "--steps", str(steps),
+                              "--device", device])
+    log(f"[tools] 17b overfit_proof: pose_resnet 18 192x256 fp32 (TF32 "
+        f"off), {rec['images']} crops as one batch, {rec['steps']} Adam "
+        f"steps in {rec['seconds']:.1f} s ({rec['ms_per_step']:.3f} "
+        f"ms/step), final loss {rec['loss']:.3e}; AP {rec['ap']:.4f} "
+        f"(gate > 0.95), AP.5 {rec['name_values']['Ap .5']:.4f} | {card}")
+    return rec
+
+
+def int8_conv_modules(model):
+    from udp_pose_tpu_torch.models.quantize import Int8Conv2d
+    return sum(isinstance(m, Int8Conv2d) for m in model.modules())
+
+
+def tools_generalization(gen_root, card, device="cuda", steps=GEN_STEPS):
+    """17c: ``generalization_proof --quantize int8 --qat`` at the default
+    scale; the tool's own gates (AP.5 > 0.9, int8 within 0.02, QAT
+    within 0.04).  Each of its three evaluations runs in a window of
+    its own: the fp32 one and the int8 PTQ one count to
+    ``generalization_int8``, the QAT deployment's to
+    ``generalization_qat_int8``.  Returns their launches."""
+    from udp_pose_tpu_torch import generalization_proof
+    from udp_pose_tpu_torch.core import validate as validate_mod
+    ptq = PathLaunches("generalization_int8")
+    qat = PathLaunches("generalization_qat_int8")
+    windows, sites = (ptq, ptq, qat), []
+    real = validate_mod.validate
+
+    def spy(cfg, dataset, model, *args, **kwargs):
+        path = windows[len(sites)]
+        sites.append(int8_conv_modules(model))
+        return path.run(real, cfg, dataset, model, *args, **kwargs)
+
+    validate_mod.validate = spy
+    try:
+        rec = generalization_proof.main([
+            "--root", gen_root, "--steps", str(steps), "--quantize", "int8",
+            "--qat", "--device", device])
+    finally:
+        validate_mod.validate = real
+    check(len(sites) == 3 and sites[0] == 0 and sites[1] == sites[2] > 0,
+          f"17c: int8 conv sites of the three evaluations {sites}")
+    batches = -(-GEN_VAL_IMAGES // 16)      # the tool's TEST batch: 16
+    ptq.served(0, sites[1] * batches)
+    qat.served(0, sites[2] * batches)
+    for path in (ptq, qat):
+        path.check()
+    nv = rec["name_values"]
+    log(f"[tools] 17c generalization_proof --quantize int8 --qat: pool of "
+        f"{rec['pool_batches']} augmented batches in "
+        f"{rec['pool_seconds']:.1f} s; fp32 {steps} steps "
+        f"{rec['fp32']['seconds']:.1f} s ({rec['fp32']['ms_per_step']:.3f} "
+        f"ms/step, loss {rec['fp32']['loss']:.3e}), QAT twin "
+        f"{rec['qat']['seconds']:.1f} s ({rec['qat']['ms_per_step']:.3f} "
+        f"ms/step, loss {rec['qat']['loss']:.3e}); unseen val AP "
+        f"{rec['ap']:.4f} AP.5 {nv['Ap .5']:.4f} (gate > 0.9), int8 PTQ AP "
+        f"{rec['ap_int8']:.4f} (delta {rec['d_ap_int8']:.4f}, AP.5 delta "
+        f"{rec['d_ap5_int8']:.4f}; gate 0.02), QAT->int8 AP "
+        f"{rec['ap_qat']:.4f} (delta {rec['d_ap_qat']:.4f}; gate 0.04); "
+        f"int8_conv_fused {sites[1]} sites a batch, routes {ptq.routes} | "
+        f"{card}")
+    return {p.name: p.counts for p in (ptq, qat)}
+
+
+def tools_convert(tmp, weights, card, device="cuda", yaml=W32_YAML,
+                  batch=64):
+    """17d: ``convert_weights`` turns the seeded w32 ``.pth`` into a
+    ``.msgpack``; ``UdpPosePipeline`` serves ``batch`` crops from each
+    file with keypoints and scores bit for bit equal."""
+    from udp_pose_tpu_torch import convert_weights
+    from udp_pose_tpu_torch.config import load_config
+    from udp_pose_tpu_torch.engine.pose_engine import UdpPosePipeline
+    out = os.path.join(tmp, "w32.msgpack")
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        code = convert_weights.main(["--cfg", yaml, "--pth", weights,
+                                     "--out", out, "--device", device])
+    convert_s = time.perf_counter() - t0
+    want = f"wrote {out} ({os.path.getsize(out)} bytes)"
+    check(code == 0 and printed.getvalue().strip() == want,
+          f"17d: convert_weights exited {code}: {printed.getvalue()}")
+    cfg = load_config(yaml)
+    crops, center, scale = random_crops(batch, cfg, seed=174)
+    served = {}
+    for f in (weights, out):
+        pipe = UdpPosePipeline(cfg, weights=f, device=device)
+        served[f] = pipe.infer_crops(crops, center, scale)
+        del pipe
+    (kp_m, sc_m), (kp_p, sc_p) = served[out], served[weights]
+    check(np.array_equal(kp_m, kp_p) and np.array_equal(sc_m, sc_p)
+          and np.isfinite(kp_m).all(),
+          "17d: the converted .msgpack serves other keypoints than the .pth")
+    log(f"[tools] 17d convert_weights: the seeded w32 .pth to "
+        f"{os.path.getsize(out)} bytes of .msgpack in {convert_s:.1f} s "
+        f"(strict load on the card); UdpPosePipeline keypoints and scores "
+        f"of {batch} crops bit-equal to the .pth's | {card}")
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def tool_switches(tmp):
+    """The process state phase 17 runs the tools in: cuDNN's switches as
+    a fresh process has them (no autotuning, its default algorithms; the
+    proofs turn TF32 off themselves), and the tools' temporary
+    directories under ``tmp``.  Restored after.  The default algorithms
+    do not repeat a proof's training bit for bit; deterministic ones
+    have given the QAT twin an AP past its gate (``PERF.md``)."""
+    cudnn = torch.backends.cudnn
+    before = cudnn.benchmark, cudnn.deterministic, tempfile.tempdir
+    cudnn.benchmark, cudnn.deterministic = False, False
+    tempfile.tempdir = tmp
+    try:
+        yield
+    finally:
+        cudnn.benchmark, cudnn.deterministic, tempfile.tempdir = before
+
+
+def phase_tools(tmp, device="cuda"):
+    """Phase 17, the user tools through their ``main`` on the card, under
+    :func:`tool_switches`: ``reproduce_zoo`` with ``plot_coco`` (17a),
+    ``overfit_proof`` (17b), ``generalization_proof --quantize int8
+    --qat`` (17c), ``convert_weights`` (17d).  Returns the launches by
+    path."""
+    from udp_pose_tpu_torch import generalization_proof
+    card = card_line()
+    t_phase = time.perf_counter()
+    secs, paths = {}, {}
+    with tool_switches(tmp):
+        t0 = time.perf_counter()
+        zoo_paths, weights = tools_zoo(tmp, card, device)
+        paths.update(zoo_paths)
+        secs["17a"] = time.perf_counter() - t0
+        gen_root = os.path.join(tmp, "gencoco")
+        generalization_proof.generate(gen_root)
+        parts = (("17b", lambda: tools_overfit(gen_root, card, device)),
+                 ("17c", lambda: paths.update(
+                     tools_generalization(gen_root, card, device))),
+                 ("17d", lambda: tools_convert(tmp, weights, card, device)))
+        for part, fn in parts:
+            t0 = time.perf_counter()
+            fn()
+            secs[part] = time.perf_counter() - t0
+    log(f"[tools] phase 17 {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"{p} {v:.1f}" for p, v in secs.items()) + " s)")
+    return paths
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -6877,6 +7179,8 @@ def main(argv=None):
             paths.update(phase_distributed(tmp))
         with tempfile.TemporaryDirectory() as tmp:
             paths.update(phase_device_aug(tmp))
+        with tempfile.TemporaryDirectory() as tmp:
+            paths.update(phase_tools(tmp))
         paths.update(int8_paths)
         paths.update(zoo_paths)
         paths.update(rsn_paths)

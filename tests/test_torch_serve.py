@@ -422,7 +422,9 @@ def test_port_imports_nothing_of_jax():
     assert {port / "engine/standalone.py", port / "export/__main__.py"} | {
         port / "export" / f"onnx_{m}.py" for m in (
             "pb", "build", "families", "mobile", "rsn", "yolo", "eval")
-    } <= set(files)
+    } | {port / f"{m}.py" for m in (
+        "reproduce_zoo", "generalization_proof", "overfit_proof",
+        "convert_weights", "plot_coco")} <= set(files)
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -369,10 +369,14 @@ def test_train_and_test_entry_points_on_cpu(coco_root, tmp_path,
 
 
 def test_entry_points_refuse_what_is_not_ported(tmp_path, coco_root):
-    """``TPU.TP`` and ``TPU.PP`` still raise; ``DATASET.DEVICE_AUG``
-    (ported) trains a reduced step through ``train.main``, its crops and
-    targets made by the device augmentation, and raises for RSN as the
-    JAX trainer does."""
+    """A model axis > 1 (``TPU.TP``, ``TPU.PP``) still raises; on a model
+    axis of 1 both keys train and test the plain step through the CLIs,
+    as the JAX trainer does (``tools/train.py:181``, ``:213``), and
+    ``TPU.QAT int8`` with ``TPU.PP`` raises ``ValueError`` whatever the
+    mesh (``:81-88``).  ``DATASET.DEVICE_AUG`` (ported) trains a reduced
+    step through ``train.main``, its crops and targets made by the device
+    augmentation, and raises for RSN as the JAX trainer does."""
+    from udp_pose_tpu_torch import test as test_cli
     from udp_pose_tpu_torch import train as train_cli
     from udp_pose_tpu_torch.data import device_pipeline as dp
     cfg = reduced_cfg(default_config)
@@ -381,11 +385,42 @@ def test_entry_points_refuse_what_is_not_ported(tmp_path, coco_root):
     for key, value in (("TPU.TP", "True"), ("TPU.PP", "True")):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train_cli.main(["--cfg", str(path), "--device", "cpu", key,
-                            value])
+                            value, "TPU.MESH.MODEL", "2"])
+    for mesh in ("1", "2"):
+        with pytest.raises(ValueError, match="TPU.QAT is not supported "
+                                             "together with TPU.PP"):
+            train_cli.main(["--cfg", str(path), "--device", "cpu",
+                            "TPU.QAT", "int8", "TPU.PP", "True",
+                            "TPU.MESH.MODEL", mesh])
     cfg = _data_cfg(default_config, coco_root)
-    cfg.OUTPUT_DIR = str(tmp_path / "out")
     cfg.TRAIN.END_EPOCH = 1
     cfg.TEST.FLIP_TEST = False
+    cfg.LOG_DIR = str(tmp_path / "log")
+    path.write_text(yaml.safe_dump(cfg.to_dict()))
+
+    def trained(name, *opts):
+        out = str(tmp_path / name)
+        record = train_cli.main(["--cfg", str(path), "--device", "cpu",
+                                 "OUTPUT_DIR", out, *opts])
+        weights = tmp_path / name / "coco" / "pose_hrnet" / "c" / \
+            "final_state.pth"
+        return record, torch.load(weights), str(weights)
+
+    # both keys at once: at a model axis of 1 the JAX trainer takes
+    # neither branch, so it neither pipelines nor refuses TPU.PP + TPU.TP
+    axis = ["TPU.PP", "True", "TPU.TP", "True", "TPU.MESH.MODEL", "1"]
+    plain, plain_sd, _ = trained("plain")
+    record, sd, weights = trained("axis", *axis)
+    assert [s["loss"] for s in record["steps"]] == \
+        [s["loss"] for s in plain["steps"]]
+    assert sd.keys() == plain_sd.keys()
+    for k, v in sd.items():
+        assert torch.equal(v, plain_sd[k]), k
+    nv, _ = test_cli.main(["--cfg", str(path), "--device", "cpu",
+                           "OUTPUT_DIR", str(tmp_path / "axis"), *axis,
+                           "TEST.MODEL_FILE", weights])
+    assert nv == plain["name_values"]
+    cfg.OUTPUT_DIR = str(tmp_path / "out")
     path.write_text(yaml.safe_dump(cfg.to_dict()))
     made = []
     augment = dp.DeviceAugment.__call__

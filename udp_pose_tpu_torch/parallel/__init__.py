@@ -8,19 +8,20 @@ process drives one card under ``torchrun`` (NCCL), the step is wrapped
 in DDP, and the BatchNorms all-reduce their statistics so that a step is
 the JAX package's global-batch step.  The engines' ``mesh=`` drives
 several local cards from one process.  Pipeline (``TPU.PP``) and tensor
-(``TPU.TP``) parallelism are not ported yet.
+(``TPU.TP``) parallelism over a model axis > 1 are not ported yet.
 """
 
 from .batchnorm import GlobalBatchNorm2d, convert_batchnorm
 from .mesh import (Mesh, broadcast_parameters, data_axis_size, data_parallel,
-                   make_mesh, padded_rows, replicate, shard_rows)
+                   make_mesh, padded_rows, refuse_model_axis, replicate,
+                   shard_rows)
 from .multihost import (barrier, gather_eval_results, initialize, is_writer,
                         process_group, process_shard_info,
                         rendezvous_from_env)
 
 __all__ = ["GlobalBatchNorm2d", "convert_batchnorm", "Mesh",
            "broadcast_parameters", "data_axis_size", "data_parallel",
-           "make_mesh", "padded_rows",
+           "make_mesh", "padded_rows", "refuse_model_axis",
            "replicate", "shard_rows", "barrier", "gather_eval_results",
            "initialize", "is_writer", "process_group", "process_shard_info",
            "rendezvous_from_env"]

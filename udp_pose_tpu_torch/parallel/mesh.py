@@ -7,8 +7,9 @@ Here the trainer's and the evaluator's data axis is the world of a
 ``torch.distributed`` group (one process a card,
 :func:`.multihost.process_shard_info`), and a :class:`Mesh` is the local
 cards one serving process drives (the engines' ``mesh=``).  The model
-axis is 1: pipeline and tensor parallelism (``TPU.PP``, ``TPU.TP``) are
-not ported yet.
+axis is 1: a ``TPU.MESH.MODEL`` > 1 (pipeline and tensor parallelism)
+is not ported yet, and ``TPU.PP`` or ``TPU.TP`` on a model axis of 1
+trains the plain step, as in the JAX trainer.
 """
 
 from __future__ import annotations
@@ -42,17 +43,23 @@ def make_mesh(devices) -> Mesh:
     return Mesh(devs, len(devs))
 
 
-def data_axis_size(cfg) -> int:
-    """The data-parallel width a run of ``cfg`` trains at, the world size
-    of the process group (1 without one): ``TPU.MESH.DATA`` is -1 or
-    that size; ``TPU.MESH.MODEL`` > 1 (pipeline or tensor parallelism)
-    is not ported yet."""
-    world = process_shard_info()[1]
+def refuse_model_axis(cfg):
+    """Raise for ``TPU.MESH.MODEL`` > 1: the model axis (``TPU.PP``
+    pipeline parallelism, ``TPU.TP`` tensor parallelism) is not ported
+    yet.  At a model axis of 1 both keys leave the step plain."""
     if cfg.TPU.MESH.MODEL > 1:
         raise NotImplementedError(
             f"TPU.MESH.MODEL {cfg.TPU.MESH.MODEL}: the model axis (TPU.PP "
             "pipeline parallelism, TPU.TP tensor parallelism) is not "
             "ported yet")
+
+
+def data_axis_size(cfg) -> int:
+    """The data-parallel width a run of ``cfg`` trains at, the world size
+    of the process group (1 without one): ``TPU.MESH.DATA`` is -1 or
+    that size; ``TPU.MESH.MODEL`` > 1 raises (:func:`refuse_model_axis`)."""
+    world = process_shard_info()[1]
+    refuse_model_axis(cfg)
     if cfg.TPU.MESH.DATA not in (-1, world):
         raise ValueError(f"TPU.MESH.DATA {cfg.TPU.MESH.DATA}: this run has "
                          f"{world} rank(s); give -1 or {world}")

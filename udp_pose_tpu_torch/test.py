@@ -74,14 +74,13 @@ def run(cfg, weight_file, val_ds, out_dir="", device="cuda"):
 def main(argv=None):
     from .config import default_config, update_config
     from .parallel import is_writer, process_group
-    from .train import parse_args, refuse_unported
+    from .train import parse_args
     from .utils.platform import resolve_device
 
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = default_config()
     update_config(cfg, args)
-    refuse_unported(cfg)
     with process_group(args.device) as dp_device:
         return _main(cfg, args, device if dp_device is None else dp_device,
                      is_writer())

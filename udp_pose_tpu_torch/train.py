@@ -51,19 +51,22 @@ import torch.distributed as dist
 
 logger = logging.getLogger(__name__)
 
-# config keys whose JAX-package features the port does not have yet:
-# (test, what is missing)
-_NOT_PORTED = (
-    (lambda c: c.TPU.PP, "TPU.PP (pipeline parallelism)"),
-    (lambda c: c.TPU.TP, "TPU.TP (tensor parallelism)"),
-)
-
-
-def refuse_unported(cfg):
-    """Raise for a config that asks for a feature not ported yet."""
-    for asks, what in _NOT_PORTED:
-        if asks(cfg):
-            raise NotImplementedError(f"{what} is not ported yet")
+def check_parallel_config(cfg):
+    """The JAX trainer's guards on ``TPU.PP``, ``TPU.TP`` and the model
+    axis.  ``TPU.QAT int8`` with ``TPU.PP`` raises ``ValueError`` whatever
+    the mesh (``tools/train.py:81-88``); a ``TPU.MESH.MODEL`` > 1 is not
+    ported (:func:`.parallel.mesh.refuse_model_axis`).  On a model axis
+    of 1 the JAX trainer takes neither the pipelined step nor the
+    tensor-parallel sharding (``:181``, ``:213``) and trains the plain
+    step, and so does the port."""
+    from .parallel import refuse_model_axis
+    if cfg.TPU.QAT == "int8" and cfg.TPU.PP:
+        # the JAX pipeline stages bypass the fake-quant wrapper: training
+        # would run in full precision while claiming QAT
+        raise ValueError("TPU.QAT is not supported together with TPU.PP "
+                         "(the pipeline stages bypass the fake-quant "
+                         "wrapper); train QAT with dp/tp sharding instead")
+    refuse_model_axis(cfg)
 
 
 def parse_args(argv=None):
@@ -94,7 +97,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = default_config()
     update_config(cfg, args)
-    refuse_unported(cfg)
+    check_parallel_config(cfg)
     # torchrun's (or the JAX CLIs') variables: join the process group,
     # on the card of this process's local rank
     with process_group(args.device) as dp_device:
@@ -269,7 +272,7 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
     from .utils.platform import resolve_device
     from .utils.vis import save_debug_images
 
-    refuse_unported(cfg)
+    check_parallel_config(cfg)
     is_rsn = cfg.MODEL.NAME == "rsn"
     if cfg.DATASET.DEVICE_AUG and is_rsn:
         raise ValueError("DATASET.DEVICE_AUG covers the deep_hrnet "

@@ -644,17 +644,37 @@ def _set(tree, path, value):
     node[path[-1]] = value
 
 
+class _Reads(dict):
+    """A dict that notes the keys read through ``[]`` in ``read``."""
+
+    def __init__(self, items):
+        super().__init__(items)
+        self.read = set()
+
+    def __getitem__(self, key):
+        self.read.add(key)
+        return super().__getitem__(key)
+
+
 class _FlaxWriter(Converter):
     """The mapping walked the other way (the JAX package's forward
-    ``Converter``): reads a port state dict, writes flax variables."""
+    ``Converter``): reads a port state dict, writes flax variables, and
+    notes the keys it read (:meth:`unused`)."""
 
     #: attention heads of every MobileViT transformer block
     heads = 4
 
     def __init__(self, sd):
-        self.src = {k: (v.detach().cpu().numpy() if torch.is_tensor(v)
-                        else np.asarray(v)) for k, v in sd.items()}
+        self.src = _Reads((k, v.detach().cpu().numpy() if torch.is_tensor(v)
+                           else np.asarray(v)) for k, v in sd.items())
         self.params, self.stats = {}, {}
+
+    def unused(self):
+        """The keys of the state dict that no mapping unit read, sorted,
+        BatchNorm's ``num_batches_tracked`` left out (the JAX
+        ``Converter.unused``)."""
+        return sorted(k for k in self.src if k not in self.src.read
+                      and "num_batches_tracked" not in k)
 
     def probe(self, tkey: str, *fpath) -> bool:
         return tkey in self.src
@@ -702,14 +722,24 @@ class _FlaxWriter(Converter):
              self.src[tkey + ".out_proj.bias"])
 
 
+def convert_state_dict(sd, cfg):
+    """The port's state dict of ``cfg``'s model (tensors or numpy; a
+    reference ``.pth``'s) → (the JAX package's flax variables
+    (``{"params", "batch_stats"}`` of numpy arrays), the sorted keys of
+    ``sd`` that the mapping did not read), as the JAX
+    ``torch_to_flax_from_cfg`` returns them; raises ``KeyError`` for a
+    key the mapping needs and ``sd`` lacks."""
+    cv = _FlaxWriter(sd)
+    _map_from_cfg(cv, cfg)
+    return {"params": cv.params, "batch_stats": cv.stats}, cv.unused()
+
+
 def state_dict_to_variables(sd, cfg):
     """The port's state dict of ``cfg``'s model (tensors or numpy) → the
     JAX package's flax variables (``{"params", "batch_stats"}`` of numpy
     arrays), the inverse of :func:`variables_to_state_dict`; BatchNorm's
     ``num_batches_tracked``, which flax has not, is dropped."""
-    cv = _FlaxWriter(sd)
-    _map_from_cfg(cv, cfg)
-    return {"params": cv.params, "batch_stats": cv.stats}
+    return convert_state_dict(sd, cfg)[0]
 
 
 def onnx_initializers(path) -> Dict[str, np.ndarray]:
@@ -795,6 +825,18 @@ def yolov5_variables_to_state_dict(variables) -> Dict[str, np.ndarray]:
     cv = Converter(variables)
     _map_yolov5(cv)
     return cv.sd
+
+
+def convert_yolov5_state_dict(sd):
+    """An ultralytics YOLOv5 v6.0 state dict (either prefix, see
+    :func:`ultralytics_state_dict`) → (the JAX package's flax YOLOv5
+    variables, the sorted keys the mapping did not read, without their
+    ``model.`` prefix), as the JAX ``convert_yolov5`` returns them; the
+    inverse of :func:`yolov5_variables_to_state_dict`."""
+    cv = _FlaxWriter(ultralytics_state_dict(sd))
+    _map_yolov5(cv)
+    return ({"params": cv.params, "batch_stats": cv.stats},
+            [k[len("model."):] for k in cv.unused()])
 
 
 def ultralytics_state_dict(sd) -> Dict[str, np.ndarray]:
