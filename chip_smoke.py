@@ -118,7 +118,7 @@ did not run).  Phase 16, the single-card remainder: the
 AID yaml's on-device augmentation (hide-and-seek on, B=32, 640x640
 canvases) on the card against its CPU run from one set of draws, its ms
 and the canvas upload (16a); ``train.run`` of the AID yaml with
-``DATASET.DEVICE_AUG True`` for 2 epochs with their validations, beside
+``DATASET.DEVICE_AUG True`` for one epoch with its validation, beside
 the same run with the host augmentation (16b); a device-aug run stopped
 mid-epoch and resumed bit for bit (16c); a w32 step with every train
 BatchNorm through ``FusedBatchNorm`` against plain BN, float64 held,
@@ -130,14 +130,25 @@ each through its ``main``: ``reproduce_zoo`` on a synthetic mini-COCO
 on disk with the w32 yaml and seeded weights as a reference ``.pth``,
 its AP held at ``--tolerance 0`` to a direct validation, a shifted
 expectation failing, ``--quantize int8``, and ``plot_coco`` over the
-results json (17a); ``overfit_proof`` at ``OVERFIT_STEPS`` (17b);
-``generalization_proof --quantize int8 --qat`` with its own gates (17c);
-``convert_weights`` of the ``.pth``, served bit for bit as the ``.pth``
-(17d).  The kernels' launches
+results json (17a); ``convert_weights`` of the ``.pth``, served bit
+for bit as the ``.pth`` (17d); ``overfit_proof`` at ``OVERFIT_STEPS``
+(17b) and ``generalization_proof --quantize int8 --qat`` with its own
+gates (17c), each in a process of its own (``--proof``) started before
+phase 7, beside which they run, so that phase 17 only waits for them.
+Phase 18, ``TPU.PP`` (last): 4xRSN-50 384x288 with its four stages on
+``[cuda:0] * 4`` and cuDNN's default algorithms, the pipelined eval
+forward against the monolithic one (18a), one fp32 pipelined step at
+B=16 with 4 microbatches against the same microbatches one after
+another through the plain stage modules (18b), ``train.run``
+pipelined, its weights into the plain RSN and served (18c), the CLI's
+refusal of a model axis the host has too few cards for; on 4 or more
+cards the step over ``cuda:0..3``, bf16 steps timed on one card and
+over the four with the memory of each card (18d), and a data axis of 2
+NCCL ranks of 2 cards each (18e).  The kernels' launches
 count phases 6, 7 and 8, each path in one window, and the two int8
 paths (9b-9c, 9d) in windows around each of their own calls: the bf16
 engines timed in turns with them and the card-vs-CPU checks run
-outside; phases 10, 11, 12, 13, 14, 15, 16 and 17's paths likewise.  Any failed check
+outside; phases 10 to 18's paths likewise.  Any failed check
 exits nonzero before the last line, which is ``{"ok": true, "device":
 {...}}``.  Without a CUDA card it exits 1.  Imports nothing of JAX or of
 the JAX package.
@@ -153,6 +164,7 @@ import http.client
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -229,8 +241,16 @@ def check(cond, msg):
         raise CheckFailed(msg)
 
 
+# the script's start; a proof run in a process of its own (``--proof``)
+# is handed its parent's, so that its log lines count from the same
+# time (``perf_counter`` is the system's monotonic clock)
+T0_ENV = "CHIP_SMOKE_T0"
+T_START = float(os.environ.get(T0_ENV, time.perf_counter()))
+
+
 def log(msg):
-    print(msg, flush=True)
+    """``msg`` with the seconds since the script started."""
+    print(f"{time.perf_counter() - T_START:7.1f} {msg}", flush=True)
 
 
 def card_line():
@@ -386,16 +406,36 @@ def set_tf32(enabled):
 
 
 # ---------------------------------------------------------------- phase 2
-def phase_build():
-    """The CUDA sources, one nvcc each, started together."""
+def phase_build(background=False):
+    """The CUDA sources, one nvcc each, started together.  With
+    ``background``, returns once the decode's source is built and loaded,
+    and the others go on compiling while the phases that launch only the
+    decode run: :func:`finish_build` waits for them (before the first
+    phase that launches an int8 kernel)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from udp_pose_tpu_torch.ops import _build
     names = ("peak_offset", "int8_conv", "int8_conv_sm90", "int8_dwconv")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:
-        libs = dict(zip(names, pool.map(_build.build, names)))
-    for name in names:
+    pool = ThreadPoolExecutor(len(names))
+    pending = (pool, t0, {n: pool.submit(_build.build, n) for n in names})
+    if background:
+        pending[2]["peak_offset"].result()
+        _build.load("peak_offset")
+        log(f"[build] peak_offset.cu in {time.perf_counter() - t0:.2f} s; "
+            "the int8 sources go on compiling")
+        return pending
+    return finish_build(pending)
+
+
+def finish_build(pending):
+    """Wait for :func:`phase_build`'s compiles, load each library and log
+    the compilers' reports; returns the seconds since they started."""
+    from udp_pose_tpu_torch.ops import _build
+    pool, t0, futures = pending
+    libs = {name: f.result() for name, f in futures.items()}
+    pool.shutdown()
+    for name in libs:
         _build.load(name)
     secs = time.perf_counter() - t0
     for name, lib in libs.items():
@@ -403,7 +443,7 @@ def phase_build():
             + (f" in {_build.build_logs[name][0]:.2f} s; nvcc: "
                + _build.build_logs[name][1].strip()
                if name in _build.build_logs else " (built before)"))
-    log(f"[build] all {len(names)} sources in {secs:.2f} s")
+    log(f"[build] all {len(libs)} sources in {secs:.2f} s")
     return secs
 
 
@@ -1907,7 +1947,8 @@ def check_http(card, cfg_fn=w32_cfg, device="cuda", n_requests=4):
 
 def check_cli(tmp, card, pose_cfg=W32_YAML, device="cuda"):
     """8g: ``python -m udp_pose_tpu_torch.infer --fused --detector
-    yolov5n`` on two generated 720p images and a six-frame video."""
+    yolov5n`` on two generated 720p images and a six-frame video, the two
+    processes side by side."""
     import cv2
     src = os.path.join(tmp, "imgs")
     os.makedirs(src)
@@ -1921,25 +1962,34 @@ def check_cli(tmp, card, pose_cfg=W32_YAML, device="cuda"):
     for f in frames:
         writer.write(f)
     writer.release()
+    # the two runs at once: each spends most of its time starting up
+    runs, t0 = [], time.perf_counter()
     for source, extra in ((src, []), (video, ["--chunk", "4"])):
         out = os.path.join(tmp, "out" + "".join(extra))
-        t0 = time.perf_counter()
-        proc = subprocess.run(
+        runs.append((source, extra, out, subprocess.Popen(
             [sys.executable, "-m", "udp_pose_tpu_torch.infer", "--source",
              source, "--pose-cfg", pose_cfg, "--detector", "yolov5n",
              "--fused", "--device", device, "--save-dir", out, *extra],
-            cwd=REPO,
-            capture_output=True, text=True, timeout=300)
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)))
+    for source, extra, out, proc in runs:
+        try:
+            _, stderr = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         check(proc.returncode == 0, f"infer CLI on {source} exited "
-              f"{proc.returncode}: {proc.stderr[-1500:]}")
+              f"{proc.returncode}: {stderr[-1500:]}")
         written = sorted(os.listdir(out))
         check(written == (["f0.png", "f1.png"] if source == src
                           else ["out_clip.avi"]),
               f"infer CLI wrote {written}")
         log(f"[detect] 8g python -m udp_pose_tpu_torch.infer --fused "
             f"--detector yolov5n {' '.join(extra)} on "
-            f"{os.path.basename(source)}: exit 0, wrote {written} in "
-            f"{time.perf_counter() - t0:.1f} s | {card}")
+            f"{os.path.basename(source)}: exit 0, wrote {written}; both "
+            f"runs, side by side, in {time.perf_counter() - t0:.1f} s | "
+            f"{card}")
 
 
 def phase_detect(tmp, cfg_fn=w32_cfg, pose_yaml=W32_YAML, device="cuda"):
@@ -3738,7 +3788,7 @@ def rsn_stage_growth(cfg, train_ds, card, device="cuda"):
 
 def rsn_iteration_training(tmp, card, device="cuda", yaml=RSN4X18_YAML,
                            n_train=RSN_TRAIN_IMAGES, n_val=RSN_VAL_IMAGES,
-                           max_iter=2, period=1, warmup=8):
+                           max_iter=1, period=1, warmup=4):
     """11c: ``4xrsn18_256x192`` at full width (bf16, B=32, WORKERS 4)
     through ``train.run`` in iteration mode on a seeded synthetic
     mini-COCO in memory, with only ``MAX_ITER``, ``CHECKPOINT_PERIOD``
@@ -3772,7 +3822,10 @@ def rsn_iteration_training(tmp, card, device="cuda", yaml=RSN4X18_YAML,
     rsn_check_step(cfg32, train_ds, card, device)
 
     # the trainer's cuDNN switches (train.main's), for this run only: the
-    # phases after this one compare results of repeated calls
+    # phases after this one compare results of repeated calls; no
+    # autotuning, as in 12c: its first iteration would tune every
+    # 4xRSN-18 shape
+    cfg.CUDNN.BENCHMARK = False
     flags = (torch.backends.cudnn.benchmark,
              torch.backends.cudnn.deterministic,
              torch.backends.cudnn.enabled)
@@ -4357,7 +4410,10 @@ def mobile_training(tmp, card, device="cuda"):
     val_ds = in_memory_coco(cfg, frames["val2017"], False)
     paths = {}
     training = PathLaunches("mobilevitv2_training")
-    # the trainer's cuDNN switches for this run only, as in 11c
+    # the trainer's cuDNN switches for this run only, as in 11c, but no
+    # autotuning: on mobilevitv2's shapes it took 27 s, more than the
+    # epoch's nine other steps together
+    cfg.CUDNN.BENCHMARK = False
     flags = (torch.backends.cudnn.benchmark,
              torch.backends.cudnn.deterministic,
              torch.backends.cudnn.enabled)
@@ -6382,8 +6438,8 @@ def device_aug_card_vs_cpu(data, card, device="cuda", yaml=AID_YAML,
 
 def device_aug_training(data, card, device="cuda", yaml=AID_YAML):
     """16b: ``train.run`` of the AID yaml (w32 bf16 B=32, the yaml's
-    WORKERS 4) with ``DATASET.DEVICE_AUG True``, 2 epochs and their
-    validations, in the path's launch window, and the same run with the
+    WORKERS 4) with ``DATASET.DEVICE_AUG True``, one epoch and its
+    validation, in the path's launch window, and the same run with the
     host augmentation beside it; samples/s, the wait for the batch, the
     peak memory.  Returns the device-aug run's launches."""
     from udp_pose_tpu_torch import train as train_cli
@@ -6393,7 +6449,7 @@ def device_aug_training(data, card, device="cuda", yaml=AID_YAML):
     for name, on in (("host augmentation", False),
                      ("DATASET.DEVICE_AUG", True)):
         cfg = aid_cfg(root, os.path.join(tmp, f"16b_{int(on)}"), yaml=yaml,
-                      DATASET={"DEVICE_AUG": on})
+                      DATASET={"DEVICE_AUG": on}, TRAIN={"END_EPOCH": 1})
         check(cfg.WORKERS == 4, f"WORKERS {cfg.WORKERS}: the yaml's is 4")
         B = cfg.TRAIN.BATCH_SIZE_PER_GPU
         train_ds = in_memory_coco(cfg, frames["train2017"], True)
@@ -6836,7 +6892,7 @@ ZOO_VAL_IMAGES = 24              # 48 crops: a full and a partial batch
 # --steps: the overfit proof's cut from the tools' 5000 to fit the
 # script's time limit, its gate still held; the generalization proof
 # keeps 5000, as its QAT twin leaves the plateau of predicting zeros late
-OVERFIT_STEPS = 2000
+OVERFIT_STEPS = 3000
 GEN_STEPS = 5000
 GEN_VAL_IMAGES = 16              # generalization_proof.generate's val2017
 
@@ -7098,13 +7154,114 @@ def tool_switches(tmp):
         cudnn.benchmark, cudnn.deterministic, tempfile.tempdir = before
 
 
-def phase_tools(tmp, device="cuda"):
+PROOFS = ("overfit", "generalization")     # 17b, 17c
+PROOF_TIMEOUT = 900                        # s: both, beside phases 7-17
+RUNNING = []                               # the proofs' processes
+PROOF_COMMAND = [sys.executable, os.path.abspath(__file__)]
+
+
+def run_proof(name, root, tmp, card, device="cuda"):
+    """17b or 17c: returns its launches by path."""
+    with tool_switches(tmp):
+        if name == "overfit":
+            tools_overfit(root, card, device)
+            return {}
+        return tools_generalization(root, card, device)
+
+
+def start_proofs(tmp):
+    """Start 17b and 17c, each in a process of its own (``python3
+    chip_smoke.py --proof NAME``), on the set that
+    ``generalization_proof.generate`` writes under ``tmp``: :func:`main`
+    starts them before phase 7, and they share the card and the host
+    with phases 7 to 17.  Returns the handle :func:`finish_proofs` waits
+    on."""
+    from udp_pose_tpu_torch import generalization_proof
+    root = os.path.join(tmp, "gencoco")
+    generalization_proof.generate(root)
+    env = dict(os.environ, **{T0_ENV: repr(T_START)})
+    procs = []
+    for name in PROOFS:
+        out = os.path.join(tmp, f"{name}.json")
+        log_f = open(os.path.join(tmp, f"{name}.log"), "w")
+        procs.append((name, subprocess.Popen(
+            PROOF_COMMAND + ["--proof", name, "--root", root, "--tmp", tmp,
+                             "--out", out],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            stdout=log_f, stderr=subprocess.STDOUT), log_f, out))
+        RUNNING.append(procs[-1][1])
+    log("[tools] 17b and 17c started, each in a process of its own")
+    return procs, time.perf_counter()
+
+
+def finish_proofs(proofs):
+    """Wait for :func:`start_proofs`' processes, print what they logged,
+    and fail unless each passed; returns their launches by path (whose
+    routes join ``PathLaunches.made``)."""
+    procs, t0 = proofs
+    paths = {}
+    for name, proc, log_f, out in procs:
+        try:
+            code = proc.wait(timeout=max(
+                1.0, PROOF_TIMEOUT - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            code = proc.wait()
+        log_f.close()
+        with open(log_f.name) as f:
+            text = f.read()
+        print(text, end="", flush=True)
+        check(code == 0, f"17 {name} proof exited {code}: "
+              f"{text[-2000:]}")
+        with open(out) as f:
+            got = json.load(f)
+        for path, counts in got["paths"].items():
+            made = PathLaunches(path)
+            made.counts, made.routes = counts, got["routes"][path]
+            paths[path] = counts
+    log(f"[tools] 17b and 17c done {time.perf_counter() - t0:.1f} s after "
+        f"they started")
+    return paths
+
+
+def stop_proofs():
+    """Kill any proof process still running (a check failed first)."""
+    for proc in RUNNING:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    RUNNING.clear()
+
+
+def proof_main(args):
+    """``--proof NAME``: 17b or 17c alone (:func:`start_proofs` runs
+    them so); writes ``{"paths", "routes"}`` to ``--out``.  Killed with
+    the process that started it (``PR_SET_PDEATHSIG``)."""
+    parent = os.getppid()
+    ctypes.CDLL(None).prctl(1, 9)          # PR_SET_PDEATHSIG, SIGKILL
+    if os.getppid() != parent:
+        return 1
+    try:
+        paths = run_proof(args.proof, args.root, args.tmp, card_line())
+    except CheckFailed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    routes = {p.name: p.routes for p in PathLaunches.made}
+    with open(args.out, "w") as f:
+        json.dump({"paths": paths, "routes": routes}, f)
+    return 0
+
+
+def phase_tools(tmp, device="cuda", proofs=None):
     """Phase 17, the user tools through their ``main`` on the card, under
     :func:`tool_switches`: ``reproduce_zoo`` with ``plot_coco`` (17a),
     ``overfit_proof`` (17b), ``generalization_proof --quantize int8
-    --qat`` (17c), ``convert_weights`` (17d).  Returns the launches by
-    path."""
-    from udp_pose_tpu_torch import generalization_proof
+    --qat`` (17c), ``convert_weights`` (17d).  17b and 17c run in
+    processes of their own, started by :func:`start_proofs` (here,
+    unless ``proofs`` says they were started before), and this waits for
+    them.  Returns the launches by path."""
+    if proofs is None:
+        proofs = start_proofs(tmp)
     card = card_line()
     t_phase = time.perf_counter()
     secs, paths = {}, {}
@@ -7113,19 +7270,604 @@ def phase_tools(tmp, device="cuda"):
         zoo_paths, weights = tools_zoo(tmp, card, device)
         paths.update(zoo_paths)
         secs["17a"] = time.perf_counter() - t0
-        gen_root = os.path.join(tmp, "gencoco")
-        generalization_proof.generate(gen_root)
-        parts = (("17b", lambda: tools_overfit(gen_root, card, device)),
-                 ("17c", lambda: paths.update(
-                     tools_generalization(gen_root, card, device))),
-                 ("17d", lambda: tools_convert(tmp, weights, card, device)))
-        for part, fn in parts:
-            t0 = time.perf_counter()
-            fn()
-            secs[part] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tools_convert(tmp, weights, card, device)
+        secs["17d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths.update(finish_proofs(proofs))
+    secs["waiting for 17b, 17c"] = time.perf_counter() - t0
     log(f"[tools] phase 17 {time.perf_counter() - t_phase:.1f} s ("
         + ", ".join(f"{p} {v:.1f}" for p, v in secs.items()) + " s)")
     return paths
+
+
+# --------------------------------------------------------------- phase 18
+PP_STAGES, PP_MICRO, PP_BATCH = 4, 4, 16   # the 4xrsn50 yaml's B, 4 micro
+PP_TRAIN_IMAGES, PP_VAL_IMAGES = 40, 4     # 18c: synthetic frames, 2 people
+PP_ITERS = 2                     # 18c: iterations of train.run
+PP_EVAL_RTOL = 1e-4              # x max |monolithic|: fp32, TF32 off (18a)
+PP_LOSS_RTOL = 1e-6              # fp32 step loss, pipelined vs sequential
+PP_GRAD_TOL = 1e-4               # x each gradient tensor's max |g| (fp32)
+PP_BIAS_TOL = 1e-3               # conv biases before a BN, x weight's max |g|
+PP_BN_TOL = 1e-5                 # x each running-stat tensor's max
+PP_ADAM_SHARE = 1e-3             # weights after Adam: share > lr/100 apart
+PP_TIMED_STEPS = 1               # bf16 steps timed of each kind (18d)
+
+
+class PipelinedEval(torch.nn.Module):
+    """The pipelined eval forward of a placed RSN as a serving model (the
+    last stage's finest heatmap, as ``RSN.forward`` in eval mode), for
+    ``make_rsn_infer_fn``."""
+
+    def __init__(self, model, forward):
+        super().__init__()
+        self.model, self.fn, self.dtype = model, forward, model.dtype
+
+    def forward(self, x):
+        return self.fn(self.model, x, False)[-1][-1].float()
+
+
+def pp_cfg(yaml, dtype, root, out_dir):
+    """``yaml`` (4xRSN-50) pipelined over ``STAGE_NUM`` model devices with
+    ``PP_MICRO`` microbatches, on the synthetic set at ``root``."""
+    cfg = rsn_data_cfg(yaml, dtype, root, out_dir)
+    check(cfg.MODEL.EXTRA.STAGE_NUM == PP_STAGES
+          and cfg.TRAIN.BATCH_SIZE_PER_GPU == PP_BATCH, "4xrsn50 yaml")
+    cfg.TPU.PP, cfg.TPU.MESH.MODEL = True, PP_STAGES
+    cfg.TPU.PP_MICROBATCHES = PP_MICRO
+    return cfg
+
+
+def pp_eval_forward(cfg, batch, devices, card, device="cuda"):
+    """18a: the pipelined eval forward (stem once, ``PP_MICRO``
+    microbatches through the four stages on ``devices``) against the
+    monolithic ``RSN`` forward of the same weights and images: fp32 with
+    TF32 off to ``PP_EVAL_RTOL`` x the largest value, every stage's four
+    heatmaps; the bf16 model's drift from fp32 reported; both timed.
+    Returns (the fp32 model, the pipelined forward, launches)."""
+    import copy
+    from udp_pose_tpu_torch.models import build_model
+    from udp_pose_tpu_torch.parallel import pipeline as pp
+    set_tf32(False)
+    cfg32 = cfg.clone()
+    cfg32.TPU.DTYPE = "float32"
+    model = build_model(cfg32, device=device)
+    x = batch["image"].permute(0, 3, 1, 2).float()
+    placed = pp.place_stages(copy.deepcopy(model), devices)
+    fwd = pp.make_pipeline_forward(cfg, devices, PP_MICRO)
+    path = PathLaunches("rsn_pp_eval")
+    with torch.no_grad():
+        mono = model(x, all_stages=True)
+        got = path.run(fwd, placed, x, False)
+        scale = max(float(o.abs().max()) for st in mono for o in st)
+        err = max(float((g.to(m.device) - m).abs().max())
+                  for gs, ms in zip(got, mono) for g, m in zip(gs, ms))
+        half = pp.place_stages(copy.deepcopy(placed).to(torch.bfloat16),
+                               devices)
+        got16 = fwd(half, x.bfloat16(), False)
+        drift = max(float((g.float().to(m.device) - m).abs().max())
+                    for gs, ms in zip(got16, mono) for g, m in zip(gs, ms))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd(placed, x, False)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model(x, all_stages=True)
+        torch.cuda.synchronize()
+        ms_pp, ms_mono = (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+    set_tf32(True)
+    log(f"[pp] 18a 4xrsn50 384x288 eval forward B={len(x)}, "
+        f"{PP_MICRO} microbatches over {[str(d) for d in devices]}: fp32 "
+        f"(TF32 off) pipelined vs monolithic max |diff| {err:.3g} of max "
+        f"|value| {scale:.4g} ({err / scale:.3g}; limit {PP_EVAL_RTOL:g}); "
+        f"bf16 pipelined vs fp32 monolithic {drift / scale:.3g} of max "
+        f"(reported); a second fp32 call {ms_pp:.1f} ms pipelined, "
+        f"{ms_mono:.1f} ms monolithic | {card}")
+    check(err <= PP_EVAL_RTOL * scale, f"18a pipelined eval forward vs "
+          f"monolithic {err / scale:.3g} x max")
+    check(path.counts == path.want, f"rsn_pp_eval: launches {path.counts}")
+    del half, got16, mono, got
+    return model, fwd, path.counts
+
+
+def pp_sequential_step(state, batch, n_micro, stage_num):
+    """The reference of a pipelined step: the stem on the whole batch,
+    then each microbatch through the plain stage modules one after
+    another (no schedule, one device), RSN's loss over every row,
+    backward, Adam.  Returns the loss."""
+    from udp_pose_tpu_torch.core.loss import rsn_multi_stage_loss
+    model = state.model
+    model.train()
+    x0 = model.top(batch["image"].permute(0, 3, 1, 2))
+    outs = [[[] for _ in range(4)] for _ in range(stage_num)]
+    for xm in x0.split(x0.shape[0] // n_micro):
+        args = (xm, None, None)
+        for s in range(stage_num):
+            res, s1, s2, cross = getattr(model, f"stage{s}")(*args)
+            args = (cross, s1, s2)
+            for j in range(4):
+                outs[s][j].append(res[j])
+    loss = rsn_multi_stage_loss(
+        [[torch.cat(o) for o in st] for st in outs], batch["valid"],
+        batch["labels"], stage_num)
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    state.optimizer.step()
+    state.scheduler.step()
+    return float(loss.detach())
+
+
+def pp_step_numbers(model):
+    """{name: gradient}, {name: running stat}, {name: weight}, on the
+    first model device's card."""
+    dev = next(model.parameters()).device
+    grads = {k: p.grad.to(dev) for k, p in model.named_parameters()}
+    stats = {k: v.to(dev) for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    weights = {k: p.detach().to(dev) for k, p in model.named_parameters()}
+    return grads, stats, weights
+
+
+def pp_step_errors(got, want, lr):
+    """(loss rel error, worst gradient x its tensor's max (conv biases
+    apart), worst conv-bias gradient x its weight's max |g| of either,
+    worst running stat x its max, the largest weight difference after
+    Adam x lr, the share of weight elements more than lr/100 apart)."""
+    (l_g, (g_g, s_g, w_g)), (l_w, (g_w, s_w, w_w)) = got, want
+    biases = [k for k in g_w if k.endswith("conv.bias")]
+    grads = rel_errors({k: g_g[k] for k in g_w if k not in biases},
+                       {k: v for k, v in g_w.items() if k not in biases})
+    bias = max(float(max(g_g[k].abs().max(), g_w[k].abs().max())
+                     / g_w[k[:-4] + "weight"].abs().max()) for k in biases)
+    diffs = [(w_g[k] - w_w[k]).abs() for k in w_w]
+    n = sum(d.numel() for d in diffs)
+    share = sum(int((d > lr / 100).sum()) for d in diffs) / n
+    return (abs(l_g - l_w) / abs(l_w), max(grads.values()), bias,
+            max(rel_errors(s_g, s_w).values()),
+            max(float(d.max()) for d in diffs) / lr, share)
+
+
+def pp_check_step(name, errs, card):
+    rel, grad, bias, bn, dw, share = errs
+    log(f"[pp] {name}: loss rel {rel:.3g} (limit {PP_LOSS_RTOL:g}); worst "
+        f"gradient {grad:.3g} x its tensor's max |g| (limit "
+        f"{PP_GRAD_TOL:g}); conv biases before a BN {bias:.3g} x their "
+        f"weight's max |g| (limit {PP_BIAS_TOL:g}); worst BN running stat "
+        f"{bn:.3g} x its max (limit {PP_BN_TOL:g}); weights after Adam at "
+        f"most {dw:.3g} lr apart, {share:.3g} of the elements more than "
+        f"lr/100 (limit {PP_ADAM_SHARE:g}) | {card}")
+    check(rel <= PP_LOSS_RTOL and grad <= PP_GRAD_TOL
+          and bias <= PP_BIAS_TOL and bn <= PP_BN_TOL and dw <= 2.01
+          and share <= PP_ADAM_SHARE, f"{name}: {errs}")
+
+
+def pp_steps(cfg, base, batch, devices, lr=1e-3):
+    """One fp32 step (TF32 off) of a copy of ``base`` pipelined over
+    ``devices``: (loss, :func:`pp_step_numbers`)."""
+    import copy
+    from udp_pose_tpu_torch.core.rsn import create_rsn_train_state
+    from udp_pose_tpu_torch.parallel import pipeline as pp
+    model = pp.place_stages(copy.deepcopy(base), devices)
+    state = create_rsn_train_state(cfg, model, lr, 10, 2)
+    loss = float(pp.make_pipelined_rsn_train_step(
+        cfg, devices, PP_MICRO, ohkm=cfg.LOSS.USE_OHKM,
+        topk=cfg.LOSS.TOPK)(state, batch)["loss"])
+    out = loss, pp_step_numbers(model)
+    del model, state
+    return out
+
+
+def pp_timed(cfg, base, batch, devices, pipelined, n=PP_TIMED_STEPS):
+    """bf16 autocast steps of a copy of ``base``, pipelined over
+    ``devices`` or the plain step on ``devices[0]``, with the cuDNN
+    switches the trainer takes from ``cfg``: (ms a step after one
+    warm-up, samples/s, peak max_memory_allocated GB of each card)."""
+    import copy
+    from udp_pose_tpu_torch import train as train_cli
+    from udp_pose_tpu_torch.core.rsn import (create_rsn_train_state,
+                                             make_rsn_train_step)
+    from udp_pose_tpu_torch.parallel import pipeline as pp
+    cudnn = torch.backends.cudnn
+    flags = cudnn.benchmark, cudnn.deterministic, cudnn.enabled
+    train_cli.set_cudnn(cfg)
+    cards = sorted({torch.device(d).index or 0 for d in devices})
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    model = copy.deepcopy(base)
+    model.dtype = torch.bfloat16
+    if pipelined:
+        pp.place_stages(model, devices)
+        step = pp.make_pipelined_rsn_train_step(
+            cfg, devices, PP_MICRO, ohkm=cfg.LOSS.USE_OHKM,
+            topk=cfg.LOSS.TOPK)
+    else:
+        step = make_rsn_train_step(PP_STAGES, ohkm=cfg.LOSS.USE_OHKM,
+                                   topk=cfg.LOSS.TOPK)
+    state = create_rsn_train_state(cfg, model, 1e-4, 100, 2)
+    step(state, batch)
+    for c in cards:
+        torch.cuda.synchronize(c)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(state, batch)
+    for c in cards:
+        torch.cuda.synchronize(c)
+    ms = (time.perf_counter() - t0) / n * 1e3
+    peaks = [torch.cuda.max_memory_allocated(c) / 1e9 for c in cards]
+    del model, state
+    torch.cuda.empty_cache()
+    cudnn.benchmark, cudnn.deterministic, cudnn.enabled = flags
+    return ms, PP_BATCH / ms * 1e3, peaks
+
+
+def pp_training(tmp, cfg, frames, placed_fwd, base, card, device="cuda",
+                devices=None):
+    """18c: ``train.run`` of a copy of ``base`` (bf16 autocast, as
+    ``build_model(cfg, train=True)``) with ``TPU.PP True TPU.MESH.MODEL
+    4`` on ``devices`` for ``PP_ITERS`` iterations on the synthetic set,
+    its iteration checkpoint written once, after the last: the weights
+    (``final_state.pth``, ``iter-last.pth``) load into the plain ``RSN``
+    with ``strict=True``, and serving them through ``make_rsn_infer_fn``
+    gives the heatmaps and keypoints of the same weights served through
+    the pipelined eval forward (fp32, TF32 off, the flip test on
+    ``PP_BATCH / 2`` crops: 18a's shapes; keypoints on the decisive
+    maps).  Returns the launches."""
+    import copy
+    from udp_pose_tpu_torch import train as train_cli
+    from udp_pose_tpu_torch.core.infer import COCO_FLIP_PAIRS
+    from udp_pose_tpu_torch.core.rsn import make_rsn_infer_fn_from_cfg
+    from udp_pose_tpu_torch.parallel import pipeline as pp
+    model32, fwd = placed_fwd
+    cfg = cfg.clone()
+    # a checkpoint period past the run: only the closing save writes
+    cfg.TRAIN.MAX_ITER, cfg.TRAIN.CHECKPOINT_PERIOD = PP_ITERS, PP_ITERS + 1
+    cfg.TRAIN.ITER_BASELINE_DEVICES, cfg.TRAIN.WARMUP_ITERS = 1, 2
+    train_ds = in_memory_rsn(cfg, frames["train2017"], True)
+    val_ds = in_memory_rsn(cfg, frames["val2017"], False)
+    model = copy.deepcopy(base)
+    model.dtype = torch.bfloat16
+    path = PathLaunches("rsn_pp_training")
+    t0 = time.perf_counter()
+    record = path.run(train_cli.run, cfg, model, train_ds, val_ds,
+                      cfg.OUTPUT_DIR, device, None, devices)
+    secs = time.perf_counter() - t0
+    check(path.counts == path.want, f"rsn_pp_training: launches "
+          f"{path.counts}")
+    steps = record["steps"]
+    losses = [s["loss"] for s in steps]
+    last = f"iter-{PP_ITERS - 1}.pth"
+    check(len(steps) == PP_ITERS and all(np.isfinite(losses))
+          and len(record["validations"]) == 1
+          and os.readlink(os.path.join(cfg.OUTPUT_DIR, "iter-last.pth"))
+          == last, f"18c: {len(steps)} iterations, losses {losses}, "
+          f"validations {record['validations']}, checkpoints "
+          f"{record['checkpoints']}")
+    model32.load_state_dict(torch.load(os.path.join(
+        cfg.OUTPUT_DIR, "iter-last.pth"), map_location=device)["state_dict"],
+        strict=True)
+    final = torch.load(os.path.join(cfg.OUTPUT_DIR, "final_state.pth"),
+                       map_location=device)
+    model32.load_state_dict(final, strict=True)
+    placed = pp.place_stages(copy.deepcopy(model32), devices)
+    set_tf32(False)
+    cfg32 = cfg.clone()
+    cfg32.TPU.DTYPE = "float32"
+    crops, center, scale = random_crops(PP_BATCH // 2, cfg32, seed=18)
+    plain = make_rsn_infer_fn_from_cfg(model32, cfg32, COCO_FLIP_PAIRS)(
+        crops, center, scale)
+    piped = make_rsn_infer_fn_from_cfg(
+        PipelinedEval(placed, fwd), cfg32, COCO_FLIP_PAIRS)(
+            crops, center, scale)
+    set_tf32(True)
+    (p_p, _, hm_p), (p_s, _, hm_s) = plain, piped
+    hm_err = float((hm_s - hm_p).abs().max() / hm_p.abs().max())
+    keep = decisive_maps(hm_p.float(), 4 * float(
+        (hm_s - hm_p).abs().max()) + 1e-7)
+    kp_err = float((p_s - p_p).abs().max(-1).values[keep].max()) \
+        if keep.any() else 0.0
+    log(f"[pp] 18c 4xrsn50 train.run TPU.PP True TPU.MESH.MODEL "
+        f"{PP_STAGES} over {[str(d) for d in devices]}, bf16 B={PP_BATCH}, "
+        f"{PP_MICRO} microbatches: {len(steps)} iterations on "
+        f"{len(train_ds)} samples, losses {losses[0]:.5g} ... "
+        f"{losses[-1]:.5g}, iterations "
+        f"{[round(s['iter_s'] * 1e3, 1) for s in steps]} ms (the first "
+        f"with the loader's start, the last with its checkpoint); "
+        f"iter-last.pth -> {last} and final_state.pth loaded strict=True "
+        f"into the plain RSN; served (fp32, flip) through "
+        f"make_rsn_infer_fn and through the pipelined eval forward: "
+        f"heatmaps {hm_err:.3g} x max apart (limit {PP_EVAL_RTOL:g}), "
+        f"keypoints {kp_err:.3g} px on {int(keep.sum())} of {keep.numel()} "
+        f"decisive maps (limit {RSN_KP_ATOL:g}); train.run {secs:.1f} s; "
+        f"launches {path.counts} | {card}")
+    check(hm_err <= PP_EVAL_RTOL and kp_err <= RSN_KP_ATOL
+          and keep.sum() >= keep.numel() // 2, f"18c serving the trained "
+          f"weights: heatmaps {hm_err:.3g}, keypoints {kp_err:.3g} px on "
+          f"{int(keep.sum())} maps")
+    del placed, final, model
+    torch.cuda.empty_cache()
+    return path.counts
+
+
+def pp_cli_refusal(yaml, card):
+    """The CLI with ``TPU.PP True TPU.MESH.MODEL 4`` on a host with fewer
+    cards than stages refuses before it builds anything (with 4 or more
+    cards: the model axis from the last card on)."""
+    from udp_pose_tpu_torch import train as train_cli
+    from udp_pose_tpu_torch.parallel import pipeline as pp
+    n = torch.cuda.device_count()
+    try:
+        if n < PP_STAGES:
+            train_cli.main(["--cfg", yaml, "TPU.PP", "True",
+                            "TPU.MESH.MODEL", str(PP_STAGES)])
+        else:
+            pp.model_devices_for(f"cuda:{n - 1}", PP_STAGES)
+        msg = None
+    except RuntimeError as e:
+        msg = str(e)
+    log(f"[pp] 18 the model axis of {PP_STAGES} cards on a host of {n}: "
+        f"{msg} | {card}")
+    check(msg is not None and "the model axis needs cards" in msg,
+          f"18: the CLI on {n} card(s) did not refuse TPU.MESH.MODEL "
+          f"{PP_STAGES}")
+
+
+PP_D2_GRAD_TOL = 1e-7            # x each gradient's max: float64 D=2 x S=2,
+                                 # NCCL cards vs gloo CPU ranks (18e)
+PP_D2_BATCH = 8                  # 18e: its float64 step's global batch
+
+
+def pp2_data(root):
+    """18e's seeded synthetic mini-COCO at ``root``: its frames."""
+    rng = np.random.default_rng(35)
+    return {k: synthetic_coco(root, k, n, rng)
+            for k, n in (("train2017", 24), ("val2017", 2))}
+
+
+def pp2_cfg(yaml, out_dir):
+    """``4xrsn18_256x192`` cut to 2 stages, pipelined over 2 model
+    devices with 2 microbatches (18e)."""
+    cfg = yaml_cfg(yaml, "bfloat16")
+    cfg.MODEL.EXTRA.STAGE_NUM = 2
+    cfg.TPU.PP, cfg.TPU.MESH.MODEL, cfg.TPU.PP_MICROBATCHES = True, 2, 2
+    cfg.OUTPUT_DIR = out_dir
+    return cfg
+
+
+def pp_rank(rank, world, port, tmp, device, yaml, train):
+    """A rank of 18e (``torch.multiprocessing.spawn``): joins the group
+    (NCCL on ``cuda:2·rank`` and ``cuda:2·rank+1``, ``cards_per_rank`` 2;
+    gloo for ``device`` "cpu"), runs one float64 pipelined step of the
+    2-stage RSN from the parent's weights on its rows of the global
+    batch, and with ``train`` also ``train.run`` pipelined for 2
+    iterations on the synthetic set; saves what it measured."""
+    import multiprocessing
+    from udp_pose_tpu_torch import train as train_cli
+    from udp_pose_tpu_torch.core.rsn import create_rsn_train_state
+    from udp_pose_tpu_torch.models import build_model
+    from udp_pose_tpu_torch.parallel import pipeline as pp
+    from udp_pose_tpu_torch.parallel import process_group
+    multiprocessing.set_start_method("fork", force=True)
+    os.environ.update(rank_env(rank, world, port))
+    out = {}
+    with process_group(device, cards_per_rank=2) as dev:
+        devices = pp.model_devices_for(dev, 2)
+        cfg = pp2_cfg(yaml, os.path.join(tmp, "pp2_run"))
+        set_tf32(False)
+        model = build_model(cfg, device="cpu", train=True).double()
+        model.load_state_dict(torch.load(os.path.join(tmp, "pp2.pth")))
+        pp.place_stages(model, devices)
+        groups = pp.PipelineGroups(devices)
+        pp.data_parallel_stages(model, groups)
+        state = create_rsn_train_state(cfg, model, 1e-3, 10, 2)
+        batch = torch.load(os.path.join(tmp, "pp2_batch.pt"))
+        rows = torch.as_tensor(pp.pipeline_rows(PP_D2_BATCH, 2, rank,
+                                                world))
+        metrics = pp.make_pipelined_rsn_train_step(
+            cfg, devices, 2, ohkm=cfg.LOSS.USE_OHKM, topk=cfg.LOSS.TOPK,
+            groups=groups)(state, {k: v[rows].to(devices[0])
+                                   for k, v in batch.items()})
+        out.update(devices=[str(d) for d in devices],
+                   loss=float(metrics["loss"]),
+                   grads={k: p.grad.cpu() for k, p in
+                          model.named_parameters()})
+        del model, state
+        set_tf32(True)
+        if train:
+            # the parent's frames again from the seed (their json goes to
+            # this rank's copy; the db is read from the parent's root)
+            frames = pp2_data(os.path.join(tmp, f"coco_pp2_{rank}"))
+            cfg.DATASET.ROOT = os.path.join(tmp, "coco_pp2")
+            cfg.TEST.USE_GT_BBOX = True
+            cfg.TRAIN.MAX_ITER = cfg.TRAIN.CHECKPOINT_PERIOD = 2
+            cfg.TRAIN.ITER_BASELINE_DEVICES = 1
+            cfg.TRAIN.BATCH_SIZE_PER_GPU = 16
+            model = build_model(cfg, device=dev, train=True)
+            out["record"] = train_cli.run(
+                cfg, model, in_memory_rsn(cfg, frames["train2017"], True),
+                in_memory_rsn(cfg, frames["val2017"], False),
+                cfg.OUTPUT_DIR, dev)
+            out["final"] = {k: v.cpu() for k, v in
+                            model.state_dict().items()}
+    torch.save(out, os.path.join(tmp, f"pp2-{device}-rank{rank}.pt"))
+
+
+def pp_data_axis(tmp, card, yaml=RSN4X18_YAML):
+    """18e, on 4 or more cards: a data axis of 2 over a model axis of 2,
+    two NCCL ranks each driving two cards (``cards_per_rank``): one
+    float64 pipelined step of the 2-stage RSN-18 held against the same
+    two ranks on gloo CPU to ``PP_D2_GRAD_TOL`` x each gradient's max,
+    the ranks' cards ``cuda:2r``, ``cuda:2r+1``; then ``train.run``
+    pipelined on both ranks, whose losses and last weights agree."""
+    import torch.multiprocessing as torch_mp
+    from udp_pose_tpu_torch.models import build_model
+    from udp_pose_tpu_torch.ops.targets import rsn_targets_np
+    rng = np.random.default_rng(36)
+    pp2_data(os.path.join(tmp, "coco_pp2"))
+    cfg = pp2_cfg(yaml, tmp)
+    torch.save(build_model(cfg, device="cpu", train=True).double()
+               .state_dict(), os.path.join(tmp, "pp2.pth"))
+    w, h = cfg.MODEL.IMAGE_SIZE
+    labels = [rsn_targets_np(np.stack([rng.uniform(0, w - 1, 17),
+                                       rng.uniform(0, h - 1, 17)], 1),
+                             np.full((17, 1), 2.0), cfg.MODEL.HEATMAP_SIZE,
+                             cfg.MODEL.IMAGE_SIZE)
+              for _ in range(PP_D2_BATCH)]
+    torch.save({"image": torch.from_numpy(rng.normal(
+        size=(PP_D2_BATCH, h, w, 3))),
+        "labels": torch.from_numpy(np.stack(labels)).double(),
+        "valid": torch.full((PP_D2_BATCH, 17, 1), 2.0,
+                            dtype=torch.float64)},
+        os.path.join(tmp, "pp2_batch.pt"))
+    t0 = time.perf_counter()
+    runs = {}
+    for device in ("cuda", "cpu"):
+        torch_mp.spawn(pp_rank, args=(2, free_port(), tmp, device, yaml,
+                                      device != "cpu"),
+                       nprocs=2, join=True)
+        runs[device] = [torch.load(os.path.join(
+            tmp, f"pp2-{device}-rank{r}.pt"), weights_only=False)
+            for r in range(2)]
+    secs = time.perf_counter() - t0
+    want = runs["cpu"][0]
+    errs = {}
+    for r, got in enumerate(runs["cuda"]):
+        biases = [k for k in want["grads"] if k.endswith("conv.bias")]
+        e = rel_errors({k: v for k, v in got["grads"].items()
+                        if k not in biases},
+                       {k: v for k, v in want["grads"].items()
+                        if k not in biases})
+        errs[r] = (abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+                   max(e.values()))
+    recs = [r["record"] for r in runs["cuda"]]
+    same = all(torch.equal(runs["cuda"][0]["final"][k], v)
+               for k, v in runs["cuda"][1]["final"].items())
+    loss_by_rank = [[st["loss"] for st in rec["steps"]] for rec in recs]
+    log(f"[pp] 18e data axis 2 x model axis 2 (2-stage RSN-18 256x192): "
+        f"NCCL ranks on {[r['devices'] for r in runs['cuda']]}, float64 "
+        f"step B={PP_D2_BATCH} against 2 gloo CPU ranks: loss rel "
+        f"{max(e[0] for e in errs.values()):.3g}, worst gradient "
+        f"{max(e[1] for e in errs.values()):.3g} x its max (limit "
+        f"{PP_D2_GRAD_TOL:g}); train.run on both ranks: losses by rank "
+        f"{loss_by_rank}, last weights equal on both ranks: {same}; "
+        f"{secs:.1f} s | {card}")
+    check(runs["cuda"][0]["devices"] == ["cuda:0", "cuda:1"]
+          and runs["cuda"][1]["devices"] == ["cuda:2", "cuda:3"],
+          f"18e rank devices {[r['devices'] for r in runs['cuda']]}")
+    check(all(e[0] <= PP_LOSS_RTOL and e[1] <= PP_D2_GRAD_TOL
+              for e in errs.values()), f"18e float64 step NCCL vs gloo: "
+          f"{errs}")
+    check(same and loss_by_rank[0] == loss_by_rank[1]
+          and all(np.isfinite(loss_by_rank[0])), f"18e train.run on 2 "
+          f"ranks: losses {loss_by_rank}, same last weights {same}")
+
+
+
+
+def phase_pipeline(tmp, device="cuda", yaml=RSN4X50_YAML,
+                   n_train=PP_TRAIN_IMAGES, n_val=PP_VAL_IMAGES):
+    """Phase 18: ``TPU.PP`` at full 4xRSN-50 width on one card, its four
+    stages on ``[cuda:0] * 4``, with cuDNN's default algorithms (no
+    autotuning: the phase runs each shape a few times at most): 18a the
+    pipelined eval forward against the monolithic one; 18b one fp32
+    pipelined step (B=16, 4 microbatches) against the same microbatches
+    one after another through the plain stage modules (loss, every
+    gradient, running stats, weights after Adam); 18c ``train.run``
+    pipelined, its weights into the plain RSN and served; the CLI's
+    refusal of a model axis the host cannot hold; 18d on 4 or more
+    cards, the step over ``cuda:0..3`` against 18b's, and bf16 steps
+    timed with each card's peak memory: pipelined over the four cards,
+    and pipelined and plain on one.  Returns the launches by path."""
+    cudnn = torch.backends.cudnn
+    flags = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = False, False
+    try:
+        return pipeline_parts(tmp, device, yaml, n_train, n_val)
+    finally:
+        cudnn.benchmark, cudnn.deterministic = flags
+
+
+def pipeline_parts(tmp, device, yaml, n_train, n_val):
+    import copy
+    from udp_pose_tpu_torch.core.rsn import (create_rsn_train_state,
+                                             upload_rsn_batch)
+    from udp_pose_tpu_torch.data.base import collate
+    card = card_line()
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(34)
+    root = os.path.join(tmp, "coco_pp")
+    frames = {"train2017": synthetic_coco(root, "train2017", n_train, rng),
+              "val2017": synthetic_coco(root, "val2017", n_val, rng)}
+    cfg = pp_cfg(yaml, "bfloat16", root, os.path.join(tmp, "pp_run"))
+    one = [torch.device(device)] * PP_STAGES
+    train_ds = in_memory_rsn(cfg, frames["train2017"], True)
+    train_ds.seed(0)
+    batch = upload_rsn_batch(collate([train_ds[i] for i in range(
+        PP_BATCH)]), device)
+    paths = {}
+    model32, fwd, paths["rsn_pp_eval"] = pp_eval_forward(cfg, batch, one,
+                                                         card, device)
+
+    # 18b: the fp32 step against the sequential microbatches, one card
+    set_tf32(False)
+    cfg32 = cfg.clone()
+    cfg32.TPU.DTYPE = "float32"
+    # build_model(cfg32, train=True): the eval model's weights, seed 0
+    base = copy.deepcopy(model32).train()
+    ref = copy.deepcopy(base)
+    state = create_rsn_train_state(cfg32, ref, 1e-3, 10, 2)
+    want = pp_sequential_step(state, batch, PP_MICRO, PP_STAGES), \
+        pp_step_numbers(ref)
+    del ref, state
+    got = pp_steps(cfg32, base, batch, one)
+    pp_check_step(f"18b fp32 step B={PP_BATCH}, {PP_MICRO} microbatches "
+                  "on one card, TF32 off, pipelined vs sequential",
+                  pp_step_errors(got, want, 1e-3), card)
+    del got
+    set_tf32(True)
+    paths["rsn_pp_training"] = pp_training(tmp, cfg, frames,
+                                           (model32, fwd), base, card,
+                                           device, one)
+    pp_cli_refusal(yaml, card)
+
+    n = torch.cuda.device_count() if device != "cpu" else 1
+    if n >= PP_STAGES:
+        cards = [torch.device("cuda", i) for i in range(PP_STAGES)]
+        set_tf32(False)
+        got = pp_steps(cfg32, base, batch, cards)
+        pp_check_step(f"18d fp32 step over {[str(d) for d in cards]} vs "
+                      "the sequential microbatches on one card",
+                      pp_step_errors(got, want, 1e-3), card)
+        del got
+        set_tf32(True)
+        timed = {"pipelined": pp_timed(cfg, base, batch, one, True),
+                 "plain": pp_timed(cfg, base, batch, one, False)}
+        log(f"[pp] 18d 4xrsn50 bf16 step B={PP_BATCH} on one card: "
+            f"pipelined ({PP_MICRO} microbatches, [cuda:0] x {PP_STAGES}) "
+            f"{timed['pipelined'][0]:.1f} ms, {timed['pipelined'][1]:.1f} "
+            f"samples/s, peak {timed['pipelined'][2][0]:.2f} GB; plain "
+            f"step {timed['plain'][0]:.1f} ms, {timed['plain'][1]:.1f} "
+            f"samples/s, peak {timed['plain'][2][0]:.2f} GB (cuDNN as the "
+            f"yaml sets it) | {card}")
+        spread = pp_timed(cfg, base, batch, cards, True)
+        log(f"[pp] 18d 4xrsn50 bf16 pipelined step B={PP_BATCH} over "
+            f"{len(cards)} cards: {spread[0]:.1f} ms, {spread[1]:.1f} "
+            f"samples/s ({spread[1] / timed['pipelined'][1]:.2f}x one "
+            f"card's pipelined, {spread[1] / timed['plain'][1]:.2f}x the "
+            f"plain step); peak max_memory_allocated by card "
+            f"{[round(p, 2) for p in spread[2]]} GB against the plain "
+            f"step's {timed['plain'][2][0]:.2f} GB on one card | {card}")
+        pp_data_axis(tmp, card)
+    else:
+        log(f"[pp] 18d and 18e need {PP_STAGES} cards, this host has {n}: "
+            "the step over distinct cards, its memory per card and the "
+            "data axis of two ranks of two cards did not run")
+    del base, model32, batch
+    torch.cuda.empty_cache()
+    log(f"[pp] phase 18 {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{paths}")
+    return paths
+
+
 
 
 def main(argv=None):
@@ -7134,22 +7876,35 @@ def main(argv=None):
         "--peak-before", metavar="CU",
         help="an earlier revision of udp_pose_tpu_torch/csrc/peak_offset.cu "
              "whose peak-only kernel phase 3 times in turns with this one")
+    parser.add_argument(
+        "--proof", choices=PROOFS,
+        help="run only 17b or 17c, on the set at --root, temporary files "
+             "under --tmp, its launches into the json --out (the whole "
+             "script runs each so, beside phases 7 to 17)")
+    parser.add_argument("--root")
+    parser.add_argument("--tmp")
+    parser.add_argument("--out")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this "
               "script needs an NVIDIA card", file=sys.stderr)
         return 1
+    if args.proof:
+        return proof_main(args)
     log(f"[card] {card_line()} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | python {sys.version.split()[0]}")
     t0 = time.perf_counter()
+    proof_tmp = tempfile.mkdtemp()
     try:
-        phase_build()
+        # the int8 sources compile while phases 3, 5 and 8 run
+        building = phase_build(background=True)
         peak = phase_kernel(peak_before=args.peak_before)
         _, layout, profile_model = phase_model()
         # timed before any profiler session, like phase 5
         with tempfile.TemporaryDirectory() as tmp:
             detected, profile_detect = phase_detect(tmp)
         paths = {"detect_then_pose": detected}
+        finish_build(building)
         with tempfile.TemporaryDirectory() as tmp:
             int8_paths, int8_kernels, _, _ = phase_int8(tmp)
         with tempfile.TemporaryDirectory() as tmp:
@@ -7171,6 +7926,9 @@ def main(argv=None):
             profile()
         phase_blur()
         paths["pose_serving"] = phase_server(w32_cfg("bfloat16"))
+        # the learning proofs take most of phase 17's time: they run
+        # beside phases 7 to 17a
+        proofs = start_proofs(proof_tmp)
         with tempfile.TemporaryDirectory() as tmp:
             paths["training"] = phase_train(tmp)
         with tempfile.TemporaryDirectory() as tmp:
@@ -7180,7 +7938,9 @@ def main(argv=None):
         with tempfile.TemporaryDirectory() as tmp:
             paths.update(phase_device_aug(tmp))
         with tempfile.TemporaryDirectory() as tmp:
-            paths.update(phase_tools(tmp))
+            paths.update(phase_tools(tmp, proofs=proofs))
+        with tempfile.TemporaryDirectory() as tmp:
+            paths.update(phase_pipeline(tmp))
         paths.update(int8_paths)
         paths.update(zoo_paths)
         paths.update(rsn_paths)
@@ -7189,6 +7949,9 @@ def main(argv=None):
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        stop_proofs()
+        shutil.rmtree(proof_tmp, ignore_errors=True)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     decode = {"route": "cuda",
               "source": "udp_pose_tpu_torch/csrc/peak_offset.cu",

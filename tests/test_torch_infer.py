@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from test_torch_hrnet import bridged_pair
+from test_torch_yolov5 import few_threads  # noqa: F401 (autouse)
 from udp_pose_tpu.core.infer import make_infer_fn as jax_make_infer_fn
 from udp_pose_tpu_torch.core.infer import (make_infer_fn,
                                            make_infer_fn_from_cfg)

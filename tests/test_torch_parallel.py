@@ -23,6 +23,7 @@ import torch
 import torch_ranks
 from ref_harness import make_mini_coco
 from test_torch_hrnet import bridged_pair, reduced_cfg
+from test_torch_yolov5 import few_threads  # noqa: F401 (autouse)
 from test_torch_train import _train_batch
 from udp_pose_tpu.config import default_config as jax_default_config
 from udp_pose_tpu.core import loss as jax_loss
@@ -73,15 +74,21 @@ def test_rendezvous_refuses_what_it_cannot_run(monkeypatch):
     assert make_mesh(["cpu"]).size == 1 and make_mesh(["cpu", "cpu"]).size == 2
     with pytest.raises(ValueError, match="at least one device"):
         make_mesh([])
-    # without a group the data axis is 1: TPU.MESH.DATA -1 or 1, and the
-    # model axis is refused
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    with pytest.raises(RuntimeError, match="4 ranks on this host but 4 .*"
+                                           "each rank drives 2 cards"):
+        initialize("cuda", TORCHRUN, cards_per_rank=2)
+    # without a group the data axis is 1: TPU.MESH.DATA -1 or 1; a model
+    # axis > 1 leaves it so, and its TPU.TP is refused
     cfg = default_config()
     assert data_axis_size(cfg) == 1
     cfg.TPU.MESH.DATA = 2
     with pytest.raises(ValueError, match="1 rank"):
         data_axis_size(cfg)
     cfg.TPU.MESH.DATA, cfg.TPU.MESH.MODEL = -1, 2
-    with pytest.raises(NotImplementedError, match="TPU.PP"):
+    assert data_axis_size(cfg) == 1
+    cfg.TPU.TP = True
+    with pytest.raises(NotImplementedError, match="TPU.TP"):
         data_axis_size(cfg)
 
 

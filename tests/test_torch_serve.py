@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from test_torch_hrnet import reduced_cfg
+from test_torch_yolov5 import few_threads  # noqa: F401 (autouse)
 from udp_pose_tpu.config import default_config as jax_default_config
 from udp_pose_tpu.engine.pose_engine import _next_bucket as jax_next_bucket
 from udp_pose_tpu.engine.server import host_crops as jax_host_crops
@@ -424,7 +425,7 @@ def test_port_imports_nothing_of_jax():
             "pb", "build", "families", "mobile", "rsn", "yolo", "eval")
     } | {port / f"{m}.py" for m in (
         "reproduce_zoo", "generalization_proof", "overfit_proof",
-        "convert_weights", "plot_coco")} <= set(files)
+        "convert_weights", "plot_coco", "parallel/pipeline")} <= set(files)
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -19,6 +19,7 @@ import yaml
 
 from ref_harness import make_mini_coco
 from test_torch_hrnet import bridged_pair, reduced_cfg
+from test_torch_yolov5 import few_threads  # noqa: F401 (autouse)
 from udp_pose_tpu.config import default_config as jax_default_config
 from udp_pose_tpu.core import accuracy as jax_accuracy
 from udp_pose_tpu.core import loss as jax_loss
@@ -369,11 +370,12 @@ def test_train_and_test_entry_points_on_cpu(coco_root, tmp_path,
 
 
 def test_entry_points_refuse_what_is_not_ported(tmp_path, coco_root):
-    """A model axis > 1 (``TPU.TP``, ``TPU.PP``) still raises; on a model
-    axis of 1 both keys train and test the plain step through the CLIs,
-    as the JAX trainer does (``tools/train.py:181``, ``:213``), and
-    ``TPU.QAT int8`` with ``TPU.PP`` raises ``ValueError`` whatever the
-    mesh (``:81-88``).  ``DATASET.DEVICE_AUG`` (ported) trains a reduced
+    """``TPU.TP`` on a model axis > 1 still raises; ``TPU.PP`` there
+    trains an RSN pipelined (two stages on the CPU twice) and any other
+    model the plain step, as the JAX trainer (``tools/train.py:181``);
+    on a model axis of 1 both keys train and test the plain step through
+    the CLIs (``:181``, ``:213``), and ``TPU.QAT int8`` with ``TPU.PP``
+    raises ``ValueError`` whatever the mesh (``:81-88``).  ``DATASET.DEVICE_AUG`` (ported) trains a reduced
     step through ``train.main``, its crops and targets made by the device
     augmentation, and raises for RSN as the JAX trainer does."""
     from udp_pose_tpu_torch import test as test_cli
@@ -382,10 +384,9 @@ def test_entry_points_refuse_what_is_not_ported(tmp_path, coco_root):
     cfg = reduced_cfg(default_config)
     path = tmp_path / "c.yaml"
     path.write_text(yaml.safe_dump(cfg.to_dict()))
-    for key, value in (("TPU.TP", "True"), ("TPU.PP", "True")):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            train_cli.main(["--cfg", str(path), "--device", "cpu", key,
-                            value, "TPU.MESH.MODEL", "2"])
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        train_cli.main(["--cfg", str(path), "--device", "cpu", "TPU.TP",
+                        "True", "TPU.MESH.MODEL", "2"])
     for mesh in ("1", "2"):
         with pytest.raises(ValueError, match="TPU.QAT is not supported "
                                              "together with TPU.PP"):
@@ -420,6 +421,32 @@ def test_entry_points_refuse_what_is_not_ported(tmp_path, coco_root):
                            "OUTPUT_DIR", str(tmp_path / "axis"), *axis,
                            "TEST.MODEL_FILE", weights])
     assert nv == plain["name_values"]
+    # TPU.PP on a model axis of 2: the plain step for HRNet
+    record, sd, _ = trained("pp2", "TPU.PP", "True", "TPU.MESH.MODEL", "2")
+    assert [s["loss"] for s in record["steps"]] == \
+        [s["loss"] for s in plain["steps"]]
+    for k, v in sd.items():
+        assert torch.equal(v, plain_sd[k]), k
+    # and pipelined for a two-stage RSN, whose weights load into the plain
+    # RSN
+    rsn_cfg = _data_cfg(default_config, coco_root)
+    rsn_cfg.TRAIN.END_EPOCH = 1
+    rsn_cfg.TEST.FLIP_TEST = False
+    rsn_cfg.LOG_DIR = str(tmp_path / "log")
+    rsn_cfg.OUTPUT_DIR = str(tmp_path / "rsn")
+    rsn_cfg.MODEL.NAME = "rsn"
+    rsn_cfg.MODEL.EXTRA.merge_from_dict({"STAGE_NUM": 2, "LAYERS": [1] * 4,
+                                         "UPSAMPLE_CHANNEL_NUM": 32})
+    path.write_text(yaml.safe_dump(rsn_cfg.to_dict()))
+    record = train_cli.main(["--cfg", str(path), "--device", "cpu",
+                             "TPU.PP", "True", "TPU.MESH.MODEL", "2"])
+    assert len(record["steps"]) >= 1 and np.isfinite(
+        record["steps"][0]["loss"])
+    from udp_pose_tpu_torch.models import build_model
+    rsn = build_model(rsn_cfg, device="cpu")
+    rsn.load_state_dict(torch.load(
+        tmp_path / "rsn" / "coco" / "rsn" / "c" / "final_state.pth"),
+        strict=True)
     cfg.OUTPUT_DIR = str(tmp_path / "out")
     path.write_text(yaml.safe_dump(cfg.to_dict()))
     made = []

@@ -211,3 +211,30 @@ def _files(root):
         for n in names:
             yield os.path.relpath(os.path.join(d, n), root)
 
+
+
+def pipelined_step(rank, world, tmp, cfg, state_dict, batch, n_micro):
+    """One float64 pipelined train step (:mod:`udp_pose_tpu_torch.parallel.
+    pipeline`) of the RSN of ``cfg`` from ``state_dict``, its stages on
+    ``["cpu"] * STAGE_NUM``, on this data rank's rows of the global
+    ``batch`` (``pipeline_rows``): (global loss, gradients, running
+    stats)."""
+    from udp_pose_tpu_torch.core.rsn import create_rsn_train_state
+    from udp_pose_tpu_torch.models import build_model
+    from udp_pose_tpu_torch.parallel import pipeline as pp
+    model = build_model(cfg, device="cpu", train=True).double()
+    model.load_state_dict(state_dict)
+    devices = ["cpu"] * model.stage_num
+    pp.place_stages(model, devices)
+    groups = pp.PipelineGroups(devices)
+    pp.data_parallel_stages(model, groups)
+    state = create_rsn_train_state(cfg, model, 1e-3, 10, 2)
+    step = pp.make_pipelined_rsn_train_step(cfg, devices, n_micro,
+                                            groups=groups)
+    rows = pp.pipeline_rows(len(batch["image"]), n_micro, rank, world)
+    metrics = step(state, {k: torch.from_numpy(v[rows]).double()
+                           for k, v in batch.items()})
+    return (float(metrics["loss"]),
+            {k: p.grad.numpy() for k, p in model.named_parameters()},
+            {k: v.numpy() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))})

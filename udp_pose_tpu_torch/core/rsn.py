@@ -83,7 +83,8 @@ def upload_rsn_batch(batch, device):
 
 
 def make_rsn_train_step(stage_num: int, ohkm=True, topk=8,
-                        coarse_to_fine=True):
+                        coarse_to_fine=True, forward=None,
+                        after_backward=None):
     """Build ``step(state, batch) -> metrics``.  ``batch``: image (B, H,
     W, 3) float32 normalised, labels (B, 5, J, h, w), valid (B, J, 1), on
     the model's device.  One forward in train mode (every stage's four
@@ -91,7 +92,11 @@ def make_rsn_train_step(stage_num: int, ohkm=True, topk=8,
     rsn_multi_stage_loss`, backward, an optimizer and a scheduler step;
     ``state`` is updated in place and ``metrics["loss"]`` is a device
     tensor.  Profiler ranges and data parallelism as in
-    :func:`.train.make_train_step`."""
+    :func:`.train.make_train_step`.  The pipelined step
+    (:func:`..parallel.pipeline.make_pipelined_rsn_train_step`) sets
+    ``forward(model, x) -> outputs`` in place of the model's call (its
+    outputs are brought to ``x``'s device) and ``after_backward(state,
+    loss) -> loss``, run between the backward and the optimizer."""
 
     def step(state: TrainState, batch):
         model = state.model
@@ -102,8 +107,10 @@ def make_rsn_train_step(stage_num: int, ohkm=True, topk=8,
                if dtype != torch.float32 else contextlib.nullcontext())
         with record_function("train/forward"):
             with ctx:
-                out = step_forward(state)(x)
-            outputs = [[o.to(torch.promote_types(o.dtype, torch.float32))
+                out = (step_forward(state)(x) if forward is None
+                       else forward(model, x))
+            outputs = [[o.to(x.device, torch.promote_types(o.dtype,
+                                                           torch.float32))
                         for o in stage] for stage in out]
             loss = rsn_multi_stage_loss(outputs, batch["valid"],
                                         batch["labels"], stage_num,
@@ -112,11 +119,15 @@ def make_rsn_train_step(stage_num: int, ohkm=True, topk=8,
         state.optimizer.zero_grad(set_to_none=True)
         with record_function("train/backward"):
             loss.backward()
+        loss = loss.detach()
+        if after_backward is not None:
+            with record_function("train/data_axis"):
+                loss = after_backward(state, loss)
         with record_function("train/optimizer"):
             state.optimizer.step()
             state.scheduler.step()
         state.step += 1
-        return global_means(state, {"loss": loss.detach()})
+        return global_means(state, {"loss": loss})
 
     return step
 

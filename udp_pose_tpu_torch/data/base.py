@@ -259,10 +259,23 @@ def aspect_ratio_group_ids(dataset, bins=(1.0,)):
 
 def epoch_batch_indices(dataset, batch_size, shuffle=True, seed=0,
                         drop_last=True, shard_index=0, num_shards=1,
-                        group_ids=None):
+                        group_ids=None, n_micro=1):
     """This shard's batch plan for one epoch, a list of index chunks,
     computed without touching a sample: an epoch-seeded permutation,
-    padded to a shard-divisible length and strided per shard."""
+    padded to a shard-divisible length and strided per shard.  With
+    ``n_micro`` > 1 over several shards (a pipelined step), step ``j``'s
+    global batch is every shard's chunk ``j`` in shard order, and this
+    shard takes its rows of each of the ``n_micro`` microbatches
+    (:func:`..parallel.pipeline.pipeline_rows`)."""
+    if n_micro > 1 and num_shards > 1:
+        from ..parallel.pipeline import pipeline_rows
+        per = [epoch_batch_indices(dataset, batch_size, shuffle, seed,
+                                   drop_last, si, num_shards, group_ids)
+               for si in range(num_shards)]
+        rows = pipeline_rows(batch_size * num_shards, n_micro, shard_index,
+                             num_shards)
+        return [np.concatenate([p[j] for p in per])[rows]
+                for j in range(min(len(p) for p in per))]
     n = len(dataset)
     idx = np.arange(n)
     if shuffle:
@@ -305,7 +318,7 @@ def epoch_plan_size(dataset, batch_size, shuffle=True, seed=0,
 
 def epoch_loader(dataset, batch_size, shuffle=True, seed=0, drop_last=True,
                  shard_index=0, num_shards=1, group_ids=None,
-                 skip_batches=0):
+                 skip_batches=0, n_micro=1):
     """Epoch-seeded batch iterator over :func:`epoch_batch_indices`, in
     this process (the reference's DataLoader + DistributedSampler,
     RSN/cvpack/dataset/torch_samplers/distributed.py:10-66).
@@ -317,5 +330,6 @@ def epoch_loader(dataset, batch_size, shuffle=True, seed=0, drop_last=True,
                                      seed=seed, drop_last=drop_last,
                                      shard_index=shard_index,
                                      num_shards=num_shards,
-                                     group_ids=group_ids)[skip_batches:]:
+                                     group_ids=group_ids,
+                                     n_micro=n_micro)[skip_batches:]:
         yield collate([dataset[int(i)] for i in chunk])

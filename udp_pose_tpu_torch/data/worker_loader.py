@@ -71,11 +71,12 @@ def worker_loader(dataset, batch_size: int, *, seed: int = 0,
                   shuffle: bool = True, num_workers: int = 4,
                   shard_index: int = 0, num_shards: int = 1,
                   multiprocessing_context=None, timeout: float = 0,
-                  as_tensors: bool = False):
+                  as_tensors: bool = False, n_micro: int = 1):
     """A ``DataLoader`` over epoch ``seed``'s batch plan of ``dataset``
     (:func:`.base.epoch_batch_indices` with the same arguments: full
     batches only, of shard ``shard_index`` of ``num_shards``), whose
-    ``num_workers`` processes each build whole batches.  Each record is
+    ``num_workers`` processes each build whole batches (``n_micro``: a
+    pipelined step's rows, as there).  Each record is
     seeded by its index, so the shards of a data-parallel epoch build
     the records a one-process epoch at the same global batch builds.
 
@@ -88,7 +89,7 @@ def worker_loader(dataset, batch_size: int, *, seed: int = 0,
     memory."""
     plan = epoch_batch_indices(dataset, batch_size, shuffle=shuffle,
                                seed=seed, shard_index=shard_index,
-                               num_shards=num_shards)
+                               num_shards=num_shards, n_micro=n_micro)
     workers = int(num_workers)
     return torch.utils.data.DataLoader(
         PlannedBatches(dataset, plan, seed, as_tensors), batch_size=None,

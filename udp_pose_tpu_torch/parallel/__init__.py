@@ -7,8 +7,10 @@ sharded mesh whose BatchNorm statistics span the global batch.  Here one
 process drives one card under ``torchrun`` (NCCL), the step is wrapped
 in DDP, and the BatchNorms all-reduce their statistics so that a step is
 the JAX package's global-batch step.  The engines' ``mesh=`` drives
-several local cards from one process.  Pipeline (``TPU.PP``) and tensor
-(``TPU.TP``) parallelism over a model axis > 1 are not ported yet.
+several local cards from one process.  ``TPU.PP`` pipelines a
+multi-stage RSN over a model axis of ``STAGE_NUM`` devices a rank
+(:mod:`.pipeline`); tensor parallelism (``TPU.TP``) over a model axis >
+1 is not ported yet.
 """
 
 from .batchnorm import GlobalBatchNorm2d, convert_batchnorm

@@ -6,10 +6,14 @@ sharded over ``data`` replicates the parameters and splits the batch.
 Here the trainer's and the evaluator's data axis is the world of a
 ``torch.distributed`` group (one process a card,
 :func:`.multihost.process_shard_info`), and a :class:`Mesh` is the local
-cards one serving process drives (the engines' ``mesh=``).  The model
-axis is 1: a ``TPU.MESH.MODEL`` > 1 (pipeline and tensor parallelism)
-is not ported yet, and ``TPU.PP`` or ``TPU.TP`` on a model axis of 1
-trains the plain step, as in the JAX trainer.
+cards one serving process drives (the engines' ``mesh=``).  A
+``TPU.MESH.MODEL`` of M > 1 gives each data rank M cards (rank ``r`` on
+``cuda:local_rank·M`` …): ``TPU.PP`` on a multi-stage RSN pipelines its
+stages over them (:mod:`.pipeline`); any other model trains the plain
+step on the first, as the JAX trainer replicates it over the model axis;
+``TPU.TP`` (tensor parallelism) is not ported yet.  ``TPU.PP`` or
+``TPU.TP`` on a model axis of 1 trains the plain step, as in the JAX
+trainer.
 """
 
 from __future__ import annotations
@@ -44,20 +48,31 @@ def make_mesh(devices) -> Mesh:
 
 
 def refuse_model_axis(cfg):
-    """Raise for ``TPU.MESH.MODEL`` > 1: the model axis (``TPU.PP``
-    pipeline parallelism, ``TPU.TP`` tensor parallelism) is not ported
-    yet.  At a model axis of 1 both keys leave the step plain."""
-    if cfg.TPU.MESH.MODEL > 1:
+    """Raise for what the port does not do on a ``TPU.MESH.MODEL`` > 1:
+    ``TPU.PP`` with ``TPU.TP`` on an RSN (``ValueError``, as
+    ``tools/train.py:186-188``), ``TPU.TP`` otherwise
+    (``NotImplementedError``: tensor parallelism is the slice still to
+    port).  ``TPU.PP`` on an RSN pipelines; any other model axis trains
+    the plain step.  At a model axis of 1 both keys leave the step
+    plain."""
+    if cfg.TPU.MESH.MODEL <= 1:
+        return
+    from .pipeline import uses_pipeline
+    if uses_pipeline(cfg) and cfg.TPU.TP:
+        raise ValueError("TPU.PP and TPU.TP are mutually exclusive (both "
+                         "map the 'model' axis)")
+    if cfg.TPU.TP:
         raise NotImplementedError(
-            f"TPU.MESH.MODEL {cfg.TPU.MESH.MODEL}: the model axis (TPU.PP "
-            "pipeline parallelism, TPU.TP tensor parallelism) is not "
-            "ported yet")
+            f"TPU.TP over TPU.MESH.MODEL {cfg.TPU.MESH.MODEL}: tensor "
+            "parallelism is not ported yet (the remaining slice of the "
+            "model axis; TPU.PP pipelines a multi-stage RSN)")
 
 
 def data_axis_size(cfg) -> int:
     """The data-parallel width a run of ``cfg`` trains at, the world size
-    of the process group (1 without one): ``TPU.MESH.DATA`` is -1 or
-    that size; ``TPU.MESH.MODEL`` > 1 raises (:func:`refuse_model_axis`)."""
+    of the process group (1 without one), one process a data rank,
+    whatever the model axis: ``TPU.MESH.DATA`` is -1 or that size;
+    what the model axis does not do raises (:func:`refuse_model_axis`)."""
     world = process_shard_info()[1]
     refuse_model_axis(cfg)
     if cfg.TPU.MESH.DATA not in (-1, world):

@@ -64,12 +64,16 @@ def rendezvous_from_env(environ=None) -> Optional[Rendezvous]:
     return None
 
 
-def initialize(device="cuda", environ=None, init_method=None):
+def initialize(device="cuda", environ=None, init_method=None,
+               cards_per_rank=1):
     """Join the process group the environment describes and return this
     process's device (``cuda:LOCAL_RANK``, made the current card; the CPU
     when ``device`` is the CPU), or None when the environment describes
     no group.  ``init_method`` replaces the address the environment gives
-    (a test's ``file://`` rendezvous)."""
+    (a test's ``file://`` rendezvous).  ``cards_per_rank`` > 1 (a model
+    axis of that many cards a rank): the rank drives
+    ``cuda:LOCAL_RANK·cards_per_rank`` and the next ones, and is bound to
+    the first."""
     rdv = rendezvous_from_env(environ)
     if rdv is None:
         return None
@@ -83,15 +87,21 @@ def initialize(device="cuda", environ=None, init_method=None):
     dev = resolve_device(device)
     if dev.type == "cuda":
         cards = torch.cuda.device_count()
-        if rdv.local_world > cards:
+        if rdv.local_world * cards_per_rank > cards:
             raise RuntimeError(
                 f"{rdv.local_world} ranks on this host but {cards} visible "
-                "card(s): NCCL takes one card a rank")
-        dev = torch.device("cuda", rdv.local_rank)
+                "card(s): NCCL takes one card a rank" + (
+                    f", and each rank drives {cards_per_rank} cards of "
+                    "TPU.MESH.MODEL" if cards_per_rank > 1 else ""))
+        dev = torch.device("cuda", rdv.local_rank * cards_per_rank)
         torch.cuda.set_device(dev)
+        # a rank that drives several cards binds none to the default
+        # group: torch binds every later group to the default group's card,
+        # and the model axis needs a group bound to each of its cards
         dist.init_process_group("nccl", init_method=init_method,
                                 world_size=rdv.world, rank=rdv.rank,
-                                device_id=dev)
+                                device_id=dev if cards_per_rank == 1
+                                else None)
     else:
         dist.init_process_group("gloo", init_method=init_method,
                                 world_size=rdv.world, rank=rdv.rank)
@@ -99,11 +109,11 @@ def initialize(device="cuda", environ=None, init_method=None):
 
 
 @contextlib.contextmanager
-def process_group(device="cuda"):
+def process_group(device="cuda", cards_per_rank=1):
     """:func:`initialize` for the length of a ``with`` block, which gets
     the process's device (None without a group); the group is destroyed
     as the block ends."""
-    dev = initialize(device)
+    dev = initialize(device, cards_per_rank=cards_per_rank)
     try:
         yield dev
     finally:

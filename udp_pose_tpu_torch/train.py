@@ -36,6 +36,20 @@ The global batch is ``TRAIN.BATCH_SIZE_PER_GPU`` × N, each rank loads
 its shard of it, the BatchNorm statistics are the global batch's and
 the gradients are averaged (:mod:`.parallel`), so the run follows the
 JAX package's sharded step; rank 0 alone logs and writes files.
+
+``TPU.PP True TPU.MESH.MODEL <STAGE_NUM>`` on a multi-stage RSN trains
+its stages as a GPipe pipeline over ``STAGE_NUM`` cards a process
+(:mod:`.parallel.pipeline`, ``TPU.PP_MICROBATCHES`` microbatches), stage
+``s`` of rank ``r`` on ``cuda:local_rank·STAGE_NUM + s``; the weights
+and checkpoints keep the plain RSN's keys::
+
+    python -m udp_pose_tpu_torch.train --cfg configs/coco/4xrsn50_384x288.yaml \
+        TPU.PP True TPU.MESH.MODEL 4 TPU.PP_MICROBATCHES 4
+    torchrun --nproc_per_node 2 -m udp_pose_tpu_torch.train --cfg <yaml> \
+        TPU.PP True TPU.MESH.MODEL 4        # 8 cards: 2 data × 4 stages
+
+The host needs that many cards; :func:`run` takes ``model_devices=``
+(``["cuda:0"] * 4``: every stage on one card).
 """
 
 from __future__ import annotations
@@ -54,12 +68,17 @@ logger = logging.getLogger(__name__)
 def check_parallel_config(cfg):
     """The JAX trainer's guards on ``TPU.PP``, ``TPU.TP`` and the model
     axis.  ``TPU.QAT int8`` with ``TPU.PP`` raises ``ValueError`` whatever
-    the mesh (``tools/train.py:81-88``); a ``TPU.MESH.MODEL`` > 1 is not
-    ported (:func:`.parallel.mesh.refuse_model_axis`).  On a model axis
-    of 1 the JAX trainer takes neither the pipelined step nor the
-    tensor-parallel sharding (``:181``, ``:213``) and trains the plain
-    step, and so does the port."""
+    the mesh (``tools/train.py:81-88``).  On a ``TPU.MESH.MODEL`` > 1,
+    ``TPU.PP`` on an RSN pipelines its stages (the model axis must equal
+    ``STAGE_NUM``, else ``ValueError``), ``TPU.PP`` with ``TPU.TP`` there
+    raises ``ValueError`` and ``TPU.TP`` ``NotImplementedError``
+    (:func:`.parallel.mesh.refuse_model_axis`); any other model trains
+    the plain step, as the JAX trainer, which sets its pipelined step
+    only for RSN (``:181``).  On a model axis of 1 the JAX trainer takes
+    neither the pipelined step nor the tensor-parallel sharding (``:181``,
+    ``:213``) and trains the plain step, and so does the port."""
     from .parallel import refuse_model_axis
+    from .parallel.pipeline import stage_count, uses_pipeline
     if cfg.TPU.QAT == "int8" and cfg.TPU.PP:
         # the JAX pipeline stages bypass the fake-quant wrapper: training
         # would run in full precision while claiming QAT
@@ -67,6 +86,8 @@ def check_parallel_config(cfg):
                          "(the pipeline stages bypass the fake-quant "
                          "wrapper); train QAT with dp/tp sharding instead")
     refuse_model_axis(cfg)
+    if uses_pipeline(cfg):
+        stage_count(cfg)
 
 
 def parse_args(argv=None):
@@ -99,13 +120,21 @@ def main(argv=None):
     update_config(cfg, args)
     check_parallel_config(cfg)
     # torchrun's (or the JAX CLIs') variables: join the process group,
-    # on the card of this process's local rank
-    with process_group(args.device) as dp_device:
+    # on the first card of this process's local rank (TPU.MESH.MODEL
+    # cards a rank)
+    with process_group(args.device,
+                       cards_per_rank=max(cfg.TPU.MESH.MODEL, 1)) as dp_device:
         return _main(cfg, args, device if dp_device is None else dp_device,
                      is_writer())
 
 
 def _main(cfg, args, device, writer):
+    from .parallel.pipeline import (model_devices_for, stage_count,
+                                    uses_pipeline)
+    # the pipelined step's cards, refused before anything is built when
+    # the host has too few
+    model_devices = (model_devices_for(device, stage_count(cfg))
+                     if uses_pipeline(cfg) else None)
     from .data import build_dataset
     from .models import build_model
     from .utils.logging import create_logger
@@ -124,7 +153,7 @@ def _main(cfg, args, device, writer):
     guard = PreemptionGuard()
     try:
         return run(cfg, model, train_ds, val_ds, final_output_dir, device,
-                   guard=guard)
+                   guard=guard, model_devices=model_devices)
     finally:
         guard.restore()
 
@@ -168,7 +197,8 @@ def infinite_batches(dataset, batch_size, shuffle, epoch_batches,
     prefix and throwing it away, so that the draws of the in-process
     loader's one generator replay and the stream goes on as the
     uninterrupted run's.  ``batch_size`` and the plans are this shard's
-    of ``num_shards``.  Raises when an epoch's plan holds no batch."""
+    of ``num_shards`` (a pipelined step's plans are as long).
+    Raises when an epoch's plan holds no batch."""
     from .data.base import epoch_plan_size
     p = 0
     while True:
@@ -202,7 +232,8 @@ def _close(batches):
         close()
 
 
-def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
+def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None,
+        model_devices=None):
     """Train ``model`` (from ``build_model(cfg, train=True)``) on
     ``train_ds`` and validate it on ``val_ds``: for epochs
     ``TRAIN.BEGIN_EPOCH`` to ``TRAIN.END_EPOCH``, validating after each
@@ -253,7 +284,19 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
     iteration mode scales by the world size (:func:`rsn_schedule`); the
     guard is polled over every rank at ``PRINT_FREQ`` steps; validation
     decodes a shard a rank and gathers; rank 0 alone writes files, and
-    every rank loads a checkpoint it resumes from."""
+    every rank loads a checkpoint it resumes from.
+
+    ``TPU.PP`` on an RSN over a ``TPU.MESH.MODEL`` of ``STAGE_NUM``
+    (:func:`.parallel.pipeline.uses_pipeline`): ``model``'s stem and
+    stages move onto ``model_devices`` (default: ``STAGE_NUM`` cards from
+    ``device`` on, or the CPU that many times; a list may repeat a card)
+    and the step is the GPipe step of :mod:`.parallel.pipeline` with
+    ``TPU.PP_MICROBATCHES`` microbatches; in a process group each rank
+    drives its own ``model_devices``, loads its rows of every microbatch
+    and averages gradients and stage running stats over one group a
+    model index.  Validation, checkpoints and weight files are those of
+    the plain RSN.  Any other model on a model axis > 1 trains the plain
+    step on ``device``."""
     from .core.accuracy import pck_accuracy
     from .core.loss import make_loss_fn
     from .core.rsn import (RSN_BATCH_KEYS, create_rsn_train_state,
@@ -267,6 +310,7 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
     from .models import build_model
     from .parallel import (data_axis_size, data_parallel, is_writer,
                            process_shard_info)
+    from .parallel import pipeline as pp
     from .utils import checkpoint as ckpt
     from .utils.logging import AverageMeter, print_name_value
     from .utils.platform import resolve_device
@@ -283,6 +327,28 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
     n_dev = data_axis_size(cfg)
     shard_index, num_shards = process_shard_info()
     writer = is_writer()
+    pipelined = pp.uses_pipeline(cfg)
+    n_micro, train_device = 1, device
+    if pipelined:
+        n_stages = pp.stage_count(cfg)
+        n_micro = int(cfg.TPU.PP_MICROBATCHES)
+        model_devices = ([resolve_device(d) for d in model_devices]
+                         if model_devices is not None
+                         else pp.model_devices_for(device, n_stages))
+        pp.place_stages(model, model_devices)
+        train_device = next(model.top.parameters()).device
+        global_rows = cfg.TRAIN.BATCH_SIZE_PER_GPU * n_dev
+        if global_rows % (n_micro * n_dev):
+            raise ValueError(f"batch {global_rows} not divisible by "
+                             f"n_micro*n_data={n_micro * n_dev}")
+        logger.info(f"=> pipeline-parallel over {n_stages} stages "
+                    f"({n_micro} microbatches) on "
+                    f"{[str(d) for d in model_devices]}")
+    elif cfg.TPU.MESH.MODEL > 1:
+        logger.info(f"TPU.MESH.MODEL {cfg.TPU.MESH.MODEL}: the plain step of "
+                    f"{cfg.MODEL.NAME} does not use the model axis; its "
+                    f"other {cfg.TPU.MESH.MODEL - 1} card(s) a rank go "
+                    "unused")
     if cfg.MODEL.INIT_WEIGHTS and cfg.MODEL.PRETRAINED:
         # the reference's model.init_weights(PRETRAINED) (tools/train.py:
         # 91-116): a partial or backbone-only file onto the fresh init
@@ -301,9 +367,18 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
         sched = rsn_schedule(cfg, steps_per_epoch, n_dev)
         state = create_rsn_train_state(cfg, model, sched.base_lr,
                                        sched.max_iters, sched.warmup_iters)
-        step_fn = make_rsn_train_step(
-            cfg.MODEL.EXTRA.get("STAGE_NUM", 1), ohkm=cfg.LOSS.USE_OHKM,
-            topk=cfg.LOSS.TOPK)
+        if pipelined:
+            groups = (pp.PipelineGroups(model_devices)
+                      if dist.is_initialized() else None)
+            if groups is not None:
+                pp.data_parallel_stages(model, groups)
+            step_fn = pp.make_pipelined_rsn_train_step(
+                cfg, model_devices, n_micro, ohkm=cfg.LOSS.USE_OHKM,
+                topk=cfg.LOSS.TOPK, groups=groups)
+        else:
+            step_fn = make_rsn_train_step(
+                cfg.MODEL.EXTRA.get("STAGE_NUM", 1), ohkm=cfg.LOSS.USE_OHKM,
+                topk=cfg.LOSS.TOPK)
         upload, keys = upload_rsn_batch, ("image",) + RSN_BATCH_KEYS
     else:
         state = create_train_state(cfg, model, steps_per_epoch)
@@ -336,7 +411,7 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
 
         def upload(batch, device, epoch, i):
             return host_upload(batch, device)
-    if dist.is_initialized():
+    if dist.is_initialized() and not pipelined:
         # a process group: the step runs through DDP with the global
         # batch's BatchNorm, every rank from rank 0's tensors
         state.ddp = data_parallel(state.model)
@@ -387,13 +462,15 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
                               num_workers=cfg.WORKERS,
                               shard_index=shard_index,
                               num_shards=num_shards,
-                              as_tensors=device_augment is not None),
-                device, keys=keys)
+                              as_tensors=device_augment is not None,
+                              n_micro=n_micro),
+                train_device, keys=keys)
         train_iter_ds.seed(epoch)
         return epoch_loader(train_iter_ds, batch_size,
                             shuffle=cfg.TRAIN.SHUFFLE,
                             seed=epoch, group_ids=group_ids,
-                            shard_index=shard_index, num_shards=num_shards)
+                            shard_index=shard_index, num_shards=num_shards,
+                            n_micro=n_micro)
 
     def stop(i):
         # over several ranks the flag is OR-reduced (a collective every
@@ -424,7 +501,7 @@ def run(cfg, model, train_ds, val_ds, out_dir, device="cuda", guard=None):
         the step's device batch."""
         t_loaded = time.perf_counter()
         lr = state.optimizer.param_groups[0]["lr"]
-        device_batch = upload(batch, device, epoch, i)
+        device_batch = upload(batch, train_device, epoch, i)
         metrics = step_fn(state, device_batch)
         record["steps"].append({
             "epoch": epoch, "step": i, "iteration": iteration,

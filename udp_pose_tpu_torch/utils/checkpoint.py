@@ -193,11 +193,12 @@ def load_weights_tolerant(path, model, cfg):
     leaf of the longest suffix (:func:`align_suffix_keys`) where the
     shapes match; every other leaf keeps the fresh value.  Returns the
     number of leaves loaded."""
-    from .convert import (state_dict_to_torch, state_dict_to_variables,
-                          variables_to_state_dict)
+    from .convert import (jax_weight_variables, state_dict_to_torch,
+                          state_dict_to_variables, variables_to_state_dict)
     from .msgpack import read_file
     fresh = _flatten(state_dict_to_variables(model.state_dict(), cfg))
-    aligned = align_suffix_keys(fresh, _flatten(read_file(path)))
+    aligned = align_suffix_keys(fresh, _flatten(jax_weight_variables(
+        read_file(path))))
     kept = {k: aligned[k] for k, v in fresh.items()
             if k in aligned and np.shape(aligned[k]) == np.shape(v)}
     logger.info("tolerant load of %s: %d leaves loaded, %d kept fresh",

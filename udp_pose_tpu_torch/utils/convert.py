@@ -752,10 +752,25 @@ def onnx_initializers(path) -> Dict[str, np.ndarray]:
                 .initializers}
 
 
+def jax_weight_variables(tree):
+    """The weights in a ``.msgpack`` the JAX package wrote: a weight
+    file's variables, or the ``params`` and ``batch_stats`` of a rolling
+    or iteration checkpoint's ``state``; a pipelined RSN's ``{'stem',
+    'stages'}`` layout (``udp_pose_tpu/parallel/pipeline.py:266-299``)
+    unstacked into the standard tree, its padded last-stage leaves
+    dropped (:func:`..parallel.pipeline.standard_rsn_variables`)."""
+    from ..parallel.pipeline import standard_rsn_variables
+    if "params" not in tree and isinstance(tree.get("state"), dict):
+        tree = {k: tree["state"][k] for k in ("params", "batch_stats")
+                if k in tree["state"]}
+    return standard_rsn_variables(tree)
+
+
 def read_weights(path, cfg) -> Dict[str, np.ndarray]:
     """The pose weights of the file at ``path`` as the port's state dict:
     a ``.msgpack`` of the JAX package's variables (its ``save_weights``,
-    or :func:`write_msgpack_weights`) through
+    or :func:`write_msgpack_weights`; its checkpoints and its pipelined
+    RSN layout through :func:`jax_weight_variables`) through
     :func:`variables_to_state_dict`, else a reference ``.pth``/``.pt``
     (:func:`load_torch_state_dict`), or an ``.onnx`` artifact of the
     exporter, whose initializers carry the reference keys: they go
@@ -764,7 +779,8 @@ def read_weights(path, cfg) -> Dict[str, np.ndarray]:
     there)."""
     if str(path).endswith(".msgpack"):
         from .msgpack import read_file
-        return variables_to_state_dict(read_file(path), cfg)
+        return variables_to_state_dict(jax_weight_variables(read_file(path)),
+                                       cfg)
     if str(path).endswith(".onnx"):
         return variables_to_state_dict(
             state_dict_to_variables(onnx_initializers(path), cfg), cfg)

@@ -102,9 +102,10 @@ class OrbaxBackend:
             return os.path.join(self.root, str(step))
         snapshot = _to_host(train_payload(model, state,
                                           weights=model.state_dict()))
-        copied = None
-        if next(model.parameters()).device.type == "cuda":
-            copied = torch.cuda.current_stream().record_event()
+        # every card the model lives on (a pipelined model's stages)
+        copied = [torch.cuda.current_stream(d).record_event()
+                  for d in {t.device for t in model.state_dict().values()}
+                  if d.type == "cuda"]
         self._thread = threading.Thread(
             target=self._commit,
             args=(step, snapshot, copied, _json_meta(meta)),
@@ -114,8 +115,8 @@ class OrbaxBackend:
 
     def _commit(self, step, snapshot, copied, meta):
         try:
-            if copied is not None:
-                copied.synchronize()
+            for event in copied:
+                event.synchronize()
             final = os.path.join(self.root, str(step))
             tmp = f"{final}.tmp"
             shutil.rmtree(tmp, ignore_errors=True)
